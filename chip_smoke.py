@@ -10,19 +10,28 @@ Phases, each of which raises (exit code != 0) when it fails:
   build    the CUDA kernels built from src/repro_torch/csrc with nvcc;
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16 and fp32, at ``kernels.TOLERANCE``, with its device time,
-           the plain version's, one library call's as a yardstick, and the
-           least time the card could take (bytes or operations at the
-           H100's peak rates); then faults planted in the kernels' inputs
-           (a length one short, a window one long) must be rejected;
-  parity   qwen2.5-3b at full width, 2 layers, fp32: prefill and one
-           fused decode block on the card (kernels) against the same
-           weights on the CPU (plain versions);
-  serve    qwen2.5-3b at full width (36 layers, bf16, random weights from
-           a seed) through ``build_engine``: 8 requests, speculation on
-           and off; the token streams must agree and the kernel launch
-           counts must be the exact multiples the model implies;
-  profile  where one decode block of the full model spends its time:
-           wall time, device busy time under torch.profiler, idle share.
+           the plain version's, one library call's as a yardstick where
+           one exists, and the least time the card could take (bytes or
+           operations at the H100's peak rates), at the shapes qwen2.5-3b,
+           zamba2-1.2b and xlstm-350m give it; then faults planted in the
+           kernels' inputs (a length one short, a window one long, the
+           scan state not carried across a chunk boundary, a causal mask
+           one off) must be rejected;
+  parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
+           layers) and xlstm-350m (1 group, 6 layers) at full width in
+           fp32: prefill, its caches, one decode step and one fused decode
+           block on the card (kernels) against the same weights on the CPU
+           (plain versions);
+  serve    each model at full width and depth (bf16, random weights from
+           a seed) through ``build_engine``: 8 requests (and a ninth of
+           300 tokens for the recurrent models, so that a prefill scans
+           two chunks), qwen2.5-3b with speculation on and off (the token
+           streams must agree), the recurrent models once (speculation is
+           forced off); the kernel launch counts must be the exact
+           multiples each model implies;
+  profile  where one decode block of qwen2.5-3b and of zamba2-1.2b spends
+           its time: wall time, device busy time under torch.profiler,
+           idle share.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -161,10 +170,11 @@ def phase_kernels(state):
         plain_ms = device_ms(plain, args_list)
         lib_ms = device_ms(library, args_list) if library else None
         b_ms, b_by = bound(nbytes, ops, dname)
+        lib_txt = "none (no single PyTorch call computes this)" \
+            if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"kernels: {kernel:16s} {case:38s} err {err:.3g}  kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library "
-            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}  bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if main:
             rows[kernel] = dict(case=case, max_abs_err=err, ms=ms,
                                 plain_ms=plain_ms, library_ms=lib_ms,
@@ -283,39 +293,178 @@ def phase_kernels(state):
                            K.decode_attention_plain(qd, k, v, ln), tols[dname])
             log(f"kernels: extra hd={hdx} G={Hx // Hk} {dname}: flash err "
                 f"{err:.3g}, decode err {err_d:.3g}")
+
+    # the shapes the recurrent models add: rmsnorm at the widths of the
+    # Mamba2 inner norm, the mLSTM and the sLSTM over a 300-token prefill
+    for D in (4096, 2048, 1024):
+        def make(D=D):
+            return (randn(300, D, dt=torch.bfloat16),
+                    torch.randn(D, generator=gen, device=dev) * 0.1 + 1.0)
+        args_list = cold_copies(make, 300 * D * 2)
+        x, sc = args_list[0]
+        err = _check(f"rmsnorm [300,{D}]", K.rmsnorm(x, sc),
+                     K.rmsnorm_plain(x, sc), tols["bfloat16"])
+        weights = {sc.data_ptr(): sc.to(torch.bfloat16) for _, sc in args_list}
+        lib = lambda x, sc, w=weights, D=D: F.rms_norm(
+            x, (D,), w[sc.data_ptr()], 1e-5)
+        record("rmsnorm", f"[300,{D}] bfloat16", False, err, args_list,
+               K.rmsnorm, K.rmsnorm_plain, lib, 2 * 300 * D * 2 + 4 * D,
+               4 * 300 * D, "float32")
+
+    # zamba2's shared attention: 32 query and 32 KV heads of 64 (G = 1)
+    Hz, hdz, Sz = 32, 64, 300
+    for dname, dt in dts.items():
+        esz = torch.finfo(dt).bits // 8
+
+        def make(dt=dt):
+            return tuple(randn(1, Sz, Hz, hdz, dt=dt) for _ in range(3))
+        args_list = cold_copies(make, 4 * Sz * Hz * hdz * esz)
+        q, k, v = args_list[0]
+        run = lambda q, k, v: K.flash_attention(q, k, v, causal=True)
+        plain = lambda q, k, v: K.flash_attention_plain(q, k, v, causal=True)
+        err = _check(f"flash zamba2 S={Sz} {dname}", run(q, k, v),
+                     plain(q, k, v), tols[dname])
+        lib = lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True)
+        record("flash_attention", f"zamba2 S={Sz} H=32 G=1 hd=64 {dname}",
+               False, err, args_list, run, plain, lib,
+               4 * Sz * Hz * hdz * esz, 4 * hdz * Hz * Sz * (Sz + 1) // 2,
+               dname)
+
+        def make(dt=dt):
+            return (randn(B, Hz, hdz, dt=dt), randn(B, W, Hz, hdz, dt=dt),
+                    randn(B, W, Hz, hdz, dt=dt), lens.clone())
+        args_list = cold_copies(make, 2 * B * W * Hz * hdz * esz)
+        q, kc, vc, ln = args_list[0]
+        err = _check(f"decode zamba2 {dname}", K.decode_attention(q, kc, vc, ln),
+                     K.decode_attention_plain(q, kc, vc, ln), tols[dname])
+
+        def lib(q, kc, vc, ln, m=valid[:, None, None, :]):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=m)
+        record("decode_attention",
+               f"zamba2 B={B} W={W} H=32 G=1 hd=64 {dname}", False, err,
+               args_list, K.decode_attention, K.decode_attention_plain, lib,
+               (2 * B * Hz * hdz + 2 * n_valid * Hz * hdz) * esz + 4 * B,
+               4 * hdz * Hz * n_valid, dname)
+
+    _scan_kernels(randn, record)
     torch.cuda.synchronize()
 
 
-def phase_parity(state):
-    import numpy as np
+def _scan_kernels(randn, record):
+    """The two chunk scans at the shapes zamba2-1.2b and xlstm-350m give
+    them (Q = pick_chunk(S, 256): one chunk of 128, two of 150 for a
+    300-token prompt, four of 256, and 257 chunks of 1 for a prime
+    length), against their plain versions at the fp32 tolerance (both
+    compute and return fp32), with the faults planted that a scan must
+    not pass: the state not carried at a chunk boundary and a causal mask
+    one off.  No single PyTorch call computes either scan."""
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch import kernels as K
+
+    tol = K.TOLERANCE[torch.float32]
+    bf16 = torch.bfloat16
+    rn = lambda *shape: randn(*shape, dt=torch.float32)
+    cases = ((128, 1), (150, 2), (256, 4), (1, 257))
+
+    def copies(make, nbytes, nc):
+        return cold_copies(make, nbytes) if nc <= 16 else [make(), make()]
+
+    nh, P, N = 64, 64, 64      # zamba2-1.2b: d_in 4096 = 64 heads of 64
+    for Q, nc in cases:
+        def make(Q=Q, nc=nc):
+            return (rn(1, nc, Q, nh, P) * 0.5,
+                    (rn(1, nc, Q, N) * 0.5).to(bf16),
+                    (rn(1, nc, Q, N) * 0.5).to(bf16),
+                    torch.cumsum(-rn(1, nc, Q, nh).abs() * 0.1, 2))
+        rows = nc * Q
+        nbytes = 8 * rows * nh * P + 4 * rows * N + 4 * rows * nh \
+            + 4 * nh * P * N
+        pairs = nc * Q * (Q + 1) // 2
+        ops = 2 * (pairs * N + pairs * nh * P + 2 * rows * nh * P * N)
+        args_list = copies(make, nbytes, nc)
+        a = args_list[0]
+        name = f"mamba_chunk_scan Q={Q} nc={nc}"
+        y, st = K.mamba_chunk_scan(*a)
+        yp, sp = K.mamba_chunk_scan_plain(*a)
+        err = max(_check(f"{name} y", y, yp, tol),
+                  _check(f"{name} state", st, sp, tol))
+        if nc > 1:
+            parts = [K.mamba_chunk_scan(*(t[:, c:c + 1].contiguous()
+                                          for t in a))[0] for c in range(nc)]
+            _reject(f"{name} state not carried", torch.cat(parts, 1), yp, tol)
+        _reject(f"{name} causal mask one off", y,
+                K.mamba_chunk_scan_plain(*a, diagonal=-1)[0], tol)
+        record("mamba_chunk_scan", f"zamba2 Q={Q} nc={nc} nh=64 P=64 N=64",
+               (Q, nc) == (150, 2), err, args_list, K.mamba_chunk_scan,
+               K.mamba_chunk_scan_plain, None, nbytes, ops, "float32")
+
+    nh, dh = 4, 512            # xlstm-350m: d_in 2048 = 4 heads of 512
+    for Q, nc in cases:
+        def make(Q=Q, nc=nc):
+            return (*(((rn(1, nc, Q, nh, dh) * dh ** -0.25).to(bf16))
+                      for _ in range(2)),
+                    rn(1, nc, Q, nh, dh).to(bf16),
+                    torch.cumsum(-rn(1, nc, Q, nh).abs() * 0.2, 2),
+                    torch.clamp_max(rn(1, nc, Q, nh), 8.0))
+        rows = nc * Q
+        nbytes = 6 * rows * nh * dh + 8 * rows * nh + 4 * rows * nh * dh \
+            + 4 * nh * dh * (dh + 1)
+        pairs = nc * Q * (Q + 1) // 2
+        ops = 2 * nh * (pairs * (2 * dh + 1) + 2 * rows * dh * dh + rows * dh)
+        args_list = copies(make, nbytes, nc)
+        a = args_list[0]
+        name = f"mlstm_chunk_scan Q={Q} nc={nc}"
+        got = K.mlstm_chunk_scan(*a)
+        want = K.mlstm_chunk_scan_plain(*a)
+        err = max(_check(f"{name} {part}", g, w, tol)
+                  for part, g, w in zip(("y", "C", "n"), got, want))
+        if nc > 1:
+            parts = [K.mlstm_chunk_scan(*(t[:, c:c + 1].contiguous()
+                                          for t in a))[0] for c in range(nc)]
+            _reject(f"{name} state not carried", torch.cat(parts, 1),
+                    want[0], tol)
+        _reject(f"{name} causal mask one off", got[0],
+                K.mlstm_chunk_scan_plain(*a, diagonal=-1)[0], tol)
+        record("mlstm_chunk_scan", f"xlstm Q={Q} nc={nc} nh=4 dh=512",
+               (Q, nc) == (150, 2), err, args_list, K.mlstm_chunk_scan,
+               K.mlstm_chunk_scan_plain, None, nbytes, ops, "bfloat16")
+
+
+def _parity(cfg, toks, lens=None, cache_len=128, k=8):
+    """``cfg`` at full width, fp32: prefill (batched with ``lens``, else
+    per request), its caches, one decode step and one fused block on the
+    card (kernels) against the same weights on the CPU (plain versions)."""
+    import torch
     from repro_torch.models import model as M
     from repro_torch.serving.cache import cache_leaves
     from repro_torch.training import steps as ST
 
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
-                              dtype="float32")
     cpu_params = M.init_params(cfg, seed=0, device="cpu")
     gpu_params = copy.deepcopy(cpu_params).to("cuda")
-    cache_len, k = 128, 8
-    rng = np.random.default_rng(1)
-    lens = [37, 21]
-    toks = rng.integers(3, cfg.vocab_size, (2, max(lens))).astype("int32")
-    toks[1, lens[1]:] = 0
-    prefill = ST.make_batched_prefill_step(cfg, cache_len)
     fused = ST.make_fused_decode_step(cfg, k=k)
     res = {}
     for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         t = torch.as_tensor(toks, device=dev)
-        ln = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-        out, caches = prefill(params, t, ln)
+        if lens is None:
+            out, caches = ST.make_prefill_step(cfg, cache_len)(
+                params, {"tokens": t})
+            pos = torch.full((t.shape[0],), t.shape[1], dtype=torch.int32,
+                             device=dev)
+        else:
+            pos = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+            out, caches = ST.make_batched_prefill_step(cfg, cache_len)(
+                params, t, pos)
+        prefilled = [c.to("cpu", copy=True) for c in cache_leaves(caches)]
         logits, _ = M.forward(params, cfg, {"tokens": t})
-        pos = ln.clone()
-        step_logits, _ = M.decode_step(params, cfg, out["next_tokens"], pos,
-                                       copy.deepcopy(caches))
+        step_logits, _ = M.decode_step(params, cfg, out["next_tokens"],
+                                       pos.clone(), copy.deepcopy(caches))
         blk, caches = fused(params, out["next_tokens"], pos, caches)
         res[dev] = dict(logits=logits.cpu(), step=step_logits.cpu(),
+                        prefilled=prefilled,
                         caches=[c.cpu() for c in cache_leaves(caches)],
                         first=out["next_tokens"].cpu(),
                         **{n: blk[n].cpu() for n in ("tokens", "pos", "done")})
@@ -323,76 +472,157 @@ def phase_parity(state):
     for name in ("logits", "step"):
         err = (g[name] - c[name]).abs().max().item()
         assert torch.allclose(g[name], c[name], atol=1e-3, rtol=1e-3), \
-            f"parity: {name} differ, max |err| {err}"
-        log(f"parity: {name} {tuple(g[name].shape)} max |err| {err:.3g}")
-    cerr = max((a - b).abs().max().item()
-               for a, b in zip(g["caches"], c["caches"]))
-    assert cerr <= 1e-3, f"parity: caches differ by {cerr}"
+            f"parity {cfg.name}: {name} differ, max |err| {err}"
+        log(f"parity {cfg.name}: {name} {tuple(g[name].shape)} max |err| "
+            f"{err:.3g}")
+    for name in ("prefilled", "caches"):
+        errs = [(a.float() - b.float()).abs().max().item()
+                for a, b in zip(g[name], c[name])]
+        assert all(torch.allclose(a.float(), b.float(), atol=1e-3, rtol=1e-3)
+                   for a, b in zip(g[name], c[name])), \
+            f"parity {cfg.name}: {name} differ by up to {max(errs)}"
+        log(f"parity {cfg.name}: {name} ({len(errs)} leaves) max |err| "
+            f"{max(errs):.3g}")
     for name in ("first", "tokens", "pos", "done"):
         assert torch.equal(g[name], c[name]), \
-            f"parity: {name} differ: {g[name].tolist()} vs {c[name].tolist()}"
-    log(f"parity: caches max |err| {cerr:.3g}; next tokens, fused-block "
-        f"tokens/pos/done equal: {g['tokens'].tolist()}")
+            f"parity {cfg.name}: {name} differ: {g[name].tolist()} vs " \
+            f"{c[name].tolist()}"
+    log(f"parity {cfg.name}: next tokens, fused-block tokens/pos/done "
+        f"equal: {g['tokens'].tolist()}")
 
 
-def phase_serve(state):
+def phase_parity(state):
+    """qwen2.5-3b with 2 layers and the batched prefill;
+    zamba2-1.2b with 2 groups (12 Mamba2 layers, 2 shared-attention
+    applications) and xlstm-350m with 1 group (5 mLSTM + 1 sLSTM), each
+    prefilling two 300-token prompts (two chunks of 150)."""
     import numpy as np
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(1)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=2,
+                              dtype="float32")
+    lens = [37, 21]
+    toks = rng.integers(3, cfg.vocab_size, (2, max(lens))).astype("int32")
+    toks[1, lens[1]:] = 0
+    _parity(cfg, toks, lens)
+    for arch, layers in (("zamba2-1.2b", 12), ("xlstm-350m", 6)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        toks = rng.integers(3, cfg.vocab_size, (2, 300)).astype("int32")
+        _parity(cfg, toks, cache_len=512)
+
+
+def _serve(cfg, params, prompts, max_new, block_k, speculate=True):
+    """One engine run; returns (outputs, launches, seconds, tokens,
+    stats) after checking every token and every stream's end."""
     import torch
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine
-    from repro_torch.models import model as M
 
-    cfg = get_config("qwen2.5-3b")
-    L, block_k, max_new = cfg.num_layers, 8, 32
+    eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=block_k,
+                       pipeline_depth=4, params=params, device="cuda",
+                       speculate=speculate)
+    for p in prompts:
+        eng.submit(p, max_new)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    st = dict(eng.stats)
+    ntok = sum(len(v) for v in outs.values())
+    log(f"serve {cfg.name}[{'spec' if eng.speculate else 'sync'}]: {ntok} "
+        f"tokens in {dt:.3f} s ({ntok / dt:.1f} tok/s); stats {st}; "
+        f"launches {launches}")
+    assert len(outs) == len(prompts)
+    for rid, toks in outs.items():
+        assert 1 <= len(toks) <= max_new, (rid, len(toks))
+        assert all(0 <= t < cfg.vocab_size for t in toks), rid
+        assert len(toks) == max_new or toks[-1] == 2, (rid, toks)
+    return outs, launches, dt, ntok, st
+
+
+def _prompts(cfg, n, seed, extra=()):
+    """n prompts of 16-200 tokens, then one of each length in ``extra``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    draw = lambda length: list(map(int, rng.integers(3, cfg.vocab_size,
+                                                     length)))
+    return [draw(int(rng.integers(16, 201))) for _ in range(n)] + \
+        [draw(length) for length in extra]
+
+
+def _init_params(cfg):
+    import torch
+    from repro_torch.models import model as M
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     log(f"serve: {cfg.name} {n_params / 1e9:.3f} B params ({cfg.dtype}) "
         f"initialised on the card in {time.perf_counter() - t0:.2f} s")
-    rng = np.random.default_rng(0)
-    prompts = [list(map(int, rng.integers(3, cfg.vocab_size,
-                                          int(rng.integers(16, 201)))))
-               for _ in range(8)]
+    return params
+
+
+def phase_serve(state):
+    from repro_torch.configs import get_config
+
+    block_k, max_new = 8, 32
+    cfg = get_config("qwen2.5-3b")
+    L = cfg.num_layers
+    params = _init_params(cfg)
+    prompts = _prompts(cfg, 8, 0)
     runs = {}
     for speculate in (True, False):
-        eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=block_k,
-                           pipeline_depth=4, params=params, device="cuda",
-                           speculate=speculate)
-        for p in prompts:
-            eng.submit(p, max_new)
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        outs = eng.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {k.__name__: k.launches for k in K.KERNELS}
-        st = eng.stats
-        ntok = sum(len(v) for v in outs.values())
-        mode = "spec" if speculate else "sync"
-        log(f"serve[{mode}]: {ntok} tokens in {dt:.3f} s "
-            f"({ntok / dt:.1f} tok/s); stats {dict(st)}; launches {launches}")
+        outs, launches, dt, ntok, st = _serve(cfg, params, prompts, max_new,
+                                              block_k, speculate)
         pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
         assert launches["flash_attention"] == L * pd, launches
         assert launches["decode_attention"] == L * block_k * bd, launches
         assert launches["rmsnorm"] == (2 * L + 1) * (pd + block_k * bd), \
             launches
-        for rid, toks in outs.items():
-            assert 1 <= len(toks) <= max_new, (rid, len(toks))
-            assert all(0 <= t < cfg.vocab_size for t in toks), rid
-            assert len(toks) == max_new or toks[-1] == 2, (rid, toks)
-        runs[mode] = (outs, launches, dt, ntok, dict(st))
-    assert runs["spec"][0] == runs["sync"][0], \
+        runs[speculate] = (outs, launches, st)
+    assert runs[True][0] == runs[False][0], \
         "serve: speculative and synchronous token streams differ"
-    assert runs["spec"][4]["host_syncs"] < runs["sync"][4]["host_syncs"]
-    state["launches"] = runs["spec"][1]
-    state["params"] = params
+    assert runs[True][2]["host_syncs"] < runs[False][2]["host_syncs"]
     log("serve: speculative and synchronous token streams are identical")
+    state["launches"] = dict(runs[True][1])
+    state["params"] = {cfg.name: params}
+
+    # the recurrent families: per-request prefill, speculation forced off;
+    # a 300-token prompt puts a two-chunk scan on the path
+    for arch in ("zamba2-1.2b", "xlstm-350m"):
+        cfg = get_config(arch)
+        L = cfg.num_layers
+        params = _init_params(cfg)
+        outs, launches, dt, ntok, st = _serve(
+            cfg, params, _prompts(cfg, 8, 1, extra=(300,)), max_new, block_k)
+        pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+        assert st.get("spec_blocks", 0) == 0 and pd == 9, st
+        steps = pd + block_k * bd
+        if cfg.family == "hybrid":
+            groups = L // cfg.shared_every
+            want = {"mamba_chunk_scan": L * pd, "flash_attention": groups * pd,
+                    "decode_attention": groups * block_k * bd,
+                    "rmsnorm": (2 * L + 2 * groups + 1) * steps,
+                    "mlstm_chunk_scan": 0}
+        else:
+            n_m = L - len(cfg.xlstm.slstm_at)
+            want = {"mlstm_chunk_scan": n_m * pd, "rmsnorm": (2 * L + 1) * steps,
+                    "flash_attention": 0, "decode_attention": 0,
+                    "mamba_chunk_scan": 0}
+        assert launches == want, (launches, want)
+        kernel = "mamba_chunk_scan" if cfg.family == "hybrid" \
+            else "mlstm_chunk_scan"
+        state["launches"][kernel] = launches[kernel]
+        state["params"][cfg.name] = params
+        log(f"serve {cfg.name}: launches equal {want}")
 
 
-def phase_profile(state):
+def _profile(cfg, params):
     """Where one fused decode block's time goes at full width: host clock
     around a synchronous block, and torch.profiler's device kernels for
     the same block (busy = union of kernel intervals)."""
@@ -400,14 +630,8 @@ def phase_profile(state):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
     from repro_torch.launch.serve import build_engine
-    from repro_torch.models import model as M
 
-    cfg = get_config("qwen2.5-3b")
-    params = state.get("params")
-    if params is None:
-        params = M.init_params(cfg, seed=0, device="cuda")
     eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=8,
                        params=params, device="cuda", speculate=False)
     rng = np.random.default_rng(0)
@@ -415,9 +639,9 @@ def phase_profile(state):
         eng.submit(list(map(int, rng.integers(3, cfg.vocab_size, 128))), 64)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step_block()                   # admission: one batched prefill
+    eng.step_block()                   # admission: the prefills
     torch.cuda.synchronize()
-    log(f"profile: prefill 4x128 + first block: "
+    log(f"profile {cfg.name}: prefill 4x128 + first block: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
     eng.step_block()                   # warm
     walls = []
@@ -442,15 +666,23 @@ def phase_profile(state):
         else:
             cur_e = max(cur_e, e)
     busy = (busy + (cur_e - cur_s if cur_e is not None else 0)) / 1e3
-    log(f"profile: one 8-step decode block, 4 slots: {wall:.2f} ms wall "
-        f"(best of {walls}); device busy {busy:.2f} ms over {len(kern)} "
-        f"kernels; device idle share {1 - busy / wall:.3f}")
+    log(f"profile {cfg.name}: one 8-step decode block, 4 slots: {wall:.2f} "
+        f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
+        f"{len(kern)} kernels; device idle share {1 - busy / wall:.3f}")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
                                        row_limit=8, max_name_column_width=40)
-    log("profile: top by device time\n" + by_dev)
-    log("profile: top by host time\n" + by_cpu)
+    log(f"profile {cfg.name}: top by device time\n" + by_dev)
+    log(f"profile {cfg.name}: top by host time\n" + by_cpu)
+
+
+def phase_profile(state):
+    from repro_torch.configs import get_config
+    for arch in ("qwen2.5-3b", "zamba2-1.2b"):
+        cfg = get_config(arch)
+        params = state.get("params", {}).get(arch)
+        _profile(cfg, params if params is not None else _init_params(cfg))
 
 
 def main(argv=None) -> int:

@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
-``rmsnorm``, ``flash_attention`` and ``decode_attention`` are
-``torch.library`` custom ops: a CUDA tensor launches the kernel built from
+``rmsnorm``, ``flash_attention``, ``decode_attention``,
+``mamba_chunk_scan`` and ``mlstm_chunk_scan`` are ``torch.library``
+custom ops: a CUDA tensor launches the kernel built from
 ``csrc/`` (``_build``), a CPU tensor takes the plain PyTorch version.
 Each wrapper counts its kernel launches in ``.launches``.
 """
@@ -11,9 +12,13 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
+                                            mamba_chunk_scan_plain)
+from repro_torch.kernels.mlstm import mlstm_chunk_scan, mlstm_chunk_scan_plain
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
-KERNELS = (rmsnorm, flash_attention, decode_attention)
+KERNELS = (rmsnorm, flash_attention, decode_attention, mamba_chunk_scan,
+           mlstm_chunk_scan)
 
 # atol = rtol of a kernel against its plain version on the same inputs.
 # The largest differences measured on an H100 were 1.6e-6 in fp32 and one
@@ -30,5 +35,7 @@ def reset_launches() -> None:
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "flash_attention_plain", "decode_attention",
-           "decode_attention_plain", "KERNELS", "TOLERANCE",
+           "decode_attention_plain", "mamba_chunk_scan",
+           "mamba_chunk_scan_plain", "mlstm_chunk_scan",
+           "mlstm_chunk_scan_plain", "KERNELS", "TOLERANCE",
            "reset_launches"]

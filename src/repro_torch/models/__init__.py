@@ -1,1 +1,2 @@
-"""Model config, layers and the dense stage-structured model."""
+"""Model config, layers, the Mamba2 and xLSTM blocks, and the
+stage-structured model (dense, hybrid and ssm stages)."""

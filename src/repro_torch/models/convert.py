@@ -3,9 +3,10 @@
 ``params_from_jax(cfg, tree)`` takes the JAX package's parameter pytree as
 numpy arrays (e.g. ``jax.tree.map(np.asarray, init_params(cfg, key))``)
 and returns the port's ``ParamTree`` on ``device``.  The reference stacks a stage's
-blocks on a leading axis (its ``stack_schema``, scanned by ``lax.scan``);
-the port keeps one module per block, so that axis is un-stacked here.
-Nothing in this module imports JAX: the arrays arrive as numpy.
+blocks on a leading axis (its ``stack_schema``, scanned by ``lax.scan``),
+and stacks again the blocks inside a group (zamba2's ``mambas``, xLSTM's
+``m``); the port keeps one module per block, so both axes are un-stacked
+here.  Nothing in this module imports JAX: the arrays arrive as numpy.
 """
 from __future__ import annotations
 
@@ -28,20 +29,22 @@ def params_from_jax(cfg, tree, device="cuda"):
         dt = L.torch_dtype(spec.dtype or cfg.dtype)
         return torch.from_numpy(arr).to(device=device, dtype=dt)
 
-    def walk(schema, sub, i=None):
+    def walk(schema, sub, idx=()):
+        """A list in the port's schema is a stack in the reference's
+        (unless it holds one block): its index joins ``idx``."""
         if isinstance(schema, ParamSpec):
-            return tensor(schema, sub if i is None else np.asarray(sub)[i])
-        return {k: walk(s, sub[k], i) for k, s in schema.items()}
+            return tensor(schema, np.asarray(sub)[idx] if idx else sub)
+        if isinstance(schema, list):
+            return [walk(s, sub, idx + ((i,) if len(schema) > 1 else ()))
+                    for i, s in enumerate(schema)]
+        return {k: walk(s, sub[k], idx) for k, s in schema.items()}
 
     schema = M.model_schema(cfg)
     entries = {}
     for name, s in schema.items():
-        if name != "stages":
+        if name == "stages":    # a list of stages in both packages
+            entries[name] = [walk(blocks, jstage) for blocks, jstage
+                             in zip(s, tree["stages"])]
+        else:
             entries[name] = walk(s, tree[name])
-            continue
-        entries[name] = [
-            [walk(b, jstage, None if st.n == 1 else i)
-             for i, b in enumerate(blocks)]
-            for st, blocks, jstage in zip(M.build_stages(cfg), s,
-                                          tree["stages"])]
     return L.to_module(entries)

@@ -1,15 +1,19 @@
-"""Stage-structured model: the dense stage.
+"""Stage-structured model: the dense, hybrid (zamba2) and ssm (xLSTM)
+stages.
 
 Counterpart of ``repro/models/model.py``.  A model is a list of stages;
 where the reference scans each stage over params stacked on a leading
 axis, the port keeps a stage as an ``nn.ModuleList`` of blocks and loops
-over it.  Caches keep the reference's layout: one dict per stage with a
-leading layer axis when the stage has more than one block.
+over it, and does the same for the blocks the reference stacks a second
+time inside a group (zamba2's ``mambas``, xLSTM's ``m``).  Caches keep the
+reference's layout leaf for leaf: one dict per stage with a leading layer
+(group) axis when the stage has more than one block, and a second stacked
+axis for the in-group blocks (``[n_groups, 6, B, ...]``).  Decode updates
+the caches in place.
 
-Only the ``dense`` family is ported; the others raise
-``NotImplementedError`` (ROADMAP Queue 1, item 11).  Int8 serving weights
-(the reference's ``_maybe_dequant``) wait for ``serving/quant.py``
-(Queue 1, item 12).
+The moe, audio and vlm families raise ``NotImplementedError`` (ROADMAP
+Queue 1, item 11).  Int8 serving weights (the reference's
+``_maybe_dequant``) wait for ``serving/quant.py`` (Queue 1, item 12).
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
+from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
 
@@ -48,16 +54,28 @@ def build_stages(cfg: ModelConfig) -> List[StageDef]:
     return [StageDef("dense", cfg.num_layers)]
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+XLSTM_ORDER = (0, 1, 2, None, 3, 4)   # None: the sLSTM (in-group index 3)
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"repro_torch ports the dense family only; '{cfg.name}' is "
-            f"family '{cfg.family}' (ROADMAP Queue 1, item 11)")
+            f"repro_torch ports the {', '.join(PORTED_FAMILIES)} families; "
+            f"'{cfg.name}' is family '{cfg.family}' (ROADMAP Queue 1, "
+            f"item 11)")
 
 
 def _block_schema(cfg: ModelConfig, kind: str):
-    assert kind == "dense", kind
     nrm = lambda: L.norm_schema(cfg.d_model, cfg.norm)
+    if kind == "zamba_group":
+        return {"mambas": [{"ln1": nrm(), "mamba": SSM.mamba2_schema(cfg)}
+                           for _ in range(cfg.shared_every)]}
+    if kind == "xlstm_group":
+        return {"m": [{"ln1": nrm(), "cell": XL.mlstm_schema(cfg)}
+                      for _ in range(5)],
+                "s": {"ln1": nrm(), "cell": XL.slstm_schema(cfg)}}
+    assert kind == "dense", kind
     s = {"ln1": nrm(), "attn": L.gqa_schema(cfg)}
     if not cfg.parallel_block:
         s["ln2"] = nrm()
@@ -67,8 +85,9 @@ def _block_schema(cfg: ModelConfig, kind: str):
 
 def model_schema(cfg: ModelConfig):
     """The reference's schema with each stage as a list of per-block
-    schemas instead of one stacked schema."""
-    _require_dense(cfg)
+    schemas instead of one stacked schema (and lists for the blocks stacked
+    inside a group)."""
+    _require_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     s: Dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "fsdp"), D ** -0.5),
@@ -78,6 +97,11 @@ def model_schema(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         s["lm_head"] = ParamSpec((D, V), ("fsdp", "vocab"), D ** -0.5)
+    if cfg.family == "hybrid":  # zamba2 shared attention block (per group)
+        s["shared"] = {"ln1": L.norm_schema(D, cfg.norm),
+                       "attn": L.gqa_schema(cfg),
+                       "ln2": L.norm_schema(D, cfg.norm),
+                       "mlp": L.mlp_schema(cfg)}
     return s
 
 
@@ -91,8 +115,42 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
 
 
 # -------------------------------------------------------------- forward ----
-def _block_forward(kind, p, h, cfg):
-    """Full-sequence forward for one dense block -> (h, {'k','v'})."""
+def _tree_stack(trees: list):
+    """Stack a list of like cache trees leaf by leaf on a new axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _block_forward(kind, p, h, cfg, shared=None):
+    """Full-sequence forward for one block -> (h, cache_out)."""
+    if kind == "zamba_group":
+        states = []
+        for pm in p["mambas"]:
+            hn = L.apply_norm(pm["ln1"], h, cfg.norm)
+            y, st = SSM.mamba2_forward(pm["mamba"], hn, cfg)
+            states.append(st)
+            h = h + y
+        hn = L.apply_norm(shared["ln1"], h, cfg.norm)
+        a, (k, v) = L.gqa_attention(shared["attn"], hn, cfg)
+        h = h + a
+        hn = L.apply_norm(shared["ln2"], h, cfg.norm)
+        h = h + L.apply_mlp(shared["mlp"], hn, cfg)
+        return h, {"mamba": _tree_stack(states), "attn": {"k": k, "v": v}}
+    if kind == "xlstm_group":
+        m_states, s_state = [], None
+        for idx in XLSTM_ORDER:
+            if idx is None:
+                hn = L.apply_norm(p["s"]["ln1"], h, cfg.norm)
+                y, s_state = XL.slstm_forward(p["s"]["cell"], hn, cfg)
+            else:
+                pm = p["m"][idx]
+                hn = L.apply_norm(pm["ln1"], h, cfg.norm)
+                y, (C, n) = XL.mlstm_forward(pm["cell"], hn, cfg)
+                m_states.append({"C": C, "n": n})
+            h = h + y
+        return h, {"m": _tree_stack(m_states),
+                   "s": dict(zip(("h", "c", "n", "m"), s_state))}
     hn = L.apply_norm(p["ln1"], h, cfg.norm)
     a, (k, v) = L.gqa_attention(p["attn"], hn, cfg)
     if cfg.parallel_block:
@@ -104,28 +162,24 @@ def _block_forward(kind, p, h, cfg):
     return h, {"k": k, "v": v}
 
 
-def _stack(xs: list):
-    return xs[0] if len(xs) == 1 else torch.stack(xs)
-
-
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             collect_cache: bool = False):
     """Full-sequence forward -> (logits [B,S,V], aux_loss[, kv_stacks]).
-    With ``collect_cache`` each stage's K/V ({'k','v'} with a leading
-    layer axis when the stage has several blocks) is returned for
-    ``assemble_caches``."""
-    _require_dense(cfg)
+    With ``collect_cache`` each stage's K/V or final recurrent states
+    (with a leading layer axis when the stage has several blocks) are
+    returned for ``assemble_caches``."""
+    _require_ported(cfg)
     h = F.embedding(batch["tokens"], params["embed"])
+    shared = params["shared"] if "shared" in params else None
     kv_stacks = []
     for st, blocks in zip(build_stages(cfg), params["stages"]):
-        ks, vs = [], []
+        outs = []
         for p in blocks:
-            h, kv = _block_forward(st.kind, p, h, cfg)
+            h, out = _block_forward(st.kind, p, h, cfg, shared)
             if collect_cache:
-                ks.append(kv["k"])
-                vs.append(kv["v"])
+                outs.append(out)
         if collect_cache:
-            kv_stacks.append({"k": _stack(ks), "v": _stack(vs)})
+            kv_stacks.append(outs[0] if len(outs) == 1 else _tree_stack(outs))
     h = L.apply_norm(params["final_norm"], h, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, head) * cfg.logit_scale
@@ -135,16 +189,21 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
 
 
 # --------------------------------------------------------------- decode ----
+def _stack_state(state, n: int):
+    """``state`` repeated on a new leading axis of n (itself when n == 1)."""
+    return state if n == 1 else _tree_stack([state] * n)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
     """Cache per stage (leading layer axis when the stage has n > 1)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     dt = L.torch_dtype(cfg.dtype)
     Hkv, hd = cfg.num_kv_heads, cfg.hd()
     W = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
 
-    def kv(n):
-        shape = (batch, W, Hkv, hd) if n == 1 else (n, batch, W, Hkv, hd)
+    def kv(n, w=W):
+        shape = (batch, w, Hkv, hd) if n == 1 else (n, batch, w, Hkv, hd)
         z = lambda shp, t: torch.zeros(shp, dtype=t, device=device)
         if cfg.kv_quant:
             sshape = shape[:-1] + (1,)
@@ -152,41 +211,115 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
                     "v": z(shape, torch.int8), "v_s": z(sshape, torch.float32)}
         return {"k": z(shape, dt), "v": z(shape, dt)}
 
-    return [kv(st.n) for st in build_stages(cfg)]
+    caches = []
+    for st in build_stages(cfg):
+        if st.kind == "zamba_group":
+            m = SSM.mamba2_init_state(cfg, batch, dt, device)
+            caches.append({
+                "mamba": _stack_state(_stack_state(m, cfg.shared_every), st.n),
+                "attn": kv(st.n, w=cache_len)})
+        elif st.kind == "xlstm_group":
+            caches.append({
+                "m": _stack_state(_stack_state(
+                    XL.mlstm_init_state(cfg, batch, device), 5), st.n),
+                "s": _stack_state(XL.slstm_init_state(cfg, batch, device),
+                                  st.n)})
+        else:
+            caches.append(kv(st.n))
+    return caches
 
 
 def cache_axes(cfg: ModelConfig):
     """Logical axes mirroring ``init_cache`` (the reference's names)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     kv = ("batch", "kv_seq", "kv_heads", "head_dim")
     names = ("k", "k_s", "v", "v_s") if cfg.kv_quant else ("k", "v")
-    return [{name: kv if s.n == 1 else ("stack",) + kv for name in names}
-            for s in build_stages(cfg)]
+    kv_entry = lambda pre: {name: pre + kv for name in names}
+    axes = []
+    for s in build_stages(cfg):
+        pre = () if s.n == 1 else ("stack",)
+        if s.kind == "zamba_group":
+            m = pre + (None,)
+            axes.append({"mamba": {"ssm": m + ("batch", "ssm_heads", None,
+                                               None),
+                                   "conv": {"x": m + ("batch", None,
+                                                      "ssm_inner"),
+                                            "bc": m + ("batch", None, None)}},
+                         "attn": kv_entry(pre)})
+        elif s.kind == "xlstm_group":
+            axes.append({"m": {"C": pre + (None, "batch", "ssm_heads", None,
+                                           None),
+                               "n": pre + (None, "batch", "ssm_heads", None)},
+                         "s": {k: pre + ("batch", "ssm_heads", None)
+                               for k in ("h", "c", "n", "m")}})
+        else:
+            axes.append(kv_entry(pre))
+    return axes
 
 
-def _block_decode(kind, p, h, cache, pos, cfg):
-    """Single-token decode for one dense block.  h [B,1,D]; ``cache`` is
-    the block's cache, updated in place."""
-    hn = L.apply_norm(p["ln1"], h, cfg.norm)
-    a, cache = L.gqa_decode(p["attn"], hn, cfg, cache, pos)
-    if cfg.parallel_block:
-        h = h + a + L.apply_mlp(p["mlp"], hn, cfg)
+def _index(tree, i: int):
+    """The i-th slice (a view) of every leaf of a cache tree."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _assign(dst, src) -> None:
+    """Write the leaves of ``src`` into the cache views ``dst`` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _assign(dst[k], src[k])
     else:
+        dst.copy_(src)
+
+
+def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
+    """Single-token decode for one block.  h [B,1,D]; ``cache`` is the
+    block's cache, updated in place."""
+    if kind == "zamba_group":
+        for i, pm in enumerate(p["mambas"]):
+            ci = _index(cache["mamba"], i)
+            hn = L.apply_norm(pm["ln1"], h, cfg.norm)
+            y, new = SSM.mamba2_decode(pm["mamba"], hn, cfg, ci)
+            _assign(ci, new)
+            h = h + y
+        hn = L.apply_norm(shared["ln1"], h, cfg.norm)
+        a, _ = L.gqa_decode(shared["attn"], hn, cfg, cache["attn"], pos)
         h = h + a
-        hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
-        h = h + L.apply_mlp(p["mlp"], hn2, cfg)
-    return h, cache
+        hn = L.apply_norm(shared["ln2"], h, cfg.norm)
+        return h + L.apply_mlp(shared["mlp"], hn, cfg)
+    if kind == "xlstm_group":
+        for idx in XLSTM_ORDER:
+            if idx is None:
+                hn = L.apply_norm(p["s"]["ln1"], h, cfg.norm)
+                y, new = XL.slstm_decode(p["s"]["cell"], hn, cfg, cache["s"])
+                _assign(cache["s"], new)
+            else:
+                ci = _index(cache["m"], idx)
+                hn = L.apply_norm(p["m"][idx]["ln1"], h, cfg.norm)
+                y, new = XL.mlstm_decode(p["m"][idx]["cell"], hn, cfg, ci)
+                _assign(ci, new)
+            h = h + y
+        return h
+    hn = L.apply_norm(p["ln1"], h, cfg.norm)
+    a, _ = L.gqa_decode(p["attn"], hn, cfg, cache, pos)
+    if cfg.parallel_block:
+        return h + a + L.apply_mlp(p["mlp"], hn, cfg)
+    h = h + a
+    hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
+    return h + L.apply_mlp(p["mlp"], hn2, cfg)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, pos, caches):
     """tokens [B], pos [B] -> (logits [B,V], caches).  The caches are
     updated in place and returned."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     h = F.embedding(tokens[:, None], params["embed"])
+    shared = params["shared"] if "shared" in params else None
     for st, blocks, cache in zip(build_stages(cfg), params["stages"], caches):
         for i, p in enumerate(blocks):
-            layer = cache if st.n == 1 else {k: c[i] for k, c in cache.items()}
-            h, _ = _block_decode(st.kind, p, h, layer, pos, cfg)
+            layer = cache if st.n == 1 else _index(cache, i)
+            h = _block_decode(st.kind, p, h, layer, pos, cfg, shared)
     h = L.apply_norm(params["final_norm"], h, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (h[:, 0] @ head) * cfg.logit_scale
@@ -205,22 +338,31 @@ def _pad_kv(kv, cache_len, window):
 
 def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
                     seq_len: int):
-    """Turn ``forward(collect_cache=True)`` outputs into decode caches."""
-    _require_dense(cfg)
+    """Turn ``forward(collect_cache=True)`` outputs into decode caches:
+    K/V padded to the cache length, recurrent states as they are."""
+    _require_ported(cfg)
     W = cfg.sliding_window
-    caches = []
-    for kvs in kv_stacks:
-        k, v = kvs["k"], kvs["v"]
+
+    def kv_assemble(k, v):
         if cfg.kv_quant:
             kq, ks = L.kv_quantize(k)
             vq, vs = L.kv_quantize(v)
-            caches.append({"k": _pad_kv(kq, cache_len, W),
-                           "k_s": _pad_kv(ks, cache_len, W),
-                           "v": _pad_kv(vq, cache_len, W),
-                           "v_s": _pad_kv(vs, cache_len, W)})
+            return {"k": _pad_kv(kq, cache_len, W),
+                    "k_s": _pad_kv(ks, cache_len, W),
+                    "v": _pad_kv(vq, cache_len, W),
+                    "v_s": _pad_kv(vs, cache_len, W)}
+        return {"k": _pad_kv(k, cache_len, W), "v": _pad_kv(v, cache_len, W)}
+
+    caches = []
+    for st, kvs in zip(build_stages(cfg), kv_stacks):
+        if st.kind == "zamba_group":
+            caches.append({"mamba": kvs["mamba"],
+                           "attn": kv_assemble(kvs["attn"]["k"],
+                                               kvs["attn"]["v"])})
+        elif st.kind == "xlstm_group":
+            caches.append(kvs)
         else:
-            caches.append({"k": _pad_kv(k, cache_len, W),
-                           "v": _pad_kv(v, cache_len, W)})
+            caches.append(kv_assemble(kvs["k"], kvs["v"]))
     return caches
 
 

@@ -6,8 +6,8 @@ a machine with a card and no JAX:
     python -m pytest -q tests/test_torch_cuda.py
 
 Each kernel against its plain version, the wrappers' refusals, and the
-smoke engines on the card against the same engines on the CPU.  The test
-that the tolerances reject planted faults also runs on the CPU, where the
+smoke engines on the card against the same engines on the CPU.  The tests
+that the tolerances reject planted faults also run on the CPU, where the
 wrappers take their plain versions.
 """
 import copy
@@ -68,7 +68,8 @@ def test_kernels_match_plain(cuda, dt, B, Sq, Sk, H, Hkv, hd, causal,
     _close(K.decode_attention(qd, k, v, lens),
            K.decode_attention_plain(qd, k, v, lens), TOL[dt])
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(K.KERNELS, before)] == [1, 1, 1]
+    assert [f.launches - b for f, b in zip(K.KERNELS, before)] == \
+        [1, 1, 1, 0, 0]
 
 
 def _agree(a, b, tol):
@@ -154,3 +155,99 @@ def test_live_channel_puts_host_inputs_on_the_params_device(request, device):
                              np.array([3], np.int32), caches)
     assert blk["tokens"].device.type == dev.type
     assert blk["tokens"].shape == (1, 4)
+
+
+# the chunk-scan shapes of zamba2-1.2b and xlstm-350m: (Q, nc) for prompts
+# of 128, 300 and 1024 tokens and a prime length of 257
+SCAN_CASES = [(128, 1), (150, 2), (256, 4), (1, 257)]
+SCANS = {"mamba": (K.mamba_chunk_scan, K.mamba_chunk_scan_plain),
+         "mlstm": (K.mlstm_chunk_scan, K.mlstm_chunk_scan_plain)}
+
+
+def _scan_inputs(dev, which, Q, nc):
+    rn = _randn(dev, 3)
+    bf16 = torch.bfloat16
+    if which == "mamba":                 # nh = P = N = 64
+        return (rn(1, nc, Q, 64, 64) * 0.5, (rn(1, nc, Q, 64) * 0.5).to(bf16),
+                (rn(1, nc, Q, 64) * 0.5).to(bf16),
+                torch.cumsum(-rn(1, nc, Q, 64).abs() * 0.1, 2))
+    return (*((rn(1, nc, Q, 4, 512) * 512 ** -0.25).to(bf16)  # nh 4, dh 512
+              for _ in range(2)), rn(1, nc, Q, 4, 512).to(bf16),
+            torch.cumsum(-rn(1, nc, Q, 4).abs() * 0.2, 2),
+            torch.clamp_max(rn(1, nc, Q, 4), 8.0))
+
+
+@pytest.mark.parametrize("Q,nc", SCAN_CASES)
+@pytest.mark.parametrize("which", sorted(SCANS))
+def test_scans_match_plain(cuda, which, Q, nc):
+    """Outputs and final states, all fp32, at the fp32 tolerance."""
+    kernel, plain = SCANS[which]
+    a = _scan_inputs(cuda, which, Q, nc)
+    before = kernel.launches
+    got = kernel(*a)
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(*a)):
+        assert g.dtype == torch.float32
+        _close(g, w, TOL[torch.float32])
+    assert kernel.launches == before + 1
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("which", sorted(SCANS))
+def test_scan_tolerance_rejects_planted_faults(request, device, which):
+    """At two chunks of 150, the state dropped at the chunk boundary and
+    a causal mask one off each fail the check the scan passes."""
+    dev = request.getfixturevalue("cuda") if device == "cuda" \
+        else torch.device("cpu")
+    kernel, plain = SCANS[which]
+    a = _scan_inputs(dev, which, 150, 2)
+    tol = TOL[torch.float32]
+    want = plain(*a)[0]
+    got = kernel(*a)[0]
+    assert _agree(got, want, tol)
+    fresh = torch.cat([kernel(*(t[:, c:c + 1].contiguous() for t in a))[0]
+                       for c in range(2)], 1)
+    assert not _agree(fresh, want, tol)
+    assert not _agree(got, plain(*a, diagonal=-1)[0], tol)
+
+
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    a = _scan_inputs(cuda, "mamba", 4, 2)
+    with pytest.raises(ValueError, match="N=65"):
+        K.mamba_chunk_scan(a[0], *(torch.cat([t, t[..., :1]], -1)
+                                   for t in a[1:3]), a[3])
+    with pytest.raises(ValueError, match="dtypes"):
+        K.mamba_chunk_scan(a[0].to(torch.bfloat16), *a[1:])
+    for shape, what in (((1, 1, 257, 1, 16), "Q=257"),
+                        ((1, 1, 4, 1, 520), "dh=520")):
+        q = _randn(cuda, 4)(*shape)
+        g = q[..., 0].contiguous()
+        with pytest.raises(ValueError, match=what):
+            K.mlstm_chunk_scan(q, q, q, g, g)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_recurrent_smoke_engine_on_card_matches_cpu(cuda, arch):
+    """Per-request prefill through the scan kernels, speculation off:
+    the card's tokens and stats equal the CPU's, and every prefill
+    launched one scan per recurrent layer."""
+    cfg = smoke_shrink(get_config(arch), dtype="float32")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    outs, stats = [], []
+    for dev, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(cuda))):
+        K.reset_launches()
+        eng = build_engine(cfg, n_slots=2, cache_len=64, block_k=4,
+                           params=p, device=dev)
+        g = torch.Generator().manual_seed(5)
+        for n in (5, 17, 32):                 # one chunk, 17 of 1, two of 16
+            eng.submit(torch.randint(3, cfg.vocab_size, (n,),
+                                     generator=g).tolist(), 12)
+        outs.append(eng.run())
+        stats.append(dict(eng.stats))
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1]
+    pd = stats[1]["prefill_dispatches"]
+    if cfg.family == "hybrid":
+        assert K.mamba_chunk_scan.launches == cfg.num_layers * pd
+    else:
+        assert K.mlstm_chunk_scan.launches == 5 * (cfg.num_layers // 6) * pd

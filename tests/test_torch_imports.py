@@ -25,7 +25,9 @@ def _port_modules():
 
 def test_import_loads_no_jax():
     mods = _port_modules()
-    assert "repro_torch.kernels.flash_attention" in mods
+    assert {"repro_torch.kernels.flash_attention",
+            "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mlstm",
+            "repro_torch.models.ssm", "repro_torch.models.xlstm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

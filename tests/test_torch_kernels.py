@@ -159,7 +159,17 @@ def test_custom_ops_take_the_plain_version_on_cpu():
     lens = torch.tensor([3, 13], dtype=torch.int32)
     assert torch.equal(K.decode_attention(q[:, 0], k, v, lens),
                        K.decode_attention_plain(q[:, 0], k, v, lens))
-    assert [f.launches for f in K.KERNELS] == [0, 0, 0]
+    xb = torch.from_numpy(rng.standard_normal((1, 2, 5, 3, 8))
+                          .astype(np.float32))
+    bc = torch.from_numpy(rng.standard_normal((1, 2, 5, 4)).astype(np.float32))
+    cum = -torch.rand(1, 2, 5, 3).cumsum(2)
+    for got, want in zip(K.mamba_chunk_scan(xb, bc, bc, cum),
+                         K.mamba_chunk_scan_plain(xb, bc, bc, cum)):
+        assert torch.equal(got, want)
+    for got, want in zip(K.mlstm_chunk_scan(xb, xb, xb, cum, cum),
+                         K.mlstm_chunk_scan_plain(xb, xb, xb, cum, cum)):
+        assert torch.equal(got, want)
+    assert [f.launches for f in K.KERNELS] == [0] * 5
 
 
 def test_ops_are_registered_with_fake_impls():
@@ -176,6 +186,14 @@ def test_ops_are_registered_with_fake_impls():
     lens = torch.empty(1, dtype=torch.int32, device=meta)
     assert torch.ops.repro_torch.decode_attention(
         q[:, 0], kv, kv, lens, 0.25).shape == (1, 4, 16)
+    xb = torch.empty(2, 3, 5, 4, 8, device=meta)
+    bc, cum = torch.empty(2, 3, 5, 6, device=meta), \
+        torch.empty(2, 3, 5, 4, device=meta)
+    y, st = torch.ops.repro_torch.mamba_chunk_scan(xb, bc, bc, cum)
+    assert y.shape == xb.shape and st.shape == (2, 4, 8, 6)
+    y, C, n = torch.ops.repro_torch.mlstm_chunk_scan(xb, xb, xb, cum, cum)
+    assert y.shape == xb.shape and C.shape == (2, 4, 8, 8) \
+        and n.shape == (2, 4, 8) and C.dtype == torch.float32
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

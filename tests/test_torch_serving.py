@@ -103,12 +103,17 @@ def test_spec_and_sync_streams_identical(models):
     assert syncs[1] < syncs[0]
 
 
-def test_serve_cli_on_cpu(capsys):
-    outs, eng = serve.main(["--arch", "cody-mnist", "--smoke", "--device",
+@pytest.mark.parametrize("arch", ["cody-mnist", "zamba2-1.2b",
+                                  "xlstm-350m"])
+def test_serve_cli_on_cpu(capsys, arch):
+    outs, eng = serve.main(["--arch", arch, "--smoke", "--device",
                             "cpu", "--requests", "3", "--max-new", "6",
                             "--cache-len", "32", "--block-k", "4"])
     assert len(outs) == 3 and all(1 <= len(v) <= 6 for v in outs.values())
     assert "engine stats" in capsys.readouterr().out
+    if arch != "cody-mnist":    # recurrent: per-request prefill, no spec
+        assert eng.stats["spec_blocks"] == 0
+        assert eng.stats["prefill_dispatches"] == 3
 
 
 def test_build_engine_needs_a_card_unless_asked_for_cpu():
