@@ -13,25 +13,29 @@ Phases, each of which raises (exit code != 0) when it fails:
            the plain version's, one library call's as a yardstick where
            one exists, and the least time the card could take (bytes or
            operations at the H100's peak rates), at the shapes qwen2.5-3b,
-           zamba2-1.2b and xlstm-350m give it; then faults planted in the
+           zamba2-1.2b, xlstm-350m and deepseek-v2-lite-16b give it (and
+           one mixtral-8x22b expert product); then faults planted in the
            kernels' inputs (a length one short, a window one long, the
            scan state not carried across a chunk boundary, a causal mask
-           one off) must be rejected;
+           one off, the scale taken from hd_v, the last D tile left out of
+           an expert product, an expert reading its neighbour's weights)
+           must be rejected;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
-           layers) and xlstm-350m (1 group, 6 layers) at full width in
+           layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
+           (one MLA dense layer and one MLA MoE layer) at full width in
            fp32: prefill, its caches, one decode step and one fused decode
            block on the card (kernels) against the same weights on the CPU
            (plain versions);
   serve    each model at full width and depth (bf16, random weights from
            a seed) through ``build_engine``: 8 requests (and a ninth of
            300 tokens for the recurrent models, so that a prefill scans
-           two chunks), qwen2.5-3b with speculation on and off (the token
-           streams must agree), the recurrent models once (speculation is
-           forced off); the kernel launch counts must be the exact
-           multiples each model implies;
-  profile  where one decode block of qwen2.5-3b and of zamba2-1.2b spends
-           its time: wall time, device busy time under torch.profiler,
-           idle share.
+           two chunks, or of 256 for deepseek), qwen2.5-3b and deepseek
+           with speculation on and off (the token streams must agree), the
+           recurrent models once (speculation is forced off); the kernel
+           launch counts must be the exact multiples each model implies;
+  profile  where one decode block of qwen2.5-3b, zamba2-1.2b and
+           deepseek-v2-lite-16b spends its time: wall time, device busy
+           time under torch.profiler, idle share.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -41,6 +45,7 @@ before printing either.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -351,6 +356,7 @@ def phase_kernels(state):
                4 * hdz * Hz * n_valid, dname)
 
     _scan_kernels(randn, record)
+    _moe_kernels(randn, record, tols)
     torch.cuda.synchronize()
 
 
@@ -434,6 +440,128 @@ def _scan_kernels(randn, record):
                K.mlstm_chunk_scan_plain, None, nbytes, ops, "bfloat16")
 
 
+def _moe_kernels(randn, record, tols):
+    """The kernels the moe family adds.  moe_gmm at deepseek-v2-lite-16b's
+    expert products (E 64, D 2048, F 1408): a decode step's C = 6 for w1/w3
+    and for w2, the C = 12 and 16 of a prefill bucket of 65 to 128 tokens
+    (the kernel's 16-row tile), and a 256-token prefill's C = 32; one
+    mixtral-8x22b product (E 8, C 320, D 6144, F 16384; bf16); and ragged
+    cases.  Every call reads all of w whatever C is, so bytes bound it;
+    the yardstick is ``torch.bmm``.  Planted faults at the decode shape in
+    fp32: the last 64-deep D tile left out, and each expert reading the
+    next one's weights.  Then rmsnorm at MLA's kv_norm width of 512, over
+    a decode step's 4 rows and a 512-token prefill's; then the flash
+    kernel at MLA's head dims (q, k 192 = 128 + 64 rope, v 128, 16 heads),
+    causal at S = 256 and 37, with the scale taken from hd_v as the
+    planted fault."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    cases = (("deepseek decode w1/w3", 64, 6, 2048, 1408, dts),
+             ("deepseek decode w2", 64, 6, 1408, 2048, dts),
+             *((f"deepseek prefill C={C} {w}", 64, C, D, F_, dts)
+               for C in (12, 16)
+               for w, D, F_ in (("w1/w3", 2048, 1408), ("w2", 1408, 2048))),
+             ("deepseek prefill T=256 w1/w3", 64, 32, 2048, 1408, dts),
+             ("mixtral C=320", 8, 320, 6144, 16384,
+              {"bfloat16": torch.bfloat16}),
+             ("ragged", 3, 37, 200, 72, dts),
+             ("unaligned rows", 3, 5, 131, 67, dts))
+    for label, E, C, D, F_, dtypes in cases:
+        for dname, dt in dtypes.items():
+            esz = torch.finfo(dt).bits // 8
+            nbytes = (E * C * D + E * D * F_ + E * C * F_) * esz
+
+            def make(E=E, C=C, D=D, F_=F_, dt=dt):
+                return ((randn(E, C, D, dt=torch.float32) * D ** -0.5).to(dt),
+                        randn(E, D, F_, dt=dt))
+            args_list = cold_copies(make, nbytes)
+            x, w = args_list[0]
+            name = f"moe_gmm {label} {dname}"
+            err = _check(name, K.moe_gmm(x, w), K.moe_gmm_plain(x, w),
+                         tols[dname])
+            if (label, dname) == ("deepseek decode w1/w3", "float32"):
+                want = K.moe_gmm_plain(x, w)
+                _reject(f"{name} last D tile left out",
+                        K.moe_gmm(x[..., :-64].contiguous(),
+                                  w[:, :-64].contiguous()), want, tols[dname])
+                _reject(f"{name} expert e reads e+1's weights",
+                        K.moe_gmm(x, torch.roll(w, -1, 0)), want, tols[dname])
+            record("moe_gmm", f"{label} [{E},{C},{D}]x[{E},{D},{F_}] {dname}",
+                   (label, dname) == ("deepseek decode w1/w3", "bfloat16"),
+                   err, args_list, K.moe_gmm, K.moe_gmm_plain, torch.bmm,
+                   nbytes, 2 * E * C * D * F_, dname)
+            del args_list, x, w
+
+    D = 512
+    for R in (4, 512):
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+
+            def make(R=R, dt=dt):
+                return (randn(R, D, dt=dt),
+                        randn(D, dt=torch.float32) * 0.1 + 1.0)
+            args_list = cold_copies(make, R * D * esz)
+            x, sc = args_list[0]
+            err = _check(f"rmsnorm kv_norm [{R},{D}] {dname}",
+                         K.rmsnorm(x, sc), K.rmsnorm_plain(x, sc),
+                         tols[dname])
+            weights = {sc.data_ptr(): sc.to(dt) for _, sc in args_list}
+            lib = lambda x, sc, w=weights: F.rms_norm(
+                x, (D,), w[sc.data_ptr()], 1e-5)
+            record("rmsnorm", f"kv_norm [{R},{D}] {dname}", False, err,
+                   args_list, K.rmsnorm, K.rmsnorm_plain, lib,
+                   2 * R * D * esz + 4 * D, 4 * R * D, "float32")
+
+    H, hd, hd_v = 16, 192, 128
+    for S in (256, 37):
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+
+            def make(S=S, dt=dt):
+                return (randn(1, S, H, hd, dt=dt), randn(1, S, H, hd, dt=dt),
+                        randn(1, S, H, hd_v, dt=dt))
+            nbytes = S * H * (2 * hd + 2 * hd_v) * esz
+            args_list = cold_copies(make, nbytes)
+            q, k, v = args_list[0]
+            run = lambda q, k, v: K.flash_attention(q, k, v, causal=True)
+            plain = lambda q, k, v: K.flash_attention_plain(q, k, v,
+                                                            causal=True)
+            want = plain(q, k, v)
+            err = _check(f"flash MLA S={S} {dname}", run(q, k, v), want,
+                         tols[dname])
+            _reject(f"flash MLA S={S} scale from hd_v {dname}",
+                    K.flash_attention(q, k, v, causal=True,
+                                      scale=hd_v ** -0.5), want, tols[dname])
+            lib = lambda q, k, v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True)
+            record("flash_attention",
+                   f"MLA S={S} H=16 hd=192 hd_v=128 causal {dname}", False,
+                   err, args_list, run, plain, lib, nbytes,
+                   2 * (hd + hd_v) * H * S * (S + 1) // 2, dname)
+
+
+@contextlib.contextmanager
+def _routes_recorded(store):
+    """Record the top-k expert indices (on the CPU) of every MoE layer
+    run inside the block."""
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def recording(p, xt, cfg):
+        out = route(p, xt, cfg)
+        store.append(out[2].cpu())
+        return out
+    MOE.route = recording
+    try:
+        yield store
+    finally:
+        MOE.route = route
+
+
 def _parity(cfg, toks, lens=None, cache_len=128, k=8):
     """``cfg`` at full width, fp32: prefill (batched with ``lens``, else
     per request), its caches, one decode step and one fused block on the
@@ -446,18 +574,19 @@ def _parity(cfg, toks, lens=None, cache_len=128, k=8):
     cpu_params = M.init_params(cfg, seed=0, device="cpu")
     gpu_params = copy.deepcopy(cpu_params).to("cuda")
     fused = ST.make_fused_decode_step(cfg, k=k)
-    res = {}
+    res, routes = {}, {}
     for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         t = torch.as_tensor(toks, device=dev)
-        if lens is None:
-            out, caches = ST.make_prefill_step(cfg, cache_len)(
-                params, {"tokens": t})
-            pos = torch.full((t.shape[0],), t.shape[1], dtype=torch.int32,
-                             device=dev)
-        else:
-            pos = torch.as_tensor(lens, dtype=torch.int32, device=dev)
-            out, caches = ST.make_batched_prefill_step(cfg, cache_len)(
-                params, t, pos)
+        with _routes_recorded(routes.setdefault(dev, [])):
+            if lens is None:
+                out, caches = ST.make_prefill_step(cfg, cache_len)(
+                    params, {"tokens": t})
+                pos = torch.full((t.shape[0],), t.shape[1],
+                                 dtype=torch.int32, device=dev)
+            else:
+                pos = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+                out, caches = ST.make_batched_prefill_step(cfg, cache_len)(
+                    params, t, pos)
         prefilled = [c.to("cpu", copy=True) for c in cache_leaves(caches)]
         logits, _ = M.forward(params, cfg, {"tokens": t})
         step_logits, _ = M.decode_step(params, cfg, out["next_tokens"],
@@ -469,6 +598,16 @@ def _parity(cfg, toks, lens=None, cache_len=128, k=8):
                         first=out["next_tokens"].cpu(),
                         **{n: blk[n].cpu() for n in ("tokens", "pos", "done")})
     g, c = res["cuda"], res["cpu"]
+    if cfg.moe is not None:  # the MoE layers' top-k experts of every token
+        assert routes["cpu"] and len(routes["cuda"]) == len(routes["cpu"]), \
+            f"parity {cfg.name}: MoE routings not recorded " \
+            f"({len(routes['cuda'])} on the card, {len(routes['cpu'])} on " \
+            f"the CPU)"
+        differ = sum(int((a != b).any(-1).sum())
+                     for a, b in zip(routes["cuda"], routes["cpu"]))
+        total = sum(a[..., 0].numel() for a in routes["cpu"])
+        log(f"parity {cfg.name}: prefill top-k routings that differ between "
+            f"card and CPU: {differ} of {total} (token, MoE layer) pairs")
     for name in ("logits", "step"):
         err = (g[name] - c[name]).abs().max().item()
         assert torch.allclose(g[name], c[name], atol=1e-3, rtol=1e-3), \
@@ -495,7 +634,8 @@ def phase_parity(state):
     """qwen2.5-3b with 2 layers and the batched prefill;
     zamba2-1.2b with 2 groups (12 Mamba2 layers, 2 shared-attention
     applications) and xlstm-350m with 1 group (5 mLSTM + 1 sLSTM), each
-    prefilling two 300-token prompts (two chunks of 150)."""
+    prefilling two 300-token prompts (two chunks of 150);
+    deepseek-v2-lite-16b with 2 layers and the batched prefill."""
     import numpy as np
     from repro_torch.configs import get_config
 
@@ -511,6 +651,14 @@ def phase_parity(state):
                                   dtype="float32")
         toks = rng.integers(3, cfg.vocab_size, (2, 300)).astype("int32")
         _parity(cfg, toks, cache_len=512)
+    # deepseek-v2-lite-16b: one mla_dense and one mla_moe layer; two
+    # prompts of 256 and 200 padded to 256 give T = 512, two MoE groups
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b"), num_layers=2,
+                              dtype="float32")
+    lens = [256, 200]
+    toks = rng.integers(3, cfg.vocab_size, (2, max(lens))).astype("int32")
+    toks[1, lens[1]:] = 0
+    _parity(cfg, toks, lens, cache_len=512)
 
 
 def _serve(cfg, params, prompts, max_new, block_k, speculate=True):
@@ -545,13 +693,14 @@ def _serve(cfg, params, prompts, max_new, block_k, speculate=True):
     return outs, launches, dt, ntok, st
 
 
-def _prompts(cfg, n, seed, extra=()):
-    """n prompts of 16-200 tokens, then one of each length in ``extra``."""
+def _prompts(cfg, n, seed, extra=(), longest=200):
+    """n prompts of 16 to ``longest`` tokens, then one of each length in
+    ``extra``."""
     import numpy as np
     rng = np.random.default_rng(seed)
     draw = lambda length: list(map(int, rng.integers(3, cfg.vocab_size,
                                                      length)))
-    return [draw(int(rng.integers(16, 201))) for _ in range(n)] + \
+    return [draw(int(rng.integers(16, longest + 1))) for _ in range(n)] + \
         [draw(length) for length in extra]
 
 
@@ -584,6 +733,7 @@ def phase_serve(state):
         assert launches["decode_attention"] == L * block_k * bd, launches
         assert launches["rmsnorm"] == (2 * L + 1) * (pd + block_k * bd), \
             launches
+        assert launches["moe_gmm"] == 0, launches
         runs[speculate] = (outs, launches, st)
     assert runs[True][0] == runs[False][0], \
         "serve: speculative and synchronous token streams differ"
@@ -608,18 +758,60 @@ def phase_serve(state):
             want = {"mamba_chunk_scan": L * pd, "flash_attention": groups * pd,
                     "decode_attention": groups * block_k * bd,
                     "rmsnorm": (2 * L + 2 * groups + 1) * steps,
-                    "mlstm_chunk_scan": 0}
+                    "mlstm_chunk_scan": 0, "moe_gmm": 0}
         else:
             n_m = L - len(cfg.xlstm.slstm_at)
             want = {"mlstm_chunk_scan": n_m * pd, "rmsnorm": (2 * L + 1) * steps,
                     "flash_attention": 0, "decode_attention": 0,
-                    "mamba_chunk_scan": 0}
+                    "mamba_chunk_scan": 0, "moe_gmm": 0}
         assert launches == want, (launches, want)
         kernel = "mamba_chunk_scan" if cfg.family == "hybrid" \
             else "mlstm_chunk_scan"
         state["launches"][kernel] = launches[kernel]
         state["params"][cfg.name] = params
         log(f"serve {cfg.name}: launches equal {want}")
+
+    _serve_deepseek(state, block_k, max_new)
+
+
+def _serve_deepseek(state, block_k, max_new):
+    """deepseek-v2-lite-16b at full width and depth: batched prefill,
+    speculation on and then off.  The prompts are 8 of 16-64 tokens and
+    one of 256: every prefill bucket then holds at most 4 x 64 tokens or
+    exactly 256, so no MoE group breaks the reference's rule that the
+    tokens of a dispatch be a multiple of the group of 256 (three prompts
+    of 65-128 tokens would: ROADMAP Queue 3)."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    L = cfg.num_layers
+    params = _init_params(cfg)
+    prompts = _prompts(cfg, 8, 2, extra=(256,), longest=64)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    for speculate in (True, False):
+        outs, launches, dt, ntok, st = _serve(cfg, params, prompts, max_new,
+                                              block_k, speculate)
+        pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+        steps = pd + block_k * bd
+        want = {"flash_attention": L * pd, "rmsnorm": (3 * L + 1) * steps,
+                "moe_gmm": 3 * (L - 1) * steps, "decode_attention": 0,
+                "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+        assert launches == want, (launches, want)
+        log(f"serve {cfg.name}: launches equal {want}")
+        runs[speculate] = (outs, launches, st)
+    assert runs[True][0] == runs[False][0], \
+        f"serve {cfg.name}: speculative and synchronous token streams differ"
+    assert runs[True][2]["host_syncs"] < runs[False][2]["host_syncs"]
+    log(f"serve {cfg.name}: speculative and synchronous token streams are "
+        f"identical")
+    log(f"serve: device memory with four models' weights resident: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB while serving "
+        f"{cfg.name}")
+    state["launches"]["moe_gmm"] = runs[True][1]["moe_gmm"]
+    state["params"][cfg.name] = params
 
 
 def _profile(cfg, params):
@@ -668,7 +860,8 @@ def _profile(cfg, params):
     busy = (busy + (cur_e - cur_s if cur_e is not None else 0)) / 1e3
     log(f"profile {cfg.name}: one 8-step decode block, 4 slots: {wall:.2f} "
         f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
-        f"{len(kern)} kernels; device idle share {1 - busy / wall:.3f}")
+        f"{len(kern)} kernels ({len(kern) / 8:.0f} per step); device idle "
+        f"share {1 - busy / wall:.3f}")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -679,7 +872,7 @@ def _profile(cfg, params):
 
 def phase_profile(state):
     from repro_torch.configs import get_config
-    for arch in ("qwen2.5-3b", "zamba2-1.2b"):
+    for arch in ("qwen2.5-3b", "zamba2-1.2b", "deepseek-v2-lite-16b"):
         cfg = get_config(arch)
         params = state.get("params", {}).get(arch)
         _profile(cfg, params if params is not None else _init_params(cfg))

@@ -1,9 +1,10 @@
 // GQA prefill attention (causal, sliding-window or bidirectional) with an
 // online softmax.
 //
-//   q [B, Sq, H, hd]; k, v [B, Sk, Hkv, hd]; out [B, Sq, H, hd], all
-//   contiguous.  Query i sits at position i + q_offset, key j at j.  Query
-//   head h reads KV head h / (H / Hkv).
+//   q [B, Sq, H, hd]; k [B, Sk, Hkv, hd]; v [B, Sk, Hkv, hd_v];
+//   out [B, Sq, H, hd_v], all contiguous.  Query i sits at position
+//   i + q_offset, key j at j.  Query head h reads KV head h / (H / Hkv).
+//   hd_v = hd except for MLA's prefill (hd 192 = 128 + 64 rope, hd_v 128).
 //
 // Replaces repro/kernels/flash_attention.py:flash_attention (Pallas).  On
 // the TPU the K blocks were a sequential grid axis carrying (m, l, acc) in
@@ -15,7 +16,7 @@
 // multiples of the tiles.
 //
 // Four threads share one query row; each holds hd/4 of its dims of q and
-// acc (interleaved float4 groups, so the four threads read four adjacent
+// hd_v/4 of acc (interleaved float4 groups, so the four threads read four adjacent
 // 16-byte words of a shared-memory K/V row: no bank conflicts).  K/V tiles
 // are staged in shared memory as fp32.  The math runs on the CUDA cores
 // in fp32 for both dtypes: simple and right first; wgmma and TMA are a
@@ -29,15 +30,37 @@ constexpr int BK = 32;              // key rows per shared-memory tile
 constexpr int TPR = 4;              // threads per query row
 constexpr int THREADS = BQ * TPR;   // 128
 
-template <typename T, int HD>
+// Rows [k0, k0 + BK) of one KV head of src [B, Sk, Hkv, DIM] into the
+// shared tile dst [BK, DIM] as fp32; rows at or past k_hi are zeros.
+template <typename T, int DIM>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src,
+                                           float* dst, int b, int k0,
+                                           int k_hi, int Sk, int Hkv,
+                                           int hk) {
+  for (int idx = threadIdx.x; idx < BK * DIM / 4; idx += THREADS) {
+    const int j = idx / (DIM / 4), d = (idx % (DIM / 4)) * 4;
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + j < k_hi) {
+      const Vec<T, 4> r = load_vec<T, 4>(
+          src + ((static_cast<size_t>(b) * Sk + k0 + j) * Hkv + hk) * DIM + d);
+      t = make_float4(to_float(r.v[0]), to_float(r.v[1]), to_float(r.v[2]),
+                      to_float(r.v[3]));
+    }
+    *reinterpret_cast<float4*>(dst + j * DIM + d) = t;
+  }
+}
+
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(THREADS)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int Sq, int Sk, int H, int Hkv, int causal,
                            int window, float scale, int q_offset) {
-  constexpr int NG = HD / 16;  // float4 groups per thread
+  constexpr int NG = HD / 16;    // float4 groups of q per thread
+  constexpr int NGV = HDV / 16;  // ... and of acc
+  // at (192, 128): 24.6 + 16.4 KB, under the 48 KB of static shared memory
   __shared__ __align__(16) float Ks[BK * HD];
-  __shared__ __align__(16) float Vs[BK * HD];
+  __shared__ __align__(16) float Vs[BK * HDV];
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -47,14 +70,15 @@ __global__ void __launch_bounds__(THREADS)
   const int qpos = qi + q_offset;
 
   // this thread's dims: 16 * g + 4 * sub + [0, 4)
-  float4 qr[NG], acc[NG];
-  const size_t q_base = ((static_cast<size_t>(b) * Sq + qi) * H + h) * HD;
+  float4 qr[NG], acc[NGV];
+  const size_t qrow = (static_cast<size_t>(b) * Sq + qi) * H + h;
+#pragma unroll
+  for (int g = 0; g < NGV; ++g) acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
-    acc[g] = make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[g] = acc[g];
+    qr[g] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (active) {
-      const Vec<T, 4> t = load_vec<T, 4>(q + q_base + 16 * g + 4 * sub);
+      const Vec<T, 4> t = load_vec<T, 4>(q + qrow * HD + 16 * g + 4 * sub);
       qr[g] = make_float4(to_float(t.v[0]), to_float(t.v[1]),
                           to_float(t.v[2]), to_float(t.v[3]));
     }
@@ -69,22 +93,8 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int k0 = k_lo; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < BK * HD / 4; idx += THREADS) {
-      const int j = idx / (HD / 4), d = (idx % (HD / 4)) * 4;
-      float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-      if (k0 + j < k_hi) {
-        const size_t off =
-            ((static_cast<size_t>(b) * Sk + k0 + j) * Hkv + hk) * HD + d;
-        const Vec<T, 4> tk = load_vec<T, 4>(k + off);
-        const Vec<T, 4> tv = load_vec<T, 4>(v + off);
-        kk = make_float4(to_float(tk.v[0]), to_float(tk.v[1]),
-                         to_float(tk.v[2]), to_float(tk.v[3]));
-        vv = make_float4(to_float(tv.v[0]), to_float(tv.v[1]),
-                         to_float(tv.v[2]), to_float(tv.v[3]));
-      }
-      *reinterpret_cast<float4*>(Ks + j * HD + d) = kk;
-      *reinterpret_cast<float4*>(Vs + j * HD + d) = vv;
-    }
+    stage_tile<T, HD>(k, Ks, b, k0, k_hi, Sk, Hkv, hk);
+    stage_tile<T, HDV>(v, Vs, b, k0, k_hi, Sk, Hkv, hk);
     __syncthreads();
 
     float s[BK];
@@ -119,7 +129,7 @@ __global__ void __launch_bounds__(THREADS)
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int g = 0; g < NG; ++g) {
+    for (int g = 0; g < NGV; ++g) {
       acc[g].x *= alpha;
       acc[g].y *= alpha;
       acc[g].z *= alpha;
@@ -129,9 +139,9 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < BK; ++j) {
       const float p = (valid >> j) & 1u ? expf(s[j] - m_new) : 0.f;
       l += p;
-      const float4* vr = reinterpret_cast<const float4*>(Vs + j * HD);
+      const float4* vr = reinterpret_cast<const float4*>(Vs + j * HDV);
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
+      for (int g = 0; g < NGV; ++g) {
         const float4 vv = vr[4 * g + sub];
         acc[g].x += p * vv.x;
         acc[g].y += p * vv.y;
@@ -145,52 +155,46 @@ __global__ void __launch_bounds__(THREADS)
   if (!active) return;
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int g = 0; g < NG; ++g) {
+  for (int g = 0; g < NGV; ++g) {
     Vec<T, 4> o;
     o.v[0] = from_float<T>(acc[g].x / denom);
     o.v[1] = from_float<T>(acc[g].y / denom);
     o.v[2] = from_float<T>(acc[g].z / denom);
     o.v[3] = from_float<T>(acc[g].w / denom);
-    store_vec<T, 4>(out + q_base + 16 * g + 4 * sub, o);
+    store_vec<T, 4>(out + qrow * HDV + 16 * g + 4 * sub, o);
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 void launch(const void* q, const void* k, const void* v, void* out, int B,
             int Sq, int Sk, int H, int Hkv, int causal, int window,
             float scale, int q_offset, cudaStream_t stream) {
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  flash_attention_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
+  flash_attention_kernel<T, HD, HDV><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, Hkv, causal,
       window, scale, q_offset);
 }
 
+// The (hd, hd_v) pairs the kernel is built for (HEAD_DIM_PAIRS in
+// repro_torch/kernels/flash_attention.py).
 template <typename T>
 int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
-              float scale, int q_offset, cudaStream_t stream) {
-  switch (hd) {
-    case 16:
-      launch<T, 16>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, scale,
-                    q_offset, stream);
-      break;
-    case 32:
-      launch<T, 32>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, scale,
-                    q_offset, stream);
-      break;
-    case 64:
-      launch<T, 64>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, scale,
-                    q_offset, stream);
-      break;
-    case 128:
-      launch<T, 128>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window, scale,
-                     q_offset, stream);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+              int Sq, int Sk, int H, int Hkv, int hd, int hd_v, int causal,
+              int window, float scale, int q_offset, cudaStream_t stream) {
+#define REPRO_FLASH_CASE(HD, HDV)                                           \
+  if (hd == HD && hd_v == HDV) {                                            \
+    launch<T, HD, HDV>(q, k, v, out, B, Sq, Sk, H, Hkv, causal, window,     \
+                       scale, q_offset, stream);                            \
+    return static_cast<int>(cudaGetLastError());                            \
   }
-  return static_cast<int>(cudaGetLastError());
+  REPRO_FLASH_CASE(16, 16)
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(192, 128)
+#undef REPRO_FLASH_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -198,14 +202,15 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int Sq,
                                       int Sk, int H, int Hkv, int hd,
-                                      int causal, int window, float scale,
-                                      int q_offset, int dtype, void* stream) {
+                                      int hd_v, int causal, int window,
+                                      float scale, int q_offset, int dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
-    return launch_hd<float>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, causal,
-                            window, scale, q_offset, s);
+    return launch_hd<float>(q, k, v, out, B, Sq, Sk, H, Hkv, hd, hd_v,
+                            causal, window, scale, q_offset, s);
   if (dtype == kBFloat16)
     return launch_hd<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, Hkv, hd,
-                                    causal, window, scale, q_offset, s);
+                                    hd_v, causal, window, scale, q_offset, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,8 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``rmsnorm``, ``flash_attention``, ``decode_attention``,
-``mamba_chunk_scan`` and ``mlstm_chunk_scan`` are ``torch.library``
-custom ops: a CUDA tensor launches the kernel built from
+``mamba_chunk_scan``, ``mlstm_chunk_scan`` and ``moe_gmm`` are
+``torch.library`` custom ops: a CUDA tensor launches the kernel built from
 ``csrc/`` (``_build``), a CPU tensor takes the plain PyTorch version.
 Each wrapper counts its kernel launches in ``.launches``.
 """
@@ -15,10 +15,11 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                             mamba_chunk_scan_plain)
 from repro_torch.kernels.mlstm import mlstm_chunk_scan, mlstm_chunk_scan_plain
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
 
 KERNELS = (rmsnorm, flash_attention, decode_attention, mamba_chunk_scan,
-           mlstm_chunk_scan)
+           mlstm_chunk_scan, moe_gmm)
 
 # atol = rtol of a kernel against its plain version on the same inputs.
 # The largest differences measured on an H100 were 1.6e-6 in fp32 and one
@@ -37,5 +38,5 @@ __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "mamba_chunk_scan",
            "mamba_chunk_scan_plain", "mlstm_chunk_scan",
-           "mlstm_chunk_scan_plain", "KERNELS", "TOLERANCE",
-           "reset_launches"]
+           "mlstm_chunk_scan_plain", "moe_gmm", "moe_gmm_plain",
+           "KERNELS", "TOLERANCE", "reset_launches"]

@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:flash_attention``
 (Pallas) and computes what ``repro/models/layers.py:chunked_attention``
 computes: causal, sliding-window or bidirectional attention of
-``q [B,Sq,H,hd]`` against ``k, v [B,Sk,Hkv,hd]``, query i at position
+``q [B,Sq,H,hd]`` against ``k [B,Sk,Hkv,hd]`` and ``v [B,Sk,Hkv,hd_v]``
+(hd_v = hd except for MLA's prefill: hd 192 = 128 + 64 rope, hd_v 128;
+the scale stays ``hd ** -0.5``), query i at position
 ``i + q_offset`` (end-aligned by default: ``q_offset = Sk - Sq``), query
 head h reading KV head ``h // (H // Hkv)``, fp32 softmax.
 
@@ -30,6 +32,8 @@ from repro_torch.kernels import _build
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:80"
 HEAD_DIMS = (16, 32, 64, 128)
+# the (hd, hd_v) pairs the kernel is built for
+HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 NEG_INF = -1e30
 
 
@@ -45,9 +49,9 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                           scale: Optional[float] = None,
                           q_offset: Optional[int] = None) -> torch.Tensor:
-    """The same function in plain PyTorch (the CPU path and the oracle).
-    Probabilities are cast to v's dtype before the PV product, as the
-    reference does."""
+    """The same function in plain PyTorch (the CPU path and the oracle),
+    -> [B,Sq,H,hd_v].  Probabilities are cast to v's dtype before the PV
+    product, as the reference does."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     scale = hd ** -0.5 if scale is None else scale
@@ -84,34 +88,35 @@ def _flash_cpu(q, k, v, causal, window, scale, q_offset):
 
 @_flash_op.register_fake
 def _flash_fake(q, k, v, causal, window, scale, q_offset):
-    return torch.empty_like(q)
+    return q.new_empty(*q.shape[:-1], v.shape[-1])
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 @_flash_op.register_kernel("cuda")
 def _flash_cuda(q, k, v, causal, window, scale, q_offset):
     B, Sq, H, hd = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
+    Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     _build.require(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
                    and v.dtype == q.dtype,
                    f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}")
     _build.require(all(t.is_contiguous() and t.device == q.device
                        for t in (q, k, v)),
                    "flash_attention: q, k, v must be contiguous on one device")
-    _build.require(hd in HEAD_DIMS, f"flash_attention: hd={hd} not in "
-                   f"{HEAD_DIMS}")
-    _build.require(k.shape == (B, Sk, Hkv, hd) and v.shape == k.shape
-                   and H % Hkv == 0,
+    _build.require((hd, hd_v) in HEAD_DIM_PAIRS,
+                   f"flash_attention: hd={hd}, hd_v={hd_v} not in "
+                   f"{HEAD_DIM_PAIRS}")
+    _build.require(k.shape == (B, Sk, Hkv, hd)
+                   and v.shape == (B, Sk, Hkv, hd_v) and H % Hkv == 0,
                    f"flash_attention: shapes {q.shape} {k.shape} {v.shape}")
-    out = torch.empty_like(q)
+    out = q.new_empty(B, Sq, H, hd_v)
     if q.numel() == 0:
         return out
     fn = _build.entry("flash_attention_launch", _ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    B, Sq, Sk, H, Hkv, hd, int(causal), window, scale,
+                    B, Sq, Sk, H, Hkv, hd, hd_v, int(causal), window, scale,
                     q_offset, _build.DTYPE_CODES[q.dtype],
                     _build.stream_handle(q)),
                  "flash_attention")
@@ -122,8 +127,8 @@ def _flash_cuda(q, k, v, causal, window, scale, q_offset):
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
                     q_offset: Optional[int] = None) -> torch.Tensor:
-    """q [B,Sq,H,hd]; k, v [B,Sk,Hkv,hd] -> [B,Sq,H,hd].  CUDA tensors
-    launch the kernel, CPU tensors take the plain version."""
+    """q [B,Sq,H,hd]; k [B,Sk,Hkv,hd]; v [B,Sk,Hkv,hd_v] -> [B,Sq,H,hd_v].
+    CUDA tensors launch the kernel, CPU tensors take the plain version."""
     hd, Sq, Sk = q.shape[-1], q.shape[1], k.shape[1]
     return _flash_op(q, k, v, bool(causal), int(window),
                      float(hd ** -0.5 if scale is None else scale),

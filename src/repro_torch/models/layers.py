@@ -1,6 +1,6 @@
-"""Core layers of the dense model: schemas, norms, RoPE, attention, MLP.
+"""Core layers: schemas, norms, RoPE, attention (GQA and MLA), MLP.
 
-Counterpart of ``repro/models/layers.py`` (dense subset).  Params are
+Counterpart of ``repro/models/layers.py``.  Params are
 described by ``ParamSpec`` schemas and materialized into a ``ParamTree``
 module, so ``p["wq"]`` and ``"bq" in p`` read as in the reference.
 
@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import masked_softmax
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,6 +223,86 @@ def gqa_decode(p, x, cfg, cache, pos):
         o = decode_attention(q, cache["k"], cache["v"], pos,
                              window=cfg.sliding_window)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+
+
+# ------------------------------------------------------------------ MLA ----
+def mla_schema(cfg):
+    D, H = cfg.d_model, cfg.num_heads
+    m = cfg.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq": ParamSpec((D, H, qk), ("fsdp", "heads", "head_dim"), D ** -0.5),
+        "w_dkv": ParamSpec((D, m.kv_lora_rank + m.qk_rope_head_dim),
+                           ("fsdp", "kv_lora"), D ** -0.5),
+        "kv_norm": norm_schema(m.kv_lora_rank),
+        "w_uk": ParamSpec((m.kv_lora_rank, H, m.qk_nope_head_dim),
+                          ("kv_lora", "heads", "head_dim"),
+                          m.kv_lora_rank ** -0.5),
+        "w_uv": ParamSpec((m.kv_lora_rank, H, m.v_head_dim),
+                          ("kv_lora", "heads", "head_dim"),
+                          m.kv_lora_rank ** -0.5),
+        "wo": ParamSpec((H, m.v_head_dim, D), ("heads", "head_dim", "fsdp"),
+                        (H * m.v_head_dim) ** -0.5),
+    }
+
+
+def _mla_latent(p, x, cfg, pos):
+    """x [B,S,D] -> (normed latent c_kv [B,S,R], roped k_rope [B,S,rope])."""
+    R = cfg.mla.kv_lora_rank
+    ckr = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    c_kv = apply_norm(p["kv_norm"], ckr[..., :R].contiguous())
+    k_rope = rope(ckr[..., R:][:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_q(p, x, cfg, pos):
+    m = cfg.mla
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return q_nope, rope(q_rope, pos, cfg.rope_theta)
+
+
+def mla_attention(p, x, cfg):
+    """Prefill: decompress the latent to per-head K/V and run the flash
+    kernel at hd = nope + rope, hd_v = v_head_dim -> (out, (c_kv, k_rope))."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None]
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    c_kv, k_rope = _mla_latent(p, x, cfg, pos)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    H = cfg.num_heads
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, -1)], -1)
+    o = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (c_kv, k_rope)
+
+
+def mla_decode(p, x, cfg, cache_c, cache_kr, pos):
+    """The reference's absorbed-matrices decode: scores and values in the
+    latent space, fp32 scores, plain PyTorch (the reference runs it outside
+    any Pallas kernel).  The new latent row is written into ``cache_c`` and
+    ``cache_kr`` IN PLACE -> (out [B,1,D], cache_c, cache_kr)."""
+    m = cfg.mla
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
+    c_kv, k_rope = _mla_latent(p, x, cfg, pos[:, None])
+    bidx = torch.arange(B, device=x.device)
+    cache_c.index_put_((bidx, pos.long()), c_kv[:, 0])
+    cache_kr.index_put_((bidx, pos.long()), k_rope[:, 0])
+    # absorb W_uk into q: q_lat [B,H,R]
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
+    s = torch.einsum("bhr,bsr->bhs", q_lat.float(), cache_c.float())
+    s = s + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(),
+                         cache_kr.float())
+    s = s * ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5)
+    valid = torch.arange(cache_c.shape[1], device=x.device)[None] \
+        <= pos[:, None]
+    a = masked_softmax(s, valid[:, None])
+    ctx = torch.einsum("bhs,bsr->bhr", a.to(cache_c.dtype).float(),
+                       cache_c.float()).to(x.dtype)
+    o = torch.einsum("bhr,rhk->bhk", ctx, p["w_uv"])
+    out = torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None]
+    return out, cache_c, cache_kr
 
 
 # ------------------------------------------------------------------ MLP ----

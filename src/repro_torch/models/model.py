@@ -1,4 +1,5 @@
-"""Stage-structured model: the dense, hybrid (zamba2) and ssm (xLSTM)
+"""Stage-structured model: the dense, moe (GQA + MoE, mixtral), MLA
+(deepseek: ``mla_dense``, ``mla_moe``), hybrid (zamba2) and ssm (xLSTM)
 stages.
 
 Counterpart of ``repro/models/model.py``.  A model is a list of stages;
@@ -11,7 +12,7 @@ reference's layout leaf for leaf: one dict per stage with a leading layer
 axis for the in-group blocks (``[n_groups, 6, B, ...]``).  Decode updates
 the caches in place.
 
-The moe, audio and vlm families raise ``NotImplementedError`` (ROADMAP
+The audio and vlm families raise ``NotImplementedError`` (ROADMAP
 Queue 1, item 11).  Int8 serving weights (the reference's
 ``_maybe_dequant``) wait for ``serving/quant.py`` (Queue 1, item 12).
 """
@@ -25,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
@@ -54,7 +56,9 @@ def build_stages(cfg: ModelConfig) -> List[StageDef]:
     return [StageDef("dense", cfg.num_layers)]
 
 
-PORTED_FAMILIES = ("dense", "hybrid", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
+MLA_KINDS = ("mla_dense", "mla_moe")    # deepseek: MLA attention
+MOE_KINDS = ("moe", "mla_moe")          # routed experts in place of the MLP
 XLSTM_ORDER = (0, 1, 2, None, 3, 4)   # None: the sLSTM (in-group index 3)
 
 
@@ -68,6 +72,14 @@ def _require_ported(cfg: ModelConfig) -> None:
 
 def _block_schema(cfg: ModelConfig, kind: str):
     nrm = lambda: L.norm_schema(cfg.d_model, cfg.norm)
+    if kind in MOE_KINDS:
+        attn = L.mla_schema(cfg) if kind in MLA_KINDS else L.gqa_schema(cfg)
+        return {"ln1": nrm(), "attn": attn, "ln2": nrm(),
+                "moe": MOE.moe_schema(cfg)}
+    if kind == "mla_dense":
+        return {"ln1": nrm(), "attn": L.mla_schema(cfg), "ln2": nrm(),
+                "mlp": L.mlp_schema(cfg, cfg.dense_first_layer_d_ff
+                                    or cfg.d_ff)}
     if kind == "zamba_group":
         return {"mambas": [{"ln1": nrm(), "mamba": SSM.mamba2_schema(cfg)}
                            for _ in range(cfg.shared_every)]}
@@ -123,7 +135,7 @@ def _tree_stack(trees: list):
 
 
 def _block_forward(kind, p, h, cfg, shared=None):
-    """Full-sequence forward for one block -> (h, cache_out)."""
+    """Full-sequence forward for one block -> (h, aux_loss, cache_out)."""
     if kind == "zamba_group":
         states = []
         for pm in p["mambas"]:
@@ -136,7 +148,8 @@ def _block_forward(kind, p, h, cfg, shared=None):
         h = h + a
         hn = L.apply_norm(shared["ln2"], h, cfg.norm)
         h = h + L.apply_mlp(shared["mlp"], hn, cfg)
-        return h, {"mamba": _tree_stack(states), "attn": {"k": k, "v": v}}
+        return h, 0.0, {"mamba": _tree_stack(states),
+                        "attn": {"k": k, "v": v}}
     if kind == "xlstm_group":
         m_states, s_state = [], None
         for idx in XLSTM_ORDER:
@@ -149,17 +162,25 @@ def _block_forward(kind, p, h, cfg, shared=None):
                 y, (C, n) = XL.mlstm_forward(pm["cell"], hn, cfg)
                 m_states.append({"C": C, "n": n})
             h = h + y
-        return h, {"m": _tree_stack(m_states),
-                   "s": dict(zip(("h", "c", "n", "m"), s_state))}
+        return h, 0.0, {"m": _tree_stack(m_states),
+                        "s": dict(zip(("h", "c", "n", "m"), s_state))}
     hn = L.apply_norm(p["ln1"], h, cfg.norm)
-    a, (k, v) = L.gqa_attention(p["attn"], hn, cfg)
-    if cfg.parallel_block:
-        h = h + a + L.apply_mlp(p["mlp"], hn, cfg)
+    if kind in MLA_KINDS:
+        a, (c_kv, k_rope) = L.mla_attention(p["attn"], hn, cfg)
+        cache_out = {"c": c_kv, "kr": k_rope}
     else:
-        h = h + a
-        hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
-        h = h + L.apply_mlp(p["mlp"], hn2, cfg)
-    return h, {"k": k, "v": v}
+        a, (k, v) = L.gqa_attention(p["attn"], hn, cfg)
+        cache_out = {"k": k, "v": v}
+    if cfg.parallel_block:
+        return h + a + L.apply_mlp(p["mlp"], hn, cfg), 0.0, cache_out
+    h = h + a
+    hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
+    aux = 0.0
+    if kind in MOE_KINDS:
+        m, aux = MOE.apply_moe(p["moe"], hn2, cfg)
+    else:
+        m = L.apply_mlp(p["mlp"], hn2, cfg)
+    return h + m, aux, cache_out
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
@@ -172,10 +193,12 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     h = F.embedding(batch["tokens"], params["embed"])
     shared = params["shared"] if "shared" in params else None
     kv_stacks = []
+    aux_total = 0.0
     for st, blocks in zip(build_stages(cfg), params["stages"]):
         outs = []
         for p in blocks:
-            h, out = _block_forward(st.kind, p, h, cfg, shared)
+            h, aux, out = _block_forward(st.kind, p, h, cfg, shared)
+            aux_total = aux_total + aux
             if collect_cache:
                 outs.append(out)
         if collect_cache:
@@ -184,8 +207,8 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, head) * cfg.logit_scale
     if collect_cache:
-        return logits, 0.0, kv_stacks
-    return logits, 0.0
+        return logits, aux_total, kv_stacks
+    return logits, aux_total
 
 
 # --------------------------------------------------------------- decode ----
@@ -224,6 +247,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
                     XL.mlstm_init_state(cfg, batch, device), 5), st.n),
                 "s": _stack_state(XL.slstm_init_state(cfg, batch, device),
                                   st.n)})
+        elif st.kind in MLA_KINDS:
+            m = cfg.mla
+            pre = () if st.n == 1 else (st.n,)
+            caches.append({
+                "c": torch.zeros(pre + (batch, cache_len, m.kv_lora_rank),
+                                 dtype=dt, device=device),
+                "kr": torch.zeros(pre + (batch, cache_len,
+                                         m.qk_rope_head_dim),
+                                  dtype=dt, device=device)})
         else:
             caches.append(kv(st.n))
     return caches
@@ -252,6 +284,9 @@ def cache_axes(cfg: ModelConfig):
                                "n": pre + (None, "batch", "ssm_heads", None)},
                          "s": {k: pre + ("batch", "ssm_heads", None)
                                for k in ("h", "c", "n", "m")}})
+        elif s.kind in MLA_KINDS:
+            axes.append({"c": pre + ("batch", "kv_seq", "kv_lora"),
+                         "kr": pre + ("batch", "kv_seq", None)})
         else:
             axes.append(kv_entry(pre))
     return axes
@@ -302,11 +337,17 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
             h = h + y
         return h
     hn = L.apply_norm(p["ln1"], h, cfg.norm)
-    a, _ = L.gqa_decode(p["attn"], hn, cfg, cache, pos)
+    if kind in MLA_KINDS:
+        a, _, _ = L.mla_decode(p["attn"], hn, cfg, cache["c"], cache["kr"],
+                               pos)
+    else:
+        a, _ = L.gqa_decode(p["attn"], hn, cfg, cache, pos)
     if cfg.parallel_block:
         return h + a + L.apply_mlp(p["mlp"], hn, cfg)
     h = h + a
     hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
+    if kind in MOE_KINDS:
+        return h + MOE.apply_moe(p["moe"], hn2, cfg)[0]
     return h + L.apply_mlp(p["mlp"], hn2, cfg)
 
 
@@ -361,6 +402,9 @@ def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
                                                kvs["attn"]["v"])})
         elif st.kind == "xlstm_group":
             caches.append(kvs)
+        elif st.kind in MLA_KINDS:   # [.., S, R] -> [.., W, R]
+            caches.append({name: F.pad(t, (0, 0, 0, cache_len - t.shape[-2]))
+                           for name, t in kvs.items()})
         else:
             caches.append(kv_assemble(kvs["k"], kvs["v"]))
     return caches

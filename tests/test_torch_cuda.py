@@ -11,6 +11,7 @@ that the tolerances reject planted faults also run on the CPU, where the
 wrappers take their plain versions.
 """
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from repro_torch.core.channel import LiveChannel  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.config import MLAConfig  # noqa: E402
 from repro_torch.training import steps as ST  # noqa: E402
 
 TOL = K.TOLERANCE
@@ -69,7 +71,7 @@ def test_kernels_match_plain(cuda, dt, B, Sq, Sk, H, Hkv, hd, causal,
            K.decode_attention_plain(qd, k, v, lens), TOL[dt])
     torch.cuda.synchronize()
     assert [f.launches - b for f, b in zip(K.KERNELS, before)] == \
-        [1, 1, 1, 0, 0]
+        [1, 1, 1, 0, 0, 0]
 
 
 def _agree(a, b, tol):
@@ -251,3 +253,127 @@ def test_recurrent_smoke_engine_on_card_matches_cpu(cuda, arch):
         assert K.mamba_chunk_scan.launches == cfg.num_layers * pd
     else:
         assert K.mlstm_chunk_scan.launches == 5 * (cfg.num_layers // 6) * pd
+
+
+# moe_gmm at deepseek-v2-lite-16b's shapes (E = 64, D = 2048, F = 1408):
+# decode (C = 6) for w1/w3 and w2, a prefill bucket of 65 to 128 tokens
+# (C = 12 or 16: the 16-row tile), a 256-token prefill (C = 32); and
+# ragged ones (C, D, F not multiples of the tiles; rows not 16-byte
+# aligned; more rows than one row tile)
+GMM_CASES = [(64, 6, 2048, 1408), (64, 6, 1408, 2048),
+             (64, 12, 2048, 1408), (64, 12, 1408, 2048),
+             (64, 16, 2048, 1408), (64, 16, 1408, 2048), (64, 32, 2048, 1408),
+             (3, 37, 200, 72), (3, 5, 131, 67), (2, 150, 96, 64)]
+
+
+def _gmm_inputs(dev, E, C, D, F, dt, seed=5):
+    rn = _randn(dev, seed)
+    return (rn(E, C, D) * D ** -0.5).to(dt), rn(E, D, F, dt=dt)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F", GMM_CASES)
+def test_moe_gmm_matches_plain(cuda, dt, E, C, D, F):
+    x, w = _gmm_inputs(cuda, E, C, D, F, dt)
+    before = K.moe_gmm.launches
+    got = K.moe_gmm(x, w)
+    again = K.moe_gmm(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (E, C, F)
+    _close(got, K.moe_gmm_plain(x, w), TOL[dt])
+    assert torch.equal(got, again)            # fixed order, no atomics
+    assert K.moe_gmm.launches == before + 2
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [4, 512])
+def test_rmsnorm_at_kv_norm_width_matches_plain(cuda, dt, rows):
+    """MLA's kv_norm at width 512: a decode step's 4 rows and a 512-token
+    prefill's (64 threads a row in bf16, 128 in fp32)."""
+    rn = _randn(cuda, 7)
+    x, s = rn(rows, 512, dt=dt), rn(512) * 0.1 + 1.0
+    before = K.rmsnorm.launches
+    got = K.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    _close(got, K.rmsnorm_plain(x, s), TOL[dt])
+    assert K.rmsnorm.launches == before + 1
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_moe_gmm_tolerance_rejects_planted_faults(request, device):
+    """In fp32, the last 64-deep D tile left out of the sum and expert e
+    reading expert e+1's weights each fail the check the kernel passes:
+    at a deepseek decode shape on the card, at a narrower one on the CPU
+    (the plain version's fp32 copy of w would take ~1.5 GB there)."""
+    dev = request.getfixturevalue("cuda") if device == "cuda" \
+        else torch.device("cpu")
+    shape = (64, 6, 2048, 1408) if device == "cuda" else (8, 6, 256, 128)
+    x, w = _gmm_inputs(dev, *shape, torch.float32)
+    tol = TOL[torch.float32]
+    want = K.moe_gmm_plain(x, w)
+    assert _agree(K.moe_gmm(x, w), want, tol)
+    short = K.moe_gmm(x[..., :-64].contiguous(), w[:, :-64].contiguous())
+    assert not _agree(short, want, tol)
+    assert not _agree(K.moe_gmm(x, torch.roll(w, -1, 0)), want, tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [256, 37])
+def test_flash_at_mla_head_dims_matches_plain(cuda, dt, S):
+    """MLA prefill: q, k at hd 192 (128 + 64 rope), v at hd_v 128, 16
+    heads; the scale is 192 ** -0.5, and one taken from hd_v fails."""
+    rn = _randn(cuda, 6)
+    q, k, v = rn(1, S, 16, 192, dt=dt), rn(1, S, 16, 192, dt=dt), \
+        rn(1, S, 16, 128, dt=dt)
+    got = K.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert got.shape == (1, S, 16, 128)
+    want = K.flash_attention_plain(q, k, v, causal=True)
+    _close(got, want, TOL[dt])
+    assert not _agree(K.flash_attention(q, k, v, causal=True,
+                                        scale=128 ** -0.5), want, TOL[dt])
+
+
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rn = _randn(cuda, 7)
+    x, w = rn(2, 4, 16), rn(2, 16, 8)
+    with pytest.raises(ValueError, match="dtypes"):
+        K.moe_gmm(x, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="shapes"):
+        K.moe_gmm(x, rn(2, 12, 8))
+    with pytest.raises(ValueError, match="contiguous"):
+        K.moe_gmm(x, rn(2, 8, 16).transpose(1, 2))
+    q = rn(1, 8, 2, 192)
+    with pytest.raises(ValueError, match="hd=192, hd_v=192"):
+        K.flash_attention(q, q, q)
+
+
+def test_deepseek_smoke_engine_on_card_matches_cpu(cuda):
+    """The moe family through the serving stack at smoke widths, with MLA
+    head dims the flash kernel takes (hd 32 = 16 + 16 rope, hd_v 32):
+    batched prefill and speculation on, the card's tokens and stats equal
+    the CPU's, and every prefill dispatch and decode step launched one
+    moe_gmm per expert product."""
+    cfg = smoke_shrink(get_config("deepseek-v2-lite-16b"), dtype="float32")
+    cfg = dataclasses.replace(cfg, mla=MLAConfig(
+        kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=16,
+        v_head_dim=32))
+    params = M.init_params(cfg, seed=0, device="cpu")
+    outs, stats = [], []
+    for dev, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(cuda))):
+        K.reset_launches()
+        eng = build_engine(cfg, n_slots=2, cache_len=64, block_k=4,
+                           params=p, device=dev)
+        g = torch.Generator().manual_seed(5)
+        for n in (5, 9, 13, 30):
+            eng.submit(torch.randint(3, cfg.vocab_size, (n,),
+                                     generator=g).tolist(), 12)
+        outs.append(eng.run())
+        stats.append(dict(eng.stats))
+    assert outs[0] == outs[1]
+    assert stats[0] == stats[1]
+    steps = stats[1]["prefill_dispatches"] + 4 * stats[1]["blocks_dispatched"]
+    assert K.moe_gmm.launches == 3 * (cfg.num_layers - 1) * steps
+    assert K.flash_attention.launches == \
+        cfg.num_layers * stats[1]["prefill_dispatches"]
+    assert K.decode_attention.launches == 0

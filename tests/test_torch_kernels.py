@@ -169,7 +169,10 @@ def test_custom_ops_take_the_plain_version_on_cpu():
     for got, want in zip(K.mlstm_chunk_scan(xb, xb, xb, cum, cum),
                          K.mlstm_chunk_scan_plain(xb, xb, xb, cum, cum)):
         assert torch.equal(got, want)
-    assert [f.launches for f in K.KERNELS] == [0] * 5
+    xe = torch.from_numpy(rng.standard_normal((3, 5, 16)).astype(np.float32))
+    we = torch.from_numpy(rng.standard_normal((3, 16, 8)).astype(np.float32))
+    assert torch.equal(K.moe_gmm(xe, we), K.moe_gmm_plain(xe, we))
+    assert [f.launches for f in K.KERNELS] == [0] * 6
 
 
 def test_ops_are_registered_with_fake_impls():
@@ -183,6 +186,8 @@ def test_ops_are_registered_with_fake_impls():
     kv = torch.empty(1, 7, 2, 16, device=meta)
     assert torch.ops.repro_torch.flash_attention(
         q, kv, kv, True, 0, 0.25, 0).shape == q.shape
+    assert torch.ops.repro_torch.flash_attention(
+        q, kv, kv[..., :8], True, 0, 0.25, 0).shape == (1, 7, 4, 8)
     lens = torch.empty(1, dtype=torch.int32, device=meta)
     assert torch.ops.repro_torch.decode_attention(
         q[:, 0], kv, kv, lens, 0.25).shape == (1, 4, 16)
@@ -194,6 +199,9 @@ def test_ops_are_registered_with_fake_impls():
     y, C, n = torch.ops.repro_torch.mlstm_chunk_scan(xb, xb, xb, cum, cum)
     assert y.shape == xb.shape and C.shape == (2, 4, 8, 8) \
         and n.shape == (2, 4, 8) and C.dtype == torch.float32
+    assert torch.ops.repro_torch.moe_gmm(
+        torch.empty(3, 5, 16, device=meta),
+        torch.empty(3, 16, 8, device=meta)).shape == (3, 5, 8)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -178,8 +178,7 @@ def test_dense_variants_prefill_and_decode(arch, over, plen):
 
 
 def test_other_families_raise():
-    for name in ("mixtral-8x22b", "deepseek-v2-lite-16b",
-                 "whisper-large-v3", "phi-3-vision-4.2b"):
+    for name in ("whisper-large-v3", "phi-3-vision-4.2b"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             TM.model_schema(smoke_shrink(get_config(name)))
 

@@ -104,14 +104,15 @@ def test_spec_and_sync_streams_identical(models):
 
 
 @pytest.mark.parametrize("arch", ["cody-mnist", "zamba2-1.2b",
-                                  "xlstm-350m"])
+                                  "xlstm-350m", "deepseek-v2-lite-16b"])
 def test_serve_cli_on_cpu(capsys, arch):
     outs, eng = serve.main(["--arch", arch, "--smoke", "--device",
                             "cpu", "--requests", "3", "--max-new", "6",
                             "--cache-len", "32", "--block-k", "4"])
     assert len(outs) == 3 and all(1 <= len(v) <= 6 for v in outs.values())
     assert "engine stats" in capsys.readouterr().out
-    if arch != "cody-mnist":    # recurrent: per-request prefill, no spec
+    if arch in ("zamba2-1.2b", "xlstm-350m"):   # recurrent: per-request
+        # prefill, no spec
         assert eng.stats["spec_blocks"] == 0
         assert eng.stats["prefill_dispatches"] == 3
 
