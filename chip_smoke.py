@@ -7,19 +7,25 @@
 Phases, each of which raises (exit code != 0) when it fails:
 
   gpu      the card's name and power limit, from nvidia-smi;
-  build    the CUDA kernels built from src/repro_torch/csrc with nvcc;
+  build    the CUDA kernels built from src/repro_torch/csrc with nvcc, and
+           ptxas's registers, shared memory and spills for the two
+           attention kernels;
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16 and fp32, at ``kernels.TOLERANCE``, with its device time,
            the plain version's, one library call's as a yardstick where
            one exists, and the least time the card could take (bytes or
            operations at the H100's peak rates), at the shapes qwen2.5-3b,
            zamba2-1.2b, xlstm-350m and deepseek-v2-lite-16b give it (and
-           one mixtral-8x22b expert product); then faults planted in the
-           kernels' inputs (a length one short, a window one long, the
-           scan state not carried across a chunk boundary, a causal mask
-           one off, the scale taken from hd_v, the last D tile left out of
-           an expert product, an expert reading its neighbour's weights)
-           must be rejected;
+           one mixtral-8x22b expert product); the attention kernels over
+           every head-dim pair, group size, ragged length and split
+           boundary they take; the HMMA count of the flash kernel's SASS;
+           then faults planted in the kernels' inputs or plans (a length
+           one short, a window one long, the causal tile skip one tile
+           short, the last split of a decode dropped, the scan state not
+           carried across a chunk boundary, a causal mask one off, the
+           scale taken from hd_v, the last D tile left out of an expert
+           product, an expert reading its neighbour's weights) must be
+           rejected;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -34,8 +40,9 @@ Phases, each of which raises (exit code != 0) when it fails:
            recurrent models once (speculation is forced off); the kernel
            launch counts must be the exact multiples each model implies;
   profile  where one decode block of qwen2.5-3b, zamba2-1.2b and
-           deepseek-v2-lite-16b spends its time: wall time, device busy
-           time under torch.profiler, idle share.
+           deepseek-v2-lite-16b (or those of --profile-archs) spends its
+           time: wall time, device busy time under torch.profiler, idle
+           share, and the decode_attention kernels' device time.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -50,6 +57,8 @@ import copy
 import dataclasses
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -121,6 +130,56 @@ def phase_gpu(state):
         f"count {torch.cuda.device_count()}")
 
 
+def _toolkit_tool(name):
+    from repro_torch.kernels import _build
+    path = shutil.which(name)
+    if path is None:
+        cand = Path(_build._nvcc()).parent / name
+        path = str(cand) if cand.exists() else None
+    return path
+
+
+def _kernel_names(mangled):
+    """{mangled: 'name<args>'} by cu++filt where the toolkit has it."""
+    names = dict.fromkeys(mangled)
+    filt = _toolkit_tool("cu++filt")
+    if filt and mangled:
+        out = subprocess.run([filt], input="\n".join(mangled),
+                             capture_output=True, text=True).stdout
+        for m, d in zip(mangled, out.splitlines()):
+            d = d[:d.find(">(") + 1] if ">(" in d else d
+            names[m] = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
+                              r"\(int\)", "", d)
+    return {m: n or m for m, n in names.items()}
+
+
+def _ptxas_report(text, keys=("flash_attention", "decode_attention")):
+    """ptxas -v's registers, static shared memory and spills for every
+    kernel entry whose name holds one of ``keys``."""
+    rows, cur = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Compiling entry function '(\S+)'", line)
+        if hit:
+            cur = hit.group(1) if any(k in hit.group(1) for k in keys) \
+                else None
+            if cur:
+                rows[cur] = {}
+            continue
+        if cur is None:
+            continue
+        hit = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        line)
+        if hit:
+            rows[cur]["spills"] = (int(hit.group(1)), int(hit.group(2)))
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit:
+            rows[cur]["registers"] = int(hit.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows[cur]["smem"] = int(smem.group(1)) if smem else 0
+    names = _kernel_names(list(rows))
+    return {names[m]: r for m, r in rows.items()}
+
+
 def phase_build(state):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -128,6 +187,12 @@ def phase_build(state):
     _build.library()
     log(f"build: {path.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
+    report = _ptxas_report(_build.ptxas_log(path).read_text())
+    assert report, "build: no ptxas report for the attention kernels"
+    for name, r in sorted(report.items()):
+        log(f"build: ptxas {name}: {r.get('registers')} registers, "
+            f"{r.get('smem')} B static shared memory, spill stores/loads "
+            f"{r.get('spills')} B (dynamic shared memory is set at launch)")
 
 
 def _agree(got, want, tol):
@@ -245,6 +310,25 @@ def phase_kernels(state):
                    run, plain, lib, (2 * S * H + 2 * S * Hkv) * hd * esz,
                    4 * hd * H * pairs, dname)
 
+    # q/k/v of the same shapes, bidirectional: every block walks all 8 K
+    # tiles, so against the causal case it shows what the longest query
+    # tile's walk costs
+    def make(S=512):
+        return (randn(1, S, H, hd, dt=torch.bfloat16),
+                randn(1, S, Hkv, hd, dt=torch.bfloat16),
+                randn(1, S, Hkv, hd, dt=torch.bfloat16))
+    args_list = cold_copies(make, (2 * 512 * H + 2 * 512 * Hkv) * hd * 2)
+    run = lambda q, k, v: K.flash_attention(q, k, v, causal=False)
+    plain = lambda q, k, v: K.flash_attention_plain(q, k, v, causal=False)
+    err = _check("flash S=512 bidirectional bfloat16", run(*args_list[0]),
+                 plain(*args_list[0]), tols["bfloat16"])
+    lib = lambda q, k, v: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        enable_gqa=True)
+    record("flash_attention", "S=512 bidirectional bfloat16", False, err,
+           args_list, run, plain, lib, (2 * 512 * H + 2 * 512 * Hkv) * hd * 2,
+           4 * hd * H * 512 * 512, "bfloat16")
+
     # decode attention: q [4,16,128] vs caches [4,1024,2,128]
     B, W = 4, 1024
     lens_host = torch.randint(1, W + 1, (B,), generator=torch.Generator()
@@ -355,9 +439,144 @@ def phase_kernels(state):
                (2 * B * Hz * hdz + 2 * n_valid * Hz * hdz) * esz + 4 * B,
                4 * hdz * Hz * n_valid, dname)
 
+    _attention_sweep(randn, tols, dev)
     _scan_kernels(randn, record)
     _moe_kernels(randn, record, tols)
     torch.cuda.synchronize()
+
+
+def _sass_mma_counts():
+    """HMMA/HGMMA instructions in the SASS of each flash kernel, by
+    cuobjdump where the toolkit has it (None where it does not)."""
+    from repro_torch.kernels import _build
+    tool = _toolkit_tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            cur = hit.group(1) if "flash_attention" in hit.group(1) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and re.search(r"\bH(G)?MMA\b", line):
+            counts[cur] += 1
+    names = _kernel_names(list(counts))
+    return {names[m]: n for m, n in counts.items()}
+
+
+# the attention kernels' sweep: every (hd, hd_v) pair and group size G at
+# ragged lengths around the 16-row warp tile and the 64-key tile
+FLASH_SWEEP_S = (1, 15, 16, 17, 63, 64, 65, 300, 512)
+FLASH_SWEEP_G = (1, 2, 8, 16)
+DECODE_SWEEP_W = (64, 1024, 4096)
+
+
+def _decode_sweep_lengths(W, chunk):
+    """1, a split boundary - 1, the boundary, boundary + 1 and W."""
+    return sorted({1, max(1, chunk - 1), min(W, chunk), min(W, chunk + 1), W})
+
+
+def _attention_sweep(randn, tols, dev):
+    """Both attention kernels against their plain versions over the shapes
+    they take; then the two planted faults of their redesign."""
+    import importlib
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    worst, n = {}, 0
+    for dname, dt in dts.items():
+        tol = tols[dname]
+        for hd, hd_v in FA.HEAD_DIM_PAIRS:
+            for G in FLASH_SWEEP_G:
+                for S in FLASH_SWEEP_S:
+                    q = randn(1, S, G, hd, dt=dt)
+                    k, v = randn(1, S, 1, hd, dt=dt), randn(1, S, 1, hd_v, dt=dt)
+                    err = _check(f"flash sweep hd={hd}/{hd_v} G={G} S={S} "
+                                 f"{dname}", K.flash_attention(q, k, v),
+                                 K.flash_attention_plain(q, k, v), tol)
+                    worst[("flash", dname)] = max(worst.get(("flash", dname),
+                                                            0.0), err)
+                    n += 1
+        for (B, Sq, Sk, H, Hkv, hd, window) in (
+                (4, 65, 65, 8, 2, 64, 0), (1, 37, 300, 16, 2, 128, 0),
+                (2, 300, 300, 8, 1, 64, 24), (1, 512, 512, 16, 2, 128, 128),
+                (1, 100, 100, 16, 1, 192, 24)):
+            hd_v = 128 if hd == 192 else hd
+            q = randn(B, Sq, H, hd, dt=dt)
+            k, v = randn(B, Sk, Hkv, hd, dt=dt), randn(B, Sk, Hkv, hd_v, dt=dt)
+            err = _check(f"flash B={B} Sq={Sq} Sk={Sk} hd={hd} window={window} "
+                         f"{dname}", K.flash_attention(q, k, v, window=window),
+                         K.flash_attention_plain(q, k, v, window=window), tol)
+            worst[("flash", dname)] = max(worst[("flash", dname)], err)
+            n += 1
+        sm = _build.sm_count(dev)
+        for hd in FA.HEAD_DIMS:
+            for G in DA.GROUP_SIZES:
+                for W in DECODE_SWEEP_W:
+                    for B in (1, 4):
+                        plan = DA.plan_splits(B, 2, W, sm)
+                        lens = _decode_sweep_lengths(W, plan.chunk)
+                        sets = [[x] for x in lens] if B == 1 else \
+                            [[lens[0], lens[-3], lens[-2], lens[-1]]]
+                        q = randn(B, 2 * G, hd, dt=dt)
+                        kc, vc = randn(B, W, 2, hd, dt=dt), randn(B, W, 2, hd,
+                                                                  dt=dt)
+                        for ls in sets:
+                            ln = torch.tensor(ls, dtype=torch.int32,
+                                              device=dev)
+                            err = _check(
+                                f"decode sweep hd={hd} G={G} W={W} B={B} "
+                                f"lengths={ls} {plan} {dname}",
+                                K.decode_attention(q, kc, vc, ln),
+                                K.decode_attention_plain(q, kc, vc, ln), tol)
+                            worst[("decode", dname)] = max(
+                                worst.get(("decode", dname), 0.0), err)
+                            n += 1
+    log(f"kernels: attention sweep: {n} cases agree; max |err| "
+        + ", ".join(f"{k} {d} {e:.3g}" for (k, d), e in sorted(worst.items())))
+
+    # planted: the causal tile skip one tile short (q [1,512,16,128])
+    for dname, dt in dts.items():
+        q = randn(1, 512, 16, 128, dt=dt)
+        k, v = randn(1, 512, 2, 128, dt=dt), randn(1, 512, 2, 128, dt=dt)
+        want = K.flash_attention_plain(q, k, v)
+        _reject(f"flash S=512 causal tile skip one tile short {dname}",
+                FA._launch(q, k, v, True, 0, 128 ** -0.5, 0, short_tiles=1),
+                want, tols[dname])
+    # planted: the last split's partial state dropped, at lengths = its
+    # first slot (B 4, W 1024: 16 splits of 64, lengths 961)
+    plan = DA.plan_splits(4, 2, 1024, _build.sm_count(dev))
+    ln = torch.full((4,), (plan.splits - 1) * plan.chunk + 1,
+                    dtype=torch.int32, device=dev)
+    for dname, dt in dts.items():
+        q = randn(4, 16, 128, dt=dt)
+        kc, vc = randn(4, 1024, 2, 128, dt=dt), randn(4, 1024, 2, 128, dt=dt)
+        want = K.decode_attention_plain(q, kc, vc, ln)
+        _check(f"decode {plan} lengths {int(ln[0])} {dname}",
+               K.decode_attention(q, kc, vc, ln), want, tols[dname])
+        if dname == "float32":  # bf16 cannot see one slot among 961
+            _reject(f"decode last split dropped {plan} lengths "
+                    f"{int(ln[0])} {dname}",
+                    DA._launch(q, kc, vc, ln, 128 ** -0.5,
+                               DA.SplitPlan(plan.splits - 1, plan.chunk)),
+                    want, tols[dname])
+
+    counts = _sass_mma_counts()
+    if counts is None:
+        log("kernels: cuobjdump not found: no SASS count")
+    else:
+        for name, c in sorted(counts.items()):
+            log(f"kernels: SASS {name}: {c} HMMA/HGMMA instructions")
+        mma = {k: c for k, c in counts.items() if "mma_kernel" in k}
+        assert mma and all(mma.values()), \
+            f"kernels: the bf16 flash kernels hold no HMMA: {counts}"
 
 
 def _scan_kernels(randn, record):
@@ -862,6 +1081,13 @@ def _profile(cfg, params):
         f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
         f"{len(kern)} kernels ({len(kern) / 8:.0f} per step); device idle "
         f"share {1 - busy / wall:.3f}")
+    dec = [e.time_range.end - e.time_range.start for e in prof.events()
+           if e.device_type == DeviceType.CUDA
+           and "decode_attention" in e.name]
+    log(f"profile {cfg.name}: decode_attention {sum(dec) / 1e3:.4f} ms of "
+        f"device time per block over {len(dec)} launches "
+        f"({sum(dec) / max(len(dec), 1):.2f} us each; "
+        f"{sum(dec) / 1e3 / busy:.4f} of device busy)")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -870,9 +1096,12 @@ def _profile(cfg, params):
     log(f"profile {cfg.name}: top by host time\n" + by_cpu)
 
 
+PROFILE_ARCHS = ("qwen2.5-3b", "zamba2-1.2b", "deepseek-v2-lite-16b")
+
+
 def phase_profile(state):
     from repro_torch.configs import get_config
-    for arch in ("qwen2.5-3b", "zamba2-1.2b", "deepseek-v2-lite-16b"):
+    for arch in state.get("profile_archs", PROFILE_ARCHS):
         cfg = get_config(arch)
         params = state.get("params", {}).get(arch)
         _profile(cfg, params if params is not None else _init_params(cfg))
@@ -882,7 +1111,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
-    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    ap.add_argument("--profile-archs", default=",".join(PROFILE_ARCHS),
+                    help="the models the profile phase decodes")
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
         ap.error(f"unknown phases {sorted(unknown)}")
@@ -899,7 +1131,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
     torch.backends.cudnn.allow_tf32 = False
 
-    state = {}
+    state = {"profile_archs": [a for a in args.profile_archs.split(",") if a]}
     t_all = time.perf_counter()
     for name in PHASES:
         if name in phases:

@@ -26,7 +26,9 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+# -Xptxas -v: registers, shared memory and spills of every kernel, kept
+# beside the library (ptxas_log)
+COMPILE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes shared with csrc/common.cuh (enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,25 +58,28 @@ def library_path() -> Path:
     return BUILD_DIR / f"libkernels-{h.hexdigest()[:16]}.so"
 
 
-def _run(cmds) -> None:
+def _run(cmds) -> str:
     """Run the ``nvcc`` commands all at once; raise with the output of
-    each that failed."""
+    each that failed, else return their output."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
-    failed = []
+    failed, logs = [], []
     for cmd, proc in procs:
         log = proc.communicate()[0]
+        logs.append(log)
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{log}")
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return "".join(logs)
 
 
-def _compile(out: Path, parallel: bool = True) -> None:
+def _compile(out: Path, parallel: bool = True) -> str:
     """Build every csrc/*.cu into the library ``out``: one ``nvcc -c`` per
     source, all started together, then one link; or, with
-    ``parallel=False``, one ``nvcc`` call for all the sources."""
+    ``parallel=False``, one ``nvcc`` call for all the sources.  Returns
+    the compiler's output."""
     nvcc = _nvcc()
     srcs = [str(p) for p in sorted(CSRC.glob("*.cu"))]
     # --cudart shared: use the CUDA runtime PyTorch has already loaded
@@ -83,15 +88,15 @@ def _compile(out: Path, parallel: bool = True) -> None:
     link = [nvcc, *ARCH_FLAGS, "-shared", "--cudart", "shared",
             f"-Xlinker=-rpath,{rpath}", "-o", str(out)]
     if not parallel:
-        _run([[*link, *COMPILE_FLAGS, *srcs]])
-        return
+        return _run([[*link, *COMPILE_FLAGS, *srcs]])
     work = out.with_name(f"{out.name}.objs")
     work.mkdir(parents=True, exist_ok=True)
     try:
         objs = [str(work / f"{Path(src).stem}.o") for src in srcs]
-        _run([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", src, "-o", obj]
-              for src, obj in zip(srcs, objs)])
+        log = _run([[nvcc, *ARCH_FLAGS, *COMPILE_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(srcs, objs)])
         _run([[*link, *objs]])
+        return log
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -104,10 +109,16 @@ def build() -> Path:
         return out
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    _compile(tmp)
+    log = _compile(tmp)
+    ptxas_log(out).write_text(log)
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def ptxas_log(lib: Path) -> Path:
+    """The compiler's ``-Xptxas -v`` report for the library ``lib``."""
+    return lib.with_name(f"{lib.stem}.ptxas.txt")
 
 
 def library() -> ctypes.CDLL:
@@ -145,6 +156,23 @@ def check(err: int, what: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, for a launch."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (132 on an H100 SXM), which
+    the attention kernels' grid planners read; a property of the device,
+    not of any tensor, so asking costs no sync."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+_sm_counts: dict = {}
 
 
 def require(cond: bool, what: str) -> None:

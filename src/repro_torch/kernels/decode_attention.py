@@ -7,12 +7,21 @@ decode_attention`` (Pallas): ``q [B,H,hd]`` against caches
 a KV group served together, fp32 softmax.  It is the dense form of
 ``repro/models/layers.py:decode_attention`` (there ``lengths = pos + 1``).
 
-What bounds it on the H100: bytes.  Each valid K/V row is read once and
-used for ~4·G flops per element.  The kernel (``csrc/decode_attention.cu``)
-runs one block per (b, kv head), so every K/V row is read once for its G
-heads, skips the masked tail of the cache instead of reading it, and
-merges its warps' softmax states in a fixed order.  B·Hkv blocks leave
-most SMs idle at serving batch sizes; splitting W is the next step.
+What bounds it on the H100: bytes, reached only with enough loads in
+flight.  Each valid K/V row is read once and used for ~4·G flops per
+element.  The kernel (``csrc/decode_attention.cu``) splits the cache into
+``plan_splits(...)`` chunks, one block per (chunk, kv head, b): 128 blocks
+at serving batch 4 (16 splits of 64 slots at W = 1024; one block per
+(b, kv head) would give 8).  The plan is a function of shapes only and never
+reads ``lengths`` (a host read would be a host sync); a block whose chunk
+lies past ``lengths[b]`` reads nothing.  Each block stages its rows by
+``cp.async`` 16 bytes a lane, forms the G heads' scores of a 32-row tile
+before one fp32 softmax update per head, and leaves a partial (m, l,
+acc); the last block of each (b, kv head) to finish merges the partials
+in split order by the rule of ``merge_partials``, which it mirrors, so the
+bits do not depend on timing.  It needs fp32 scratch (``torch.empty``,
+per call) and a per-device counter buffer allocated and zeroed once (the
+merging block resets its counter), so a CUDA graph can capture a call.
 
 The plain version also covers the forms the kernel does not take yet: the
 sliding-window ring cache and int8 caches with per-(token, head) scales.
@@ -20,7 +29,7 @@ sliding-window ring cache and int8 caches with per-(token, head) scales.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -30,6 +39,81 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS, masked_softmax
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:60"
 GROUP_SIZES = (1, 2, 4, 8, 16)
+SPLIT_GRANULE = 32      # the kernel's tile of cache rows
+MAX_SPLITS = 32
+MAX_CHUNK = 128         # slots one block walks, where MAX_SPLITS allows
+
+
+class SplitPlan(NamedTuple):
+    """W cut into ``splits`` chunks of ``chunk`` slots (the last may be
+    shorter); the kernel's grid is (splits, Hkv, B)."""
+    splits: int
+    chunk: int
+
+
+def plan_splits(B: int, Hkv: int, W: int, sm_count: int) -> SplitPlan:
+    """The split of the cache for a decode call, from shapes only: enough
+    chunks that the B·Hkv pairs fill about one block per SM and that no
+    chunk is longer than ``MAX_CHUNK`` slots (at most ``MAX_SPLITS``),
+    each a multiple of the kernel's 32-row tile.  Takes plain ints, never
+    a tensor, so no host read of ``lengths`` can enter it (B 4, Hkv 2,
+    W 1024 on 132 SMs: 16 splits of 64; zamba2's Hkv 32: 8 of 128)."""
+    for name, x in (("B", B), ("Hkv", Hkv), ("W", W), ("sm_count", sm_count)):
+        if not isinstance(x, int) or isinstance(x, bool):
+            raise TypeError(f"plan_splits: {name} must be an int, "
+                            f"not {type(x).__name__}")
+    W = max(W, 1)
+    want = max(-(-sm_count // max(B * Hkv, 1)), -(-W // MAX_CHUNK))
+    want = max(1, min(MAX_SPLITS, want))
+    chunk = -(-W // want)
+    chunk = -(-chunk // SPLIT_GRANULE) * SPLIT_GRANULE
+    return SplitPlan(-(-W // chunk), chunk)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor,
+                   acc: torch.Tensor) -> torch.Tensor:
+    """The kernel's merge rule.  ``m``, ``l`` [S, ...] and ``acc`` [S, ...,
+    hd] are the S splits' running max, sum and unnormalised output (a
+    split with no valid slot has m = -inf, l = 0, acc = 0); they are
+    combined in split order: M = max m, L = sum l·e^(m-M),
+    out = sum acc·e^(m-M) / max(L, 1e-30)."""
+    M = m.amax(0)
+    M = torch.where(torch.isinf(M), torch.zeros_like(M), M)
+    L = torch.zeros_like(M)
+    out = torch.zeros_like(acc[0])
+    for s in range(m.shape[0]):
+        f = torch.exp(m[s] - M)
+        L = L + l[s] * f
+        out = out + acc[s] * f[..., None]
+    return out / L.clamp_min(1e-30)[..., None]
+
+
+def decode_attention_split(q, k_cache, v_cache, lengths, plan: SplitPlan, *,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's algorithm in plain PyTorch (fp32): each split's partial
+    (m, l, acc) over its chunk of valid slots, then ``merge_partials``."""
+    B, H, hd = q.shape
+    W, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    qg = q.reshape(B, Hkv, G, hd).float()
+    ms, ls, accs = [], [], []
+    for s in range(plan.splits):
+        lo, hi = min(s * plan.chunk, W), min((s + 1) * plan.chunk, W)
+        slots = torch.arange(lo, hi, device=q.device)
+        valid = slots[None] < lengths.long()[:, None]             # [B, n]
+        sc = torch.einsum("bhgd,bkhd->bhgk", qg,
+                          k_cache[:, lo:hi].float()) * scale
+        sc = sc.masked_fill(~valid[:, None, None], float("-inf"))
+        m = sc.amax(-1) if hi > lo else sc.new_full((B, Hkv, G),
+                                                    float("-inf"))
+        p = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgk,bkhd->bhgd", p,
+                                 v_cache[:, lo:hi].float()))
+    out = merge_partials(torch.stack(ms), torch.stack(ls), torch.stack(accs))
+    return out.reshape(B, H, hd).to(q.dtype)
 
 
 def decode_attention_plain(q, k_cache, v_cache, lengths, *,
@@ -85,12 +169,28 @@ def _decode_fake(q, k_cache, v_cache, lengths, scale):
     return torch.empty_like(q)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
-@_decode_op.register_kernel("cuda")
-def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The per-(b, kv head) arrival counters on ``device``: allocated and
+    zeroed once (grown when a call needs more), and left at zero by every
+    call, so no call clears them."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                              device=device)
+    return buf
+
+
+_COUNTERS: dict = {}
+
+
+def _launch(q, k_cache, v_cache, lengths, scale, plan=None):
+    """One launch of the kernel on CUDA tensors, split by ``plan``
+    (``plan_splits`` unless given: a plan that does not cover W only
+    plants a fault for the checks)."""
     B, H, hd = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
     _build.require(q.dtype in _build.DTYPE_CODES and k_cache.dtype == q.dtype
@@ -112,13 +212,25 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale):
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    if plan is None:
+        plan = plan_splits(B, Hkv, W, _build.sm_count(q.device))
+    scratch = torch.empty(B * Hkv * plan.splits * H // Hkv * (hd + 2),
+                          dtype=torch.float32, device=q.device)
     fn = _build.entry("decode_attention_launch", _ARGTYPES)
     _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), B, H, Hkv, W, hd,
-                    scale, _build.DTYPE_CODES[q.dtype],
-                    _build.stream_handle(q)),
+                    lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                    _counters(q.device, B * Hkv).data_ptr(), B, H, Hkv, W,
+                    hd, plan.splits, plan.chunk, scale,
+                    _build.DTYPE_CODES[q.dtype], _build.stream_handle(q)),
                  "decode_attention")
-    decode_attention.launches += 1
+    return out
+
+
+@_decode_op.register_kernel("cuda")
+def _decode_cuda(q, k_cache, v_cache, lengths, scale):
+    out = _launch(q, k_cache, v_cache, lengths, scale)
+    if q.numel():
+        decode_attention.launches += 1
     return out
 
 

@@ -9,16 +9,23 @@ the scale stays ``hd ** -0.5``), query i at position
 ``i + q_offset`` (end-aligned by default: ``q_offset = Sk - Sq``), query
 head h reading KV head ``h // (H // Hkv)``, fp32 softmax.
 
-What bounds it on the H100: operations at long sequences (4·hd flops per
-query-key pair), bytes at the short prompts a server sees.  The kernel
+What bounds it on the H100: at the prompts a server prefills (37 to 512
+tokens) the tensor-core work of the longest query tile on its SM and
+per-block latency, not bytes; K and V of a KV head (256 KB at S = 512)
+are re-read by its G query heads from L2.  The kernel
 (``csrc/flash_attention.cu``) keeps the online-softmax state in fp32
-registers and carries it across K/V tiles staged in shared memory, so
-the [Sq, Sk] scores never reach device memory; tiles a query tile cannot
-see (causal, window) are skipped and the ragged edge is masked.  Its
-products run on the CUDA cores in fp32; tensor cores (wgmma) are a later
-step.  A block serves one query head, so the G query heads of a KV group
-each stage the same K/V tiles (as fp32); giving one block the whole
-group, as the decode kernel does, is the step before wgmma.
+registers across K/V tiles, so the [Sq, Sk] scores never reach device
+memory, skips the tiles a query tile cannot see (causal, window) and masks
+the ragged edge.  In bf16 both products run on the tensor cores
+(``mma.sync`` m16n8k16, fragments by ``ldmatrix``), each warp keeping 16
+query rows' Q fragments and output in registers and passing P from the
+QK^T accumulator to the PV operand in registers; K/V tiles of 64 keys stay
+bf16 in shared memory, loaded by ``cp.async`` ahead of use.  A block owns
+one query head and ``tile_rows`` query rows (64 or 32, so that about one
+block runs per SM), in two warp groups that take alternate K tiles and
+merge at the end; the longest causal tiles start first.  fp32 keeps a
+CUDA-core kernel: the tensor cores would compute in TF32, which cannot
+meet the fp32 limit; fp32 is the parity path and is not served.
 """
 from __future__ import annotations
 
@@ -35,6 +42,15 @@ HEAD_DIMS = (16, 32, 64, 128)
 # the (hd, hd_v) pairs the kernel is built for
 HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 NEG_INF = -1e30
+
+
+def tile_rows(B: int, Sq: int, H: int, sm_count: int) -> int:
+    """Query rows per block of the bf16 kernel: 64 (each of its two warp
+    groups four warps of 16 rows), or 32 where 64 would leave more than an
+    eighth of the SMs without a block (MLA's 16 heads at S = 256: 64
+    blocks of 64 rows, 128 of 32).  A function of shapes only."""
+    blocks = B * H * -(-Sq // 64)
+    return 64 if 8 * blocks >= 7 * sm_count else 32
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -92,11 +108,13 @@ def _flash_fake(q, k, v, causal, window, scale, q_offset):
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
-@_flash_op.register_kernel("cuda")
-def _flash_cuda(q, k, v, causal, window, scale, q_offset):
+def _launch(q, k, v, causal, window, scale, q_offset, short_tiles=0):
+    """One launch of the kernel on CUDA tensors.  ``short_tiles`` > 0 only
+    plants a fault for the checks: the kernel then visits that many fewer
+    K tiles than the causal bound allows."""
     B, Sq, H, hd = q.shape
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     _build.require(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
@@ -114,13 +132,21 @@ def _flash_cuda(q, k, v, causal, window, scale, q_offset):
     out = q.new_empty(B, Sq, H, hd_v)
     if q.numel() == 0:
         return out
+    rows = tile_rows(B, Sq, H, _build.sm_count(q.device))
     fn = _build.entry("flash_attention_launch", _ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     B, Sq, Sk, H, Hkv, hd, hd_v, int(causal), window, scale,
-                    q_offset, _build.DTYPE_CODES[q.dtype],
+                    q_offset, rows, short_tiles, _build.DTYPE_CODES[q.dtype],
                     _build.stream_handle(q)),
                  "flash_attention")
-    flash_attention.launches += 1
+    return out
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, causal, window, scale, q_offset):
+    out = _launch(q, k, v, causal, window, scale, q_offset)
+    if q.numel():
+        flash_attention.launches += 1
     return out
 
 

@@ -12,6 +12,7 @@ wrappers take their plain versions.
 """
 import copy
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.channel import LiveChannel  # noqa: E402
 from repro_torch.launch.serve import build_engine  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
@@ -28,6 +30,8 @@ from repro_torch.models.config import MLAConfig  # noqa: E402
 from repro_torch.training import steps as ST  # noqa: E402
 
 TOL = K.TOLERANCE
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+DA = importlib.import_module("repro_torch.kernels.decode_attention")
 
 
 @pytest.fixture
@@ -377,3 +381,90 @@ def test_deepseek_smoke_engine_on_card_matches_cpu(cuda):
     assert K.flash_attention.launches == \
         cfg.num_layers * stats[1]["prefill_dispatches"]
     assert K.decode_attention.launches == 0
+
+
+# the redesigned attention kernels: lengths around the 16-row warp tile
+# and the 64-key tile (flash), and around a split boundary (decode)
+FLASH_SWEEP_S = [1, 15, 16, 17, 63, 64, 65, 300, 512]
+FLASH_SWEEP_G = [1, 2, 8, 16]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,hd_v", FA.HEAD_DIM_PAIRS)
+def test_flash_sweep_matches_plain(cuda, dt, hd, hd_v):
+    """Causal, Sq = Sk, every group size at every length of the sweep."""
+    rn = _randn(cuda, 8)
+    for G in FLASH_SWEEP_G:
+        for S in FLASH_SWEEP_S:
+            q = rn(1, S, G, hd, dt=dt)
+            k, v = rn(1, S, 1, hd, dt=dt), rn(1, S, 1, hd_v, dt=dt)
+            _close(K.flash_attention(q, k, v),
+                   K.flash_attention_plain(q, k, v), TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,Hkv,hd,window", [
+    (4, 65, 65, 8, 2, 64, 0),           # B = 4
+    (1, 37, 300, 16, 2, 128, 0),        # Sq < Sk: q_offset = 263
+    (2, 300, 300, 8, 1, 64, 24), (1, 512, 512, 16, 2, 128, 24),
+    (1, 512, 512, 16, 2, 128, 128), (4, 100, 100, 16, 1, 192, 128)])
+def test_flash_batches_offsets_and_windows_match_plain(cuda, dt, B, Sq, Sk,
+                                                       H, Hkv, hd, window):
+    rn = _randn(cuda, 9)
+    hd_v = 128 if hd == 192 else hd
+    q, k, v = rn(B, Sq, H, hd, dt=dt), rn(B, Sk, Hkv, hd, dt=dt), \
+        rn(B, Sk, Hkv, hd_v, dt=dt)
+    _close(K.flash_attention(q, k, v, window=window),
+           K.flash_attention_plain(q, k, v, window=window), TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_decode_sweep_matches_plain(cuda, dt, hd):
+    """Every group size, W in {64, 1024, 4096}, B in {1, 4}, lengths 1,
+    a split boundary - 1, the boundary, boundary + 1 and W; a second
+    call gives the same bits (the merge runs in split order)."""
+    rn = _randn(cuda, 10)
+    for G in DA.GROUP_SIZES:
+        for W in (64, 1024, 4096):
+            for B in (1, 4):
+                plan = DA.plan_splits(B, 2, W, _build.sm_count(cuda))
+                c = plan.chunk
+                lens = sorted({1, max(1, c - 1), min(W, c), min(W, c + 1), W})
+                sets = [[x] for x in lens] if B == 1 else \
+                    [[lens[0], lens[-3], lens[-2], lens[-1]]]
+                q = rn(B, 2 * G, hd, dt=dt)
+                kc, vc = rn(B, W, 2, hd, dt=dt), rn(B, W, 2, hd, dt=dt)
+                for ls in sets:
+                    ln = torch.tensor(ls, dtype=torch.int32, device=cuda)
+                    got = K.decode_attention(q, kc, vc, ln)
+                    _close(got, K.decode_attention_plain(q, kc, vc, ln),
+                           TOL[dt])
+                    assert torch.equal(got, K.decode_attention(q, kc, vc, ln))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_tolerance_rejects_the_redesigns_planted_faults(cuda, dt):
+    """At the main path's shapes: the causal tile skip one tile short
+    fails the check in both dtypes; the last split's partial state
+    dropped, at lengths that put one slot in it, fails it in fp32 (in
+    bf16 one slot among 961 is within rounding)."""
+    rn = _randn(cuda, 12)
+    q, k, v = rn(1, 512, 16, 128, dt=dt), rn(1, 512, 2, 128, dt=dt), \
+        rn(1, 512, 2, 128, dt=dt)
+    want = K.flash_attention_plain(q, k, v)
+    assert _agree(FA._launch(q, k, v, True, 0, 128 ** -0.5, 0), want, TOL[dt])
+    assert not _agree(FA._launch(q, k, v, True, 0, 128 ** -0.5, 0,
+                                 short_tiles=1), want, TOL[dt])
+    plan = DA.plan_splits(4, 2, 1024, _build.sm_count(cuda))
+    assert plan.splits * 4 * 2 >= 128
+    ln = torch.full((4,), (plan.splits - 1) * plan.chunk + 1,
+                    dtype=torch.int32, device=cuda)
+    q, kc, vc = rn(4, 16, 128, dt=dt), rn(4, 1024, 2, 128, dt=dt), \
+        rn(4, 1024, 2, 128, dt=dt)
+    want = K.decode_attention_plain(q, kc, vc, ln)
+    assert _agree(DA._launch(q, kc, vc, ln, 128 ** -0.5), want, TOL[dt])
+    if dt == torch.float32:
+        short = DA.SplitPlan(plan.splits - 1, plan.chunk)
+        assert not _agree(DA._launch(q, kc, vc, ln, 128 ** -0.5, short),
+                          want, TOL[dt])
