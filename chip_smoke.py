@@ -8,8 +8,8 @@ Phases, each of which raises (exit code != 0) when it fails:
 
   gpu      the card's name and power limit, from nvidia-smi;
   build    the CUDA kernels built from src/repro_torch/csrc with nvcc, and
-           ptxas's registers, shared memory and spills for the two
-           attention kernels;
+           ptxas's registers, shared memory and spills for the attention
+           kernels, moe_gmm and rmsnorm;
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16 and fp32, at ``kernels.TOLERANCE``, with its device time,
            the plain version's, one library call's as a yardstick where
@@ -18,14 +18,18 @@ Phases, each of which raises (exit code != 0) when it fails:
            zamba2-1.2b, xlstm-350m and deepseek-v2-lite-16b give it (and
            one mixtral-8x22b expert product); the attention kernels over
            every head-dim pair, group size, ragged length and split
-           boundary they take; the HMMA count of the flash kernel's SASS;
-           then faults planted in the kernels' inputs or plans (a length
-           one short, a window one long, the causal tile skip one tile
-           short, the last split of a decode dropped, the scan state not
-           carried across a chunk boundary, a causal mask one off, the
+           boundary they take; moe_gmm at every row tile's edges (R = 1,
+           8, 9, 64, 65) and at a D off the ring's step; rmsnorm on both
+           of its paths; the HMMA count of the flash and moe_gmm kernels'
+           SASS; then faults planted in the kernels' inputs or plans (a
+           length one short, a window one long, the causal tile skip one
+           tile short, the last split of a decode dropped, the scan state
+           not carried across a chunk boundary, a causal mask one off, the
            scale taken from hd_v, the last D tile left out of an expert
-           product, an expert reading its neighbour's weights) must be
-           rejected;
+           product, an expert reading its neighbour's weights, a stale
+           tile in moe_gmm's ring, its last 8-row group dropped, its plan
+           one work item short, an rmsnorm row summed over its first
+           warp's share) must be rejected;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -42,7 +46,7 @@ Phases, each of which raises (exit code != 0) when it fails:
   profile  where one decode block of qwen2.5-3b, zamba2-1.2b and
            deepseek-v2-lite-16b (or those of --profile-archs) spends its
            time: wall time, device busy time under torch.profiler, idle
-           share, and the decode_attention kernels' device time.
+           share, and each custom kernel's device time and launches.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -148,12 +152,16 @@ def _kernel_names(mangled):
                              capture_output=True, text=True).stdout
         for m, d in zip(mangled, out.splitlines()):
             d = d[:d.find(">(") + 1] if ">(" in d else d
-            names[m] = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
-                              r"\(int\)", "", d)
+            d = re.sub(r"^void |<unnamed>::|\(anonymous namespace\)::|"
+                       r"\(int\)", "", d)
+            names[m] = d if ">" in d else d.split("(")[0]
     return {m: n or m for m, n in names.items()}
 
 
-def _ptxas_report(text, keys=("flash_attention", "decode_attention")):
+PTXAS_KEYS = ("flash_attention", "decode_attention", "moe_gmm", "rmsnorm")
+
+
+def _ptxas_report(text, keys=PTXAS_KEYS):
     """ptxas -v's registers, static shared memory and spills for every
     kernel entry whose name holds one of ``keys``."""
     rows, cur = {}, None
@@ -188,7 +196,8 @@ def phase_build(state):
     log(f"build: {path.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s)")
     report = _ptxas_report(_build.ptxas_log(path).read_text())
-    assert report, "build: no ptxas report for the attention kernels"
+    missing = [k for k in PTXAS_KEYS if not any(k in n for n in report)]
+    assert not missing, f"build: no ptxas report for {missing}"
     for name, r in sorted(report.items()):
         log(f"build: ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('smem')} B static shared memory, spill stores/loads "
@@ -268,6 +277,7 @@ def phase_kernels(state):
         record("rmsnorm", f"[{R},{D}] {dname}", dname == "bfloat16", err,
                args_list, K.rmsnorm, K.rmsnorm_plain, lib,
                2 * R * D * esz + 4 * D, 4 * R * D, "float32")
+    _rmsnorm_kernels(randn, record, tols)
 
     # flash attention: q [1,S,16,128] vs k/v [1,S,2,128]
     H, Hkv, hd = 16, 2, 128
@@ -445,9 +455,52 @@ def phase_kernels(state):
     torch.cuda.synchronize()
 
 
-def _sass_mma_counts():
-    """HMMA/HGMMA instructions in the SASS of each flash kernel, by
-    cuobjdump where the toolkit has it (None where it does not)."""
+def _rmsnorm_kernels(randn, record, tols):
+    """rmsnorm at a decode step's [4, 2048] (the shape qwen2.5-3b launches
+    73 times a token) in both dtypes and at [2048, 8192] in fp32 (the
+    widest row of the configs, 32 KB), all on the block path (rows over
+    2 KB), with its planted fault: a row summed over its first warp's
+    share alone."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+
+    dev = torch.device("cuda")
+    for (R, D), dname, dt in (((4, 2048), "bfloat16", torch.bfloat16),
+                              ((4, 2048), "float32", torch.float32),
+                              ((2048, 8192), "float32", torch.float32)):
+        esz = torch.finfo(dt).bits // 8
+
+        def make(R=R, D=D, dt=dt):
+            return (randn(R, D, dt=dt),
+                    randn(D, dt=torch.float32) * 0.1 + 1.0)
+        args_list = cold_copies(make, R * D * esz)
+        x, sc = args_list[0]
+        want = K.rmsnorm_plain(x, sc)
+        err = _check(f"rmsnorm [{R},{D}] {dname}", K.rmsnorm(x, sc), want,
+                     tols[dname])
+        plan = RN.plan_rmsnorm(R, D, esz, _build.sm_count(dev))
+        if not plan.per_warp:
+            _reject(f"rmsnorm [{R},{D}] {dname} {plan} summed over the "
+                    f"first warp's share", RN._launch(
+                        x, sc, 1e-5, fault=RN.FAULT_FIRST_WARP_ONLY),
+                    want, tols[dname])
+        weights = {sc.data_ptr(): sc.to(dt) for _, sc in args_list}
+        lib = lambda x, sc, w=weights, D=D: F.rms_norm(
+            x, (D,), w[sc.data_ptr()], 1e-5)
+        record("rmsnorm", f"[{R},{D}] {dname}", False, err, args_list,
+               K.rmsnorm, K.rmsnorm_plain, lib, 2 * R * D * esz + 4 * D,
+               4 * R * D, "float32")
+        del args_list, x, sc
+
+
+def _sass_mma_counts(keys=("flash_attention", "moe_gmm")):
+    """HMMA/HGMMA instructions in the SASS of each kernel whose name holds
+    one of ``keys``, by cuobjdump where the toolkit has it (None where it
+    does not)."""
     from repro_torch.kernels import _build
     tool = _toolkit_tool("cuobjdump")
     if tool is None:
@@ -458,7 +511,8 @@ def _sass_mma_counts():
     for line in sass.splitlines():
         hit = re.search(r"Function : (\S+)", line)
         if hit:
-            cur = hit.group(1) if "flash_attention" in hit.group(1) else None
+            cur = hit.group(1) if any(k in hit.group(1) for k in keys) \
+                else None
             if cur:
                 counts[cur] = 0
         elif cur and re.search(r"\bH(G)?MMA\b", line):
@@ -574,9 +628,10 @@ def _attention_sweep(randn, tols, dev):
     else:
         for name, c in sorted(counts.items()):
             log(f"kernels: SASS {name}: {c} HMMA/HGMMA instructions")
-        mma = {k: c for k, c in counts.items() if "mma_kernel" in k}
-        assert mma and all(mma.values()), \
-            f"kernels: the bf16 flash kernels hold no HMMA: {counts}"
+        for key in ("flash_attention_mma", "moe_gmm_mma", "moe_gmm_wgmma"):
+            mma = {k: c for k, c in counts.items() if key in k}
+            assert mma and all(mma.values()), \
+                f"kernels: the bf16 {key} kernels hold no HMMA: {counts}"
 
 
 def _scan_kernels(randn, record):
@@ -663,19 +718,27 @@ def _moe_kernels(randn, record, tols):
     """The kernels the moe family adds.  moe_gmm at deepseek-v2-lite-16b's
     expert products (E 64, D 2048, F 1408): a decode step's C = 6 for w1/w3
     and for w2, the C = 12 and 16 of a prefill bucket of 65 to 128 tokens
-    (the kernel's 16-row tile), and a 256-token prefill's C = 32; one
-    mixtral-8x22b product (E 8, C 320, D 6144, F 16384; bf16); and ragged
-    cases.  Every call reads all of w whatever C is, so bytes bound it;
-    the yardstick is ``torch.bmm``.  Planted faults at the decode shape in
-    fp32: the last 64-deep D tile left out, and each expert reading the
-    next one's weights.  Then rmsnorm at MLA's kv_norm width of 512, over
-    a decode step's 4 rows and a 512-token prefill's; then the flash
-    kernel at MLA's head dims (q, k 192 = 128 + 64 rope, v 128, 16 heads),
-    causal at S = 256 and 37, with the scale taken from hd_v as the
-    planted fault."""
+    (the kernel's 16-row tile), and a 256-token prefill's C = 32; the
+    edges of the row tiles (R = 1, 8, 9, 64, 65) and a D of 1400, off the
+    ring's 64-deep step; one mixtral-8x22b product (E 8, C 320, D 6144, F
+    16384; bf16); and ragged cases.  Every call reads all of w whatever C
+    is, so bytes bound it up to mixtral's; the yardstick is ``torch.bmm``.
+    Planted faults at the decode shape in fp32: the last 64-deep D tile
+    left out, and each expert reading the next one's weights; in bf16, at
+    the decode shape (the mma.sync kernel) and at C = 12 (the wgmma
+    kernel): every w stage of the ring holding the step before's tile
+    (what a stage consumed one step early holds) and the plan one work
+    item short; at C = 12 also the last 8-row group dropped.
+    Then rmsnorm at MLA's kv_norm width of 512, over a decode step's 4
+    rows and a 512-token prefill's; then the flash kernel at MLA's head
+    dims (q, k 192 = 128 + 64 rope, v 128, 16 heads), causal at S = 256
+    and 37, with the scale taken from hd_v as the planted fault."""
+    import importlib
     import torch
     import torch.nn.functional as F
     from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
 
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
     cases = (("deepseek decode w1/w3", 64, 6, 2048, 1408, dts),
@@ -684,6 +747,9 @@ def _moe_kernels(randn, record, tols):
                for C in (12, 16)
                for w, D, F_ in (("w1/w3", 2048, 1408), ("w2", 1408, 2048))),
              ("deepseek prefill T=256 w1/w3", 64, 32, 2048, 1408, dts),
+             *((f"deepseek w1/w3 R={R}", 64, R, 2048, 1408, dts)
+               for R in (1, 8, 9, 64, 65)),
+             ("D off the ring's step", 64, 6, 1400, 1408, dts),
              ("mixtral C=320", 8, 320, 6144, 16384,
               {"bfloat16": torch.bfloat16}),
              ("ragged", 3, 37, 200, 72, dts),
@@ -708,6 +774,27 @@ def _moe_kernels(randn, record, tols):
                                   w[:, :-64].contiguous()), want, tols[dname])
                 _reject(f"{name} expert e reads e+1's weights",
                         K.moe_gmm(x, torch.roll(w, -1, 0)), want, tols[dname])
+            if (label, dname) == ("deepseek decode w1/w3", "bfloat16"):
+                want = K.moe_gmm_plain(x, w)
+                _reject(f"{name} ring stage holds the step before's tile",
+                        MG._launch(x, w, fault=MG.FAULT_STALE_TILE), want,
+                        tols[dname])
+                plan = MG.plan_gmm(E, C, D, F_, _build.sm_count(x.device))
+                _reject(f"{name} {plan} one work item short",
+                        MG._launch(x, w, plan._replace(items=plan.items - 1)),
+                        want, tols[dname])
+            if (label, dname) == ("deepseek prefill C=12 w1/w3", "bfloat16"):
+                want = K.moe_gmm_plain(x, w)
+                _reject(f"{name} last 8-row group dropped",
+                        MG._launch(x, w, fault=MG.FAULT_DROP_ROW_GROUP),
+                        want, tols[dname])
+                _reject(f"{name} ring stage holds the step before's tile",
+                        MG._launch(x, w, fault=MG.FAULT_STALE_TILE), want,
+                        tols[dname])
+                plan = MG.plan_gmm(E, C, D, F_, _build.sm_count(x.device))
+                _reject(f"{name} {plan} one work item short",
+                        MG._launch(x, w, plan._replace(items=plan.items - 1)),
+                        want, tols[dname])
             record("moe_gmm", f"{label} [{E},{C},{D}]x[{E},{D},{F_}] {dname}",
                    (label, dname) == ("deepseek decode w1/w3", "bfloat16"),
                    err, args_list, K.moe_gmm, K.moe_gmm_plain, torch.bmm,
@@ -1041,6 +1128,7 @@ def _profile(cfg, params):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
     from repro_torch.launch.serve import build_engine
 
     eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=8,
@@ -1081,13 +1169,16 @@ def _profile(cfg, params):
         f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
         f"{len(kern)} kernels ({len(kern) / 8:.0f} per step); device idle "
         f"share {1 - busy / wall:.3f}")
-    dec = [e.time_range.end - e.time_range.start for e in prof.events()
-           if e.device_type == DeviceType.CUDA
-           and "decode_attention" in e.name]
-    log(f"profile {cfg.name}: decode_attention {sum(dec) / 1e3:.4f} ms of "
-        f"device time per block over {len(dec)} launches "
-        f"({sum(dec) / max(len(dec), 1):.2f} us each; "
-        f"{sum(dec) / 1e3 / busy:.4f} of device busy)")
+    # each custom kernel's device intervals, by its source's name in the
+    # CUDA kernel's (csrc/moe_gmm.cu: moe_gmm_mma_kernel, ...)
+    for k in K.KERNELS:
+        stem = Path(sys.modules[k.__module__].SOURCE).stem
+        ts = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and stem in e.name]
+        log(f"profile {cfg.name}: {k.__name__} {sum(ts) / 1e3:.4f} ms of "
+            f"device time per block over {len(ts)} launches "
+            f"({sum(ts) / max(len(ts), 1):.2f} us each; "
+            f"{sum(ts) / 1e3 / busy:.4f} of device busy)")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",

@@ -6,18 +6,26 @@ w [E,D,F] -> [E,C,F]``, one product per expert, summed over D in fp32 and
 written in x's dtype.
 
 What bounds it on the H100: bytes.  The MoE layer's capacity dispatch
-gives every expert its C rows (6 at a deepseek decode step, 32 to 64 at
+gives every expert its C rows (6 at a deepseek decode step, 12 to 64 at
 its prefill buckets) whether or not a token went there, so each call
-streams the whole weight tensor for a few dozen rows.  The kernel
-(``csrc/moe_gmm.cu``) gives one block a 64-column tile of one expert's
-output with all of its rows (up to 64; more rows add row tiles), so each
-weight element is read from device memory once; the D loop stages
-16-byte loads of x and w through shared memory and accumulates in fp32
-registers, with no divisibility required of C, D or F.
+streams the whole weight tensor for a few dozen rows.  In bf16 the kernels
+(``csrc/moe_gmm.cu``) are a persistent grid of one block per SM walking
+(expert, F tile, row tile) work items that hold all of an expert's rows
+up to 128, so each weight element is read from device memory once: w's
+tiles reach shared memory in bf16 by ``cp.async`` through a ring of
+stages, and the products run on the tensor cores: ``mma.sync`` out^T with
+the rows on N = 8 up to 8 rows (decode), ``wgmma`` with 64 rows a
+warpgroup above.  ``plan_gmm`` chooses the tile and the grid from the
+shapes and the SM count only; ``plan_items`` lists the walk the kernel
+makes.  fp32 keeps a CUDA-core
+kernel with the same ownership (a block per 64 columns of one expert).
+No divisibility is required of C, D or F.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +33,93 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/csrc/moe_gmm.cu"
 REPLACES = "src/repro/kernels/moe_gmm.py:34"
+
+SMEM_LIMIT = 232_448    # bytes of shared memory a block may use (227 KB)
+SMEM_PER_SM = 233_472   # bytes an SM holds (228 KB), 1 KB of it per block
+# planted faults (csrc: kStaleTile, kDropRowGroup), for the checks only
+FAULT_STALE_TILE = 1
+FAULT_DROP_ROW_GROUP = 2
+
+
+class GmmTile(NamedTuple):
+    """One of the bf16 kernels (csrc: ``M_*`` and ``G_*`` constants):
+    ``rows`` x ``cols`` of out per work item, ``warps`` of 32 threads, a
+    ring of ``stages`` stages ``depth`` deep, one block per SM; ``wgmma``
+    for the warpgroup kernel, else the mma.sync one."""
+    rows: int
+    cols: int
+    warps: int
+    depth: int
+    stages: int
+    wgmma: bool
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory.  mma.sync: per stage a [depth][cols + 8]
+        tile of w and a [rows][depth + 8] tile of x (rows padded by 16
+        bytes).  wgmma: per stage [rows][depth] of x and [depth][cols] of
+        w, unpadded (swizzled), and 1 KB to align the ring to 1024 B."""
+        if self.wgmma:
+            return self.stages * 2 * (self.rows + self.cols) * self.depth \
+                + 1024
+        return self.stages * 2 * (self.depth * (self.cols + 8)
+                                  + self.rows * (self.depth + 8))
+
+
+# by the kernel's tile index: R <= 8 (decode: out^T, the rows on the mma's
+# N = 8), and R > 8 (wgmma, 64 rows a warpgroup)
+GMM_TILES = (GmmTile(8, 64, 4, 128, 5, False),
+             GmmTile(128, 256, 8, 64, 4, True))
+
+
+class GmmPlan(NamedTuple):
+    """A bf16 call: tile ``GMM_TILES[tile]``; ``items`` = E x f_tiles x
+    r_tiles work items, walked by ``grid`` persistent blocks: block b
+    takes items b, b + grid, b + 2 grid, ..."""
+    tile: int
+    f_tiles: int
+    r_tiles: int
+    items: int
+    grid: int
+
+    @property
+    def spec(self) -> GmmTile:
+        return GMM_TILES[self.tile]
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_gmm(E: int, R: int, D: int, F: int, sm_count: int) -> GmmPlan:
+    """The bf16 kernel's plan, from shapes only: up to 8 rows the
+    mma.sync tile (64 columns), else the wgmma tile (128 rows x 256
+    columns; row tiles above 128 rows); a persistent grid of one block per
+    SM, never more than the items.  Takes plain ints, never a tensor
+    (deepseek's decode, E 64, R 6, D 2048, F 1408, on 132 SMs: 64 x 22
+    items over 132 blocks, each item 16 ring steps 128 deep)."""
+    for name, v in (("E", E), ("R", R), ("D", D), ("F", F),
+                    ("sm_count", sm_count)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_gmm: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    tile = 0 if R <= GMM_TILES[0].rows else 1
+    spec = GMM_TILES[tile]
+    f_tiles = max(1, -(-F // spec.cols))
+    r_tiles = max(1, -(-R // spec.rows))
+    items = E * f_tiles * r_tiles
+    return GmmPlan(tile, f_tiles, r_tiles, items,
+                   max(1, min(items, sm_count)))
+
+
+def plan_items(plan: GmmPlan, block: int) -> list:
+    """The (expert, F tile, row tile) items block ``block`` walks, in its
+    order (the kernel's ``Cursor``): row tiles fastest, then F tiles, so
+    the blocks running side by side read neighbouring tiles of the same
+    rows of w."""
+    out = []
+    for item in range(block, plan.items, plan.grid):
+        rest, rt = divmod(item, plan.r_tiles)
+        e, ft = divmod(rest, plan.f_tiles)
+        out.append((e, ft, rt))
+    return out
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -47,7 +142,7 @@ def _moe_gmm_fake(x, w):
     return x.new_empty(x.shape[0], x.shape[1], w.shape[2])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -55,8 +150,12 @@ def _rows_aligned(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and t.shape[-1] * t.element_size() % 16 == 0
 
 
-@_moe_gmm_op.register_kernel("cuda")
-def _moe_gmm_cuda(x, w):
+def _launch(x: torch.Tensor, w: torch.Tensor, plan: Optional[GmmPlan] = None,
+            fault: int = 0) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, by ``plan`` (bf16:
+    ``plan_gmm`` unless given).  A plan that leaves items out, or a
+    ``fault``, only plants a fault for the checks: the output then starts
+    as NaN, so whatever the kernel does not write fails them."""
     _build.require(x.dim() == 3 and w.dim() == 3 and x.shape[0] == w.shape[0]
                    and x.shape[2] == w.shape[1],
                    f"moe_gmm: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
@@ -70,12 +169,25 @@ def _moe_gmm_cuda(x, w):
     out = x.new_empty(E, R, F)
     if out.numel() == 0:
         return out
+    if plan is not None or fault:
+        out.fill_(float("nan"))
+    if plan is None:
+        plan = plan_gmm(E, R, D, F, _build.sm_count(x.device))
     fn = _build.entry("moe_gmm_launch", _ARGTYPES)
     _build.check(fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), E, R, D, F,
                     int(_rows_aligned(x)), int(_rows_aligned(w)),
-                    _build.DTYPE_CODES[x.dtype], _build.stream_handle(x)),
+                    _build.DTYPE_CODES[x.dtype], plan.tile, plan.items,
+                    plan.f_tiles, plan.r_tiles, plan.grid, fault,
+                    _build.stream_handle(x)),
                  "moe_gmm")
-    moe_gmm.launches += 1
+    return out
+
+
+@_moe_gmm_op.register_kernel("cuda")
+def _moe_gmm_cuda(x, w):
+    out = _launch(x, w)
+    if out.numel():
+        moe_gmm.launches += 1
     return out
 
 

@@ -6,13 +6,18 @@ computes: ``x * rsqrt(mean(x^2, -1) + eps) * scale`` in fp32, written in
 x's dtype, with the fp32 scale applied before the cast.
 
 What bounds it on the H100: bytes.  It does ~4 flops per element against
-4 (bf16) or 8 (fp32) bytes moved.  The kernel (``csrc/rmsnorm.cu``) gives
-each row one block, moves 16 bytes per thread per access, reduces in fp32
-with warp shuffles and writes each element once.
+4 (bf16) or 8 (fp32) bytes moved.  The kernel (``csrc/rmsnorm.cu``) reads
+each element once into registers, 16 bytes per thread per access, reduces
+in fp32 and scales from the same registers, with the scale read as 16-byte
+vectors before the reduction; a row of at most 2 KB belongs to one warp
+(no barrier), a wider one to one block.  ``plan_rmsnorm`` chooses the path
+and the grid from the shapes and the SM count only.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -20,6 +25,46 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
 REPLACES = "src/repro/kernels/rmsnorm.py:24"
+
+WARP_ROW_BYTES = 2048   # the widest row one warp holds (4 vectors a lane)
+MAX_ROW_BYTES = 2 * 16 * 1024   # a block of 1,024 threads x 2 vectors
+FAULT_FIRST_WARP_ONLY = 1       # csrc: kFirstWarpOnly, for the checks only
+
+
+class NormPlan(NamedTuple):
+    """A launch: one warp per row (``per_warp``, ``threads // 32`` rows a
+    block, walked grid-stride) or one block per row; ``vecs`` 16-byte
+    vectors per thread."""
+    per_warp: bool
+    vecs: int
+    threads: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_rmsnorm(rows: int, D: int, itemsize: int,
+                 sm_count: int) -> NormPlan:
+    """The launch for ``rows`` rows of D elements of ``itemsize`` bytes,
+    from shapes only.  A row of at most 2 KB: one warp, 1, 2 or 4 vectors
+    a lane, and as many rows a block (up to 8) as leave at least one block
+    per SM, at most a full SM's threads of blocks per SM ([300, 1024] bf16
+    on 132 SMs: 2 rows a block, 150 blocks; [4, 512]: 4 blocks of one
+    warp).  A wider row, up to 32 KB: one block of 2 vectors a thread
+    (bf16 [2048, 2048]: 2,048 blocks of 128 threads)."""
+    for name, v in (("rows", rows), ("D", D), ("itemsize", itemsize),
+                    ("sm_count", sm_count)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_rmsnorm: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    nvec = max(1, D * itemsize // 16)
+    if D * itemsize <= WARP_ROW_BYTES:
+        vecs = next(v for v in (1, 2, 4) if 32 * v >= nvec)
+        rpb = next((r for r in (8, 4, 2) if -(-rows // r) >= sm_count), 1)
+        threads = 32 * rpb
+        per_sm = min(32, 2048 // threads)
+        return NormPlan(True, vecs, threads,
+                        max(1, min(-(-rows // rpb), sm_count * per_sm)))
+    return NormPlan(False, 2, -(-nvec // 64) * 32, max(1, rows))
 
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -46,29 +91,49 @@ def _rmsnorm_fake(x, scale, eps):
     return torch.empty_like(x)
 
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_float]
+             + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 
 
-@_rmsnorm_op.register_kernel("cuda")
-def _rmsnorm_cuda(x, scale, eps):
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float,
+            plan: Optional[NormPlan] = None, fault: int = 0) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors, by ``plan``
+    (``plan_rmsnorm`` unless given); ``fault`` plants a fault for the
+    checks only."""
     D = x.shape[-1]
     _build.require(x.dtype in _build.DTYPE_CODES,
                    f"rmsnorm: dtype {x.dtype} not supported")
     _build.require(x.is_contiguous(), "rmsnorm: x must be contiguous")
     _build.require(D % 8 == 0, f"rmsnorm: D={D} is not a multiple of 8")
+    _build.require(D * x.element_size() <= MAX_ROW_BYTES,
+                   f"rmsnorm: a row of {D} is wider than "
+                   f"{MAX_ROW_BYTES // 1024} KB")
     _build.require(scale.dtype == torch.float32 and scale.shape == (D,)
                    and scale.is_contiguous() and scale.device == x.device,
                    "rmsnorm: scale must be a contiguous fp32 [D] on x's device")
+    _build.require(x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0,
+                   "rmsnorm: x and scale must start on 16-byte boundaries")
     out = torch.empty_like(x)
-    rows = x.numel() // D
+    rows = x.numel() // D if D else 0
     if rows == 0:
         return out
+    if plan is None:
+        plan = plan_rmsnorm(rows, D, x.element_size(),
+                            _build.sm_count(x.device))
     fn = _build.entry("rmsnorm_launch", _ARGTYPES)
     _build.check(fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, D,
-                    eps, _build.DTYPE_CODES[x.dtype], _build.stream_handle(x)),
+                    eps, _build.DTYPE_CODES[x.dtype], int(plan.per_warp),
+                    plan.vecs, plan.threads, plan.grid, fault,
+                    _build.stream_handle(x)),
                  "rmsnorm")
-    rmsnorm.launches += 1
+    return out
+
+
+@_rmsnorm_op.register_kernel("cuda")
+def _rmsnorm_cuda(x, scale, eps):
+    out = _launch(x, scale, eps)
+    if out.numel():
+        rmsnorm.launches += 1
     return out
 
 

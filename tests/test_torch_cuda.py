@@ -115,6 +115,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         K.rmsnorm(rn(4, 64, dt=torch.float16), rn(64))
     with pytest.raises(ValueError, match="contiguous"):
         K.rmsnorm(rn(64, 4).T, rn(64))
+    with pytest.raises(ValueError, match="16-byte"):
+        K.rmsnorm(rn(65)[1:].view(8, 8), rn(8))
+    with pytest.raises(ValueError, match="wider"):
+        K.rmsnorm(rn(1, 8192 + 8), rn(8192 + 8))
     q, kc = rn(2, 1, 4, 16), rn(2, 8, 2, 16)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
@@ -261,12 +265,15 @@ def test_recurrent_smoke_engine_on_card_matches_cpu(cuda, arch):
 
 # moe_gmm at deepseek-v2-lite-16b's shapes (E = 64, D = 2048, F = 1408):
 # decode (C = 6) for w1/w3 and w2, a prefill bucket of 65 to 128 tokens
-# (C = 12 or 16: the 16-row tile), a 256-token prefill (C = 32); and
-# ragged ones (C, D, F not multiples of the tiles; rows not 16-byte
-# aligned; more rows than one row tile)
+# (C = 12 or 16: the 16-row tile), a 256-token prefill (C = 32); the
+# edges of the bf16 kernel's row tiles (R = 1, 8, 9, 64, 65) and a D of
+# 1400, off its ring's step; and ragged ones (C, D, F not multiples of
+# the tiles; rows not 16-byte aligned; more rows than one row tile)
 GMM_CASES = [(64, 6, 2048, 1408), (64, 6, 1408, 2048),
              (64, 12, 2048, 1408), (64, 12, 1408, 2048),
              (64, 16, 2048, 1408), (64, 16, 1408, 2048), (64, 32, 2048, 1408),
+             (64, 1, 2048, 1408), (64, 8, 2048, 1408), (64, 9, 2048, 1408),
+             (64, 64, 2048, 1408), (64, 65, 2048, 1408), (64, 6, 1400, 1408),
              (3, 37, 200, 72), (3, 5, 131, 67), (2, 150, 96, 64)]
 
 
@@ -319,6 +326,61 @@ def test_moe_gmm_tolerance_rejects_planted_faults(request, device):
     short = K.moe_gmm(x[..., :-64].contiguous(), w[:, :-64].contiguous())
     assert not _agree(short, want, tol)
     assert not _agree(K.moe_gmm(x, torch.roll(w, -1, 0)), want, tol)
+
+
+@pytest.mark.parametrize("C", [6, 12])
+def test_moe_gmm_tolerance_rejects_the_redesigns_planted_faults(cuda, C):
+    """bf16, at the decode shape (the mma.sync kernel) and at C = 12 (the
+    wgmma kernel): every w stage of the ring holding the step before's
+    tile (what a stage consumed one step early holds), the plan one work
+    item short, and the last 8-row group of R dropped each fail the check
+    that the kernel passes."""
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+    tol = TOL[torch.bfloat16]
+    x, w = _gmm_inputs(cuda, 64, C, 2048, 1408, torch.bfloat16)
+    want = K.moe_gmm_plain(x, w)
+    plan = MG.plan_gmm(64, C, 2048, 1408, _build.sm_count(cuda))
+    assert _agree(MG._launch(x, w, plan), want, tol)
+    assert not _agree(MG._launch(x, w, fault=MG.FAULT_STALE_TILE), want, tol)
+    assert not _agree(MG._launch(x, w, plan._replace(items=plan.items - 1)),
+                      want, tol)
+    assert not _agree(MG._launch(x, w, fault=MG.FAULT_DROP_ROW_GROUP), want,
+                      tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 4, 300, 2048])
+@pytest.mark.parametrize("D", [1024, 2048, 4096, 8192])
+def test_rmsnorm_widths_and_rows_match_plain(cuda, dt, rows, D):
+    """Both paths of the kernel (a warp per row up to 2 KB, a block per
+    row above) at the widths of the configs, from a decode step's rows to
+    a prefill's; one launch each."""
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    rn = _randn(cuda, 9)
+    x, s = rn(rows, D, dt=dt), rn(D) * 0.1 + 1.0
+    before = K.rmsnorm.launches
+    got = K.rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert K.rmsnorm.launches == before + 1
+    _close(got, K.rmsnorm_plain(x, s), TOL[dt])
+    assert torch.equal(got, K.rmsnorm(x, s))
+    plan = RN.plan_rmsnorm(rows, D, x.element_size(), _build.sm_count(cuda))
+    assert plan.per_warp == (D * x.element_size() <= RN.WARP_ROW_BYTES)
+
+
+@pytest.mark.parametrize("rows,D", [(4, 2048), (2048, 8192)])
+def test_rmsnorm_tolerance_rejects_its_planted_fault(cuda, rows, D):
+    """fp32 rows held by a block: the sum of squares taken over the first
+    warp's share of a row alone fails the check."""
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    rn = _randn(cuda, 10)
+    x, s = rn(rows, D), rn(D) * 0.1 + 1.0
+    want = K.rmsnorm_plain(x, s)
+    assert not RN.plan_rmsnorm(rows, D, 4, _build.sm_count(cuda)).per_warp
+    assert _agree(RN._launch(x, s, 1e-5), want, TOL[torch.float32])
+    assert not _agree(RN._launch(x, s, 1e-5,
+                                 fault=RN.FAULT_FIRST_WARP_ONLY),
+                      want, TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

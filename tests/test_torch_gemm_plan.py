@@ -1,0 +1,235 @@
+"""The host-side plans of the redesigned ``moe_gmm`` and ``rmsnorm``
+kernels, on the CPU.
+
+``plan_gmm`` (the bf16 grouped expert matmul): its persistent blocks walk
+every (expert, F tile, row tile) item exactly once, its two tiles are the
+CUDA kernels' and fit the H100's shared memory, it reads plain ints only,
+and it puts up to 8 rows on one mma.sync N tile (decode), up to 128 in
+one wgmma item, and row tiles of 128 above.  The kernel's walk (items in
+``plan_items`` order, each summed over its 128- or 64-deep ring steps)
+is replayed in plain PyTorch and held to
+``moe_gmm_plain`` and to the JAX reference (``repro.kernels.ref`` and the
+Pallas kernel in interpret mode) in fp32.  ``plan_rmsnorm``: a warp per
+row up to 2 KB rows, a block per row above, and every row normalised
+exactly once by the grid-stride walk."""
+import importlib
+import inspect
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops, ref  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+
+MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+CSRC = Path(MG.__file__).resolve().parents[1] / "csrc"
+
+# (E, R, D, F): deepseek-v2-lite-16b's decode and prefill products, the
+# tiles' edges, mixtral-8x22b's, and ragged ones
+GMM_SHAPES = [(64, 6, 2048, 1408), (64, 6, 1408, 2048), (64, 12, 2048, 1408),
+              (64, 16, 1408, 2048), (64, 32, 2048, 1408), (64, 1, 2048, 1408),
+              (64, 8, 2048, 1408), (64, 9, 2048, 1408), (64, 64, 2048, 1408),
+              (64, 65, 2048, 1408), (64, 6, 1400, 1408), (8, 320, 6144, 16384),
+              (3, 37, 200, 72), (3, 5, 131, 67), (2, 150, 96, 64)]
+SM_COUNTS = (132, 114, 7, 1)
+
+
+@pytest.mark.parametrize("sm", SM_COUNTS)
+@pytest.mark.parametrize("E,R,D,F", GMM_SHAPES)
+def test_gmm_plan_walks_every_item_once(E, R, D, F, sm):
+    plan = MG.plan_gmm(E, R, D, F, sm)
+    spec = plan.spec
+    assert plan.f_tiles * spec.cols >= F > (plan.f_tiles - 1) * spec.cols
+    assert plan.r_tiles * spec.rows >= R > (plan.r_tiles - 1) * spec.rows
+    assert plan.items == E * plan.f_tiles * plan.r_tiles
+    assert 1 <= plan.grid <= min(plan.items, sm)
+    walked = [it for b in range(plan.grid) for it in MG.plan_items(plan, b)]
+    every = {(e, ft, rt) for e in range(E) for ft in range(plan.f_tiles)
+             for rt in range(plan.r_tiles)}
+    assert len(walked) == len(every) == plan.items
+    assert set(walked) == every
+    # no block walks more than one item more than another
+    counts = [len(MG.plan_items(plan, b)) for b in range(plan.grid)]
+    assert max(counts) - min(counts) <= 1
+
+
+def _cuda_tiles():
+    """The two bf16 kernels' constants in csrc/moe_gmm.cu as GmmTiles."""
+    src = (CSRC / "moe_gmm.cu").read_text()
+    c = {k: int(v) for k, v in re.findall(r"\b([MG]_[A-Z]+) = (\d+)", src)}
+    assert "__launch_bounds__(M_THREADS, 1)" in src
+    assert "__launch_bounds__(G_THREADS, 1)" in src
+    return (MG.GmmTile(c["M_BR"], c["M_BF"], c["M_THREADS"] // 32, c["M_BD"],
+                       c["M_STAGES"], False),
+            MG.GmmTile(c["G_BR"], c["G_BN"], c["G_THREADS"] // 32, c["G_BD"],
+                       c["G_STAGES"], True))
+
+
+def test_gmm_tiles_are_the_kernels_and_fit_shared_memory():
+    """The Python tiles mirror the CUDA kernels' constants; each stage
+    holds whole 32-deep ldmatrix or 16-deep wgmma steps, the wgmma tile
+    whole warpgroups of 64 rows and 64-column blocks; one block's ring fits
+    the 227 KB a block may use and the SM's 228 KB (1 KB reserved)."""
+    assert _cuda_tiles() == MG.GMM_TILES
+    mma, wg = MG.GMM_TILES
+    assert not mma.wgmma and mma.rows == 8 and mma.cols == 16 * mma.warps
+    assert mma.depth % 32 == 0
+    assert wg.wgmma and wg.rows == 64 * (wg.warps // 4) and wg.cols % 64 == 0
+    assert wg.cols <= 256 and wg.depth % 16 == 0 and wg.stages >= 3
+    for t in MG.GMM_TILES:
+        assert t.smem_bytes <= MG.SMEM_LIMIT
+        assert t.smem_bytes + 1024 <= MG.SMEM_PER_SM
+
+
+@pytest.mark.parametrize("R", [1, 2, 6, 8])
+def test_gmm_plan_puts_up_to_8_rows_on_one_n_tile(R):
+    """Decode: out^T on mma.sync, F on M, the rows on one N tile of 8."""
+    plan = MG.plan_gmm(64, R, 2048, 1408, 132)
+    assert plan.tile == 0 and not plan.spec.wgmma
+    assert plan.spec.rows == 8 and plan.r_tiles == 1
+    assert plan.spec.cols % 16 == 0    # whole 16-column A tiles
+
+
+@pytest.mark.parametrize("R", [9, 12, 16, 17, 32, 33, 48, 64])
+def test_gmm_plan_keeps_9_to_64_rows_in_one_warpgroup_item(R):
+    """9 to 64 rows: the wgmma tile, the rows on M, all in one item (one
+    row tile, so w is read from device memory once)."""
+    plan = MG.plan_gmm(64, R, 2048, 1408, 132)
+    assert plan.tile == 1 and plan.spec.wgmma and plan.r_tiles == 1
+
+
+@pytest.mark.parametrize("R", [65, 100, 128, 129, 320])
+def test_gmm_plan_tiles_rows_above_64(R):
+    """Above 64 rows: items of 128 rows, one row tile up to 128 and row
+    tiles above (w read again from L2 by each)."""
+    plan = MG.plan_gmm(8, R, 6144, 16384, 132)
+    assert plan.tile == 1 and plan.spec.rows == 128
+    assert plan.r_tiles == -(-R // 128)
+
+
+def test_gmm_plan_reads_only_shapes_and_the_sm_count():
+    """A function of five ints: the same ints give the same plan, and a
+    tensor (whose reading could be a host sync) or a float is refused."""
+    params = list(inspect.signature(MG.plan_gmm).parameters)
+    assert params == ["E", "R", "D", "F", "sm_count"]
+    assert MG.plan_gmm(64, 6, 2048, 1408, 132) == \
+        MG.plan_gmm(64, 6, 2048, 1408, 132)
+    assert MG.plan_gmm(64, 6, 2048, 1408, 132) != \
+        MG.plan_gmm(64, 6, 2048, 1408, 114)
+    for bad in (torch.tensor(6), 6.0, True):
+        with pytest.raises(TypeError):
+            MG.plan_gmm(64, bad, 2048, 1408, 132)
+    with pytest.raises(TypeError):
+        MG.plan_gmm(64, 6, 2048, 1408, torch.tensor(132))
+
+
+def _walk(x, w, plan):
+    """The kernel's algorithm in plain PyTorch, fp32: every block's items
+    in its order, each the sum over its ring steps of the x tile times
+    the w tile (zeros past R, D and F)."""
+    spec = plan.spec
+    E, R, D = x.shape
+    F = w.shape[2]
+    out = torch.full((E, R, F), float("nan"))
+    for b in range(plan.grid):
+        for e, ft, rt in MG.plan_items(plan, b):
+            r0, f0 = rt * spec.rows, ft * spec.cols
+            acc = torch.zeros(spec.rows, spec.cols)
+            for ks in range(max(1, -(-D // spec.depth))):
+                d0 = ks * spec.depth
+                xt = torch.zeros(spec.rows, spec.depth)
+                wt = torch.zeros(spec.depth, spec.cols)
+                xs = x[e, r0:r0 + spec.rows, d0:d0 + spec.depth].float()
+                ws = w[e, d0:d0 + spec.depth, f0:f0 + spec.cols].float()
+                xt[:xs.shape[0], :xs.shape[1]] = xs
+                wt[:ws.shape[0], :ws.shape[1]] = ws
+                acc += xt @ wt
+            rows, cols = min(spec.rows, R - r0), min(spec.cols, F - f0)
+            out[e, r0:r0 + rows, f0:f0 + cols] = acc[:rows, :cols]
+    return out
+
+
+@pytest.mark.parametrize("sm", [3, 132])
+@pytest.mark.parametrize("E,R,D,F", [(3, 6, 200, 72), (2, 12, 256, 128),
+                                     (2, 40, 129, 64), (2, 70, 256, 128),
+                                     (3, 5, 131, 67), (2, 150, 96, 136)])
+def test_gmm_walk_matches_plain_and_reference(E, R, D, F, sm):
+    """Every row tile (8, 16, 64 and 128 rows, one and two row tiles), a
+    D off the ring's step and ragged F, on a few SMs (several items a
+    block) and on 132; the Pallas kernel where its blocks divide the
+    shapes."""
+    rng = np.random.default_rng(E * 1000 + R + D + F)
+    x = rng.standard_normal((E, R, D)).astype(np.float32) * D ** -0.5
+    w = rng.standard_normal((E, D, F)).astype(np.float32)
+    got = _walk(torch.from_numpy(x), torch.from_numpy(w),
+                MG.plan_gmm(E, R, D, F, sm))
+    assert not torch.isnan(got).any()
+    want = K.moe_gmm_plain(torch.from_numpy(x), torch.from_numpy(w))
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(ref.moe_gmm(jnp.asarray(x), jnp.asarray(w))),
+        atol=1e-5, rtol=1e-5)
+    if D % min(D, 128) == 0 and F % min(F, 128) == 0:
+        np.testing.assert_allclose(
+            got.numpy(),
+            np.asarray(ops.moe_gmm(jnp.asarray(x), jnp.asarray(w))),
+            atol=1e-5, rtol=1e-5)
+
+
+def test_gmm_walk_fails_the_check_when_an_item_is_skipped():
+    """The plan one item short leaves the last item unwritten, which the
+    check rejects (the kernel's planted fault of the same name)."""
+    E, R, D, F = 3, 6, 200, 72
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((E, R, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, D, F)).astype(np.float32))
+    plan = MG.plan_gmm(E, R, D, F, 4)
+    short = _walk(x, w, plan._replace(items=plan.items - 1))
+    assert not torch.allclose(short, K.moe_gmm_plain(x, w), atol=1e-4,
+                              rtol=1e-4)
+
+
+# (rows, D, itemsize): the served shapes of every family and the widest
+NORM_SHAPES = [(2048, 2048, 2), (2048, 2048, 4), (4, 2048, 2), (4, 2048, 4),
+               (300, 4096, 2), (300, 2048, 2), (300, 1024, 2), (4, 512, 2),
+               (512, 512, 4), (2048, 8192, 4), (1, 8, 2), (37, 1032, 2),
+               (5000, 1024, 2), (3, 8192, 2), (2, 16384, 2), (2, 8192, 4)]
+
+
+@pytest.mark.parametrize("sm", [132, 7])
+@pytest.mark.parametrize("rows,D,itemsize", NORM_SHAPES)
+def test_rmsnorm_plan_covers_every_row_once(rows, D, itemsize, sm):
+    plan = RN.plan_rmsnorm(rows, D, itemsize, sm)
+    nvec = D * itemsize // 16
+    assert plan.per_warp == (D * itemsize <= RN.WARP_ROW_BYTES)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    if plan.per_warp:
+        assert 32 * plan.vecs >= nvec and plan.vecs in (1, 2, 4)
+        rpb = plan.threads // 32
+        assert rpb in (1, 2, 4, 8)
+        # the grid-stride walk: warp k of block b takes rows b rpb + k,
+        # + grid rpb, ...
+        seen = [r for b in range(plan.grid) for k in range(rpb)
+                for r in range(b * rpb + k, rows, plan.grid * rpb)]
+        assert sorted(seen) == list(range(rows))
+        assert plan.grid <= sm * min(32, 2048 // plan.threads)
+    else:
+        assert plan.threads * plan.vecs >= nvec > \
+            (plan.threads - 32) * plan.vecs
+        assert plan.vecs == 2 and plan.grid == rows
+
+
+def test_rmsnorm_plan_reads_only_shapes_and_the_sm_count():
+    params = list(inspect.signature(RN.plan_rmsnorm).parameters)
+    assert params == ["rows", "D", "itemsize", "sm_count"]
+    with pytest.raises(TypeError):
+        RN.plan_rmsnorm(torch.tensor(4), 2048, 2, 132)
+    with pytest.raises(TypeError):
+        RN.plan_rmsnorm(4, 2048.0, 2, 132)
