@@ -9,7 +9,7 @@ Phases, each of which raises (exit code != 0) when it fails:
   gpu      the card's name and power limit, from nvidia-smi;
   build    the CUDA kernels built from src/repro_torch/csrc with nvcc, and
            ptxas's registers, shared memory and spills for the attention
-           kernels, moe_gmm and rmsnorm;
+           kernels, moe_gmm, rmsnorm and the scans (which must not spill);
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16 and fp32, at ``kernels.TOLERANCE``, with its device time,
            the plain version's, one library call's as a yardstick where
@@ -20,16 +20,20 @@ Phases, each of which raises (exit code != 0) when it fails:
            every head-dim pair, group size, ragged length and split
            boundary they take; moe_gmm at every row tile's edges (R = 1,
            8, 9, 64, 65) and at a D off the ring's step; rmsnorm on both
-           of its paths; the HMMA count of the flash and moe_gmm kernels'
-           SASS; then faults planted in the kernels' inputs or plans (a
-           length one short, a window one long, the causal tile skip one
-           tile short, the last split of a decode dropped, the scan state
-           not carried across a chunk boundary, a causal mask one off, the
-           scale taken from hd_v, the last D tile left out of an expert
-           product, an expert reading its neighbour's weights, a stale
-           tile in moe_gmm's ring, its last 8-row group dropped, its plan
-           one work item short, an rmsnorm row summed over its first
-           warp's share) must be rejected;
+           of its paths; the scans at six (B, Q, nc) cases with bf16 and
+           fp32 inputs; the HMMA count of the flash, moe_gmm and scan
+           kernels' SASS; then faults planted in the kernels' inputs or
+           plans (a length one short, a window one long, the causal tile
+           skip one tile short, the last split of a decode dropped, the
+           scan state not carried across a chunk boundary, a causal mask
+           one off, a scan's kernel chunk reading the wrong chunk's
+           entering state, a scan's bf16 splits cut to their first part,
+           cum not rebased across caller chunks, the scale taken from
+           hd_v, the last D tile left out of an expert product, an expert
+           reading its neighbour's weights, a stale tile in moe_gmm's
+           ring, its last 8-row group dropped, its plan one work item
+           short, an rmsnorm row summed over its first warp's share) must
+           be rejected;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -43,6 +47,12 @@ Phases, each of which raises (exit code != 0) when it fails:
            with speculation on and off (the token streams must agree), the
            recurrent models once (speculation is forced off); the kernel
            launch counts must be the exact multiples each model implies;
+  prefill  where one 300-token prefill of zamba2-1.2b and xlstm-350m
+           spends its time: wall time, device busy time, idle share, each
+           custom kernel's device time and launches; then each scan alone
+           at every case (public wrappers only, so a parent tree runs
+           this phase as it is; timed once a run, the kernels phase
+           reports the same times);
   profile  where one decode block of qwen2.5-3b, zamba2-1.2b and
            deepseek-v2-lite-16b (or those of --profile-archs) spends its
            time: wall time, device busy time under torch.profiler, idle
@@ -69,7 +79,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("gpu", "build", "kernels", "parity", "serve", "profile")
+PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -116,9 +126,13 @@ def cold_copies(make, nbytes):
 
 
 def bound(nbytes, ops, dtype_name):
-    """(least ms the card could take, which of the two bounds it)."""
+    """(least ms the card could take, which of the two bounds it).
+    ``ops`` counts operations at ``dtype_name``'s peak, or is a dict
+    {dtype name: count} for work whose products run at different peaks."""
+    if not isinstance(ops, dict):
+        ops = {dtype_name: ops}
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[dtype_name] * 1e3
+    t_ops = sum(n / PEAK_OPS_S[d] for d, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,7 +172,8 @@ def _kernel_names(mangled):
     return {m: n or m for m, n in names.items()}
 
 
-PTXAS_KEYS = ("flash_attention", "decode_attention", "moe_gmm", "rmsnorm")
+PTXAS_KEYS = ("flash_attention", "decode_attention", "moe_gmm", "rmsnorm",
+              "mamba_scan", "mlstm_scan")
 
 
 def _ptxas_report(text, keys=PTXAS_KEYS):
@@ -202,6 +217,9 @@ def phase_build(state):
         log(f"build: ptxas {name}: {r.get('registers')} registers, "
             f"{r.get('smem')} B static shared memory, spill stores/loads "
             f"{r.get('spills')} B (dynamic shared memory is set at launch)")
+    spilled = {n: r.get("spills") for n, r in report.items()
+               if "_scan_" in n and r.get("spills") != (0, 0)}
+    assert not spilled, f"build: the scan kernels spill: {spilled}"
 
 
 def _agree(got, want, tol):
@@ -244,8 +262,8 @@ def phase_kernels(state):
     rows = state["kernel_rows"] = {}
 
     def record(kernel, case, main, err, args_list, run, plain, library,
-               nbytes, ops, dname):
-        ms = device_ms(run, args_list)
+               nbytes, ops, dname, ms=None):
+        ms = device_ms(run, args_list) if ms is None else ms
         plain_ms = device_ms(plain, args_list)
         lib_ms = device_ms(library, args_list) if library else None
         b_ms, b_by = bound(nbytes, ops, dname)
@@ -450,7 +468,7 @@ def phase_kernels(state):
                4 * hdz * Hz * n_valid, dname)
 
     _attention_sweep(randn, tols, dev)
-    _scan_kernels(randn, record)
+    _scan_kernels(randn, record, _scan_times(randn, state))
     _moe_kernels(randn, record, tols)
     torch.cuda.synchronize()
 
@@ -497,7 +515,8 @@ def _rmsnorm_kernels(randn, record, tols):
         del args_list, x, sc
 
 
-def _sass_mma_counts(keys=("flash_attention", "moe_gmm")):
+def _sass_mma_counts(keys=("flash_attention", "moe_gmm", "mlstm_scan",
+                           "mamba_scan")):
     """HMMA/HGMMA instructions in the SASS of each kernel whose name holds
     one of ``keys``, by cuobjdump where the toolkit has it (None where it
     does not)."""
@@ -632,86 +651,145 @@ def _attention_sweep(randn, tols, dev):
             mma = {k: c for k, c in counts.items() if key in k}
             assert mma and all(mma.values()), \
                 f"kernels: the bf16 {key} kernels hold no HMMA: {counts}"
+        # the scans' bf16 products: every scan kernel (the SSD's: C B^T
+        # and the state update, then the carried term)
+        for key in ("mlstm_scan_chunk_kernel", "mlstm_scan_out_kernel",
+                    "mamba_scan_chunk_kernel", "mamba_scan_out_kernel"):
+            mma = {k: c for k, c in counts.items()
+                   if key in k and "bfloat16" in k}
+            assert mma and all(mma.values()), \
+                f"kernels: the bf16 {key} holds no HMMA: {counts}"
 
 
-def _scan_kernels(randn, record):
-    """The two chunk scans at the shapes zamba2-1.2b and xlstm-350m give
-    them (Q = pick_chunk(S, 256): one chunk of 128, two of 150 for a
-    300-token prompt, four of 256, and 257 chunks of 1 for a prime
-    length), against their plain versions at the fp32 tolerance (both
-    compute and return fp32), with the faults planted that a scan must
-    not pass: the state not carried at a chunk boundary and a causal mask
-    one off.  No single PyTorch call computes either scan."""
+# the chunk scans' cases (B, Q, nc): zamba2-1.2b's and xlstm-350m's
+# Q = pick_chunk(S, 256) for prompts of 128, 300, 1024 and 257 (prime)
+# tokens, two 300-token requests at once, and 320 tokens (two chunks of
+# 160, kernel chunks across a caller chunk's edge)
+SCAN_CASES = ((1, 128, 1), (1, 150, 2), (1, 256, 4), (1, 1, 257),
+              (2, 150, 2), (1, 160, 2))
+SCAN_MAIN = (1, 150, 2)
+
+
+def _scan_inputs(randn, which, B, Q, nc, dt):
+    """The scans' inputs at full width with ``dt`` for B/C (SSD) or q, k,
+    v (mLSTM); xbar, cum, cumf and li are fp32."""
+    import torch
+    rn = lambda *shape: randn(*shape, dt=torch.float32)
+    if which == "mamba":                 # zamba2: 64 heads, P = N = 64
+        return (rn(B, nc, Q, 64, 64) * 0.5, (rn(B, nc, Q, 64) * 0.5).to(dt),
+                (rn(B, nc, Q, 64) * 0.5).to(dt),
+                torch.cumsum(-rn(B, nc, Q, 64).abs() * 0.1, 2))
+    nh, dh = 4, 512                      # xlstm-350m: 4 heads of 512
+    return (*((rn(B, nc, Q, nh, dh) * dh ** -0.25).to(dt) for _ in range(2)),
+            rn(B, nc, Q, nh, dh).to(dt),
+            torch.cumsum(-rn(B, nc, Q, nh).abs() * 0.2, 2),
+            torch.clamp_max(rn(B, nc, Q, nh), 8.0))
+
+
+def _scan_bytes(which, B, Q, nc, esz):
+    """Bytes one scan call must move: each input read once, y and the
+    final state written once."""
+    rows = B * nc * Q
+    if which == "mamba":
+        nh, P, N = 64, 64, 64
+        return 8 * rows * nh * P + 2 * esz * rows * N + 4 * rows * nh \
+            + 4 * B * nh * P * N
+    nh, dh = 4, 512
+    return 3 * esz * rows * nh * dh + 8 * rows * nh + 4 * rows * nh * dh \
+        + 4 * B * nh * dh * (dh + 1)
+
+
+def _scan_ops(which, B, Q, nc, esz, parts):
+    """{dtype name: operations} of one scan call: the multiply-adds of the
+    chunked form at the caller's Q, each at the peak of the fastest way
+    that meets the fp32 limit.  With fp32 inputs every product is fp32.
+    With bf16 inputs a product of two bf16 operands (C Bᵀ, q kᵀ) is exact
+    at the bf16 peak; one with an fp32 operand (the state, x̄, the decayed
+    scores) costs ``parts`` bf16 products (the split); the SSD's
+    (C Bᵀ ⊙ decay) x̄ stays fp32, since its split fails the limit."""
+    rows, pairs = B * nc * Q, B * nc * Q * (Q + 1) // 2
+    if which == "mamba":
+        nh, P, N = 64, 64, 64
+        exact, fp32 = 2 * pairs * N, 2 * pairs * nh * P
+        split = 2 * 2 * rows * nh * P * N           # carried term, state
+    else:
+        nh, dh = 4, 512
+        exact, fp32 = 2 * nh * pairs * dh, 2 * nh * pairs   # q kᵀ, row sums
+        split = 2 * nh * (pairs * dh + 2 * rows * dh * dh + rows * dh)
+    if esz == 4:
+        return {"float32": exact + fp32 + split}
+    return {"bfloat16": exact + parts * split, "float32": fp32}
+
+
+def _scan_kernels(randn, record, times):
+    """The two chunk scans at SCAN_CASES, with bf16 and with fp32 inputs,
+    against their plain versions at the fp32 tolerance (both compute and
+    return fp32); then the faults planted that a scan must not pass: the
+    state not carried at a caller chunk's boundary and a causal mask one
+    off (every case, bf16 inputs), and those of the staged design (kernels/
+    mamba_scan.py FAULT_*): a kernel chunk reading the state entering the
+    chunk before it (at (150, 2)), each bf16 split's parts but the first
+    dropped (bf16 at (150, 2)), and cum not rebased across caller chunks
+    (at (1, 257)).  No single PyTorch call computes either scan."""
+    import importlib
     import torch
     from repro_torch import kernels as K
+    MS = importlib.import_module("repro_torch.kernels.mamba_scan")
+    ML = importlib.import_module("repro_torch.kernels.mlstm")
 
     tol = K.TOLERANCE[torch.float32]
-    bf16 = torch.bfloat16
-    rn = lambda *shape: randn(*shape, dt=torch.float32)
-    cases = ((128, 1), (150, 2), (256, 4), (1, 257))
+    scans = {"mamba": (K.mamba_chunk_scan, K.mamba_chunk_scan_plain,
+                       MS._launch),
+             "mlstm": (K.mlstm_chunk_scan, K.mlstm_chunk_scan_plain,
+                       ML._launch)}
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for which, (kernel, plain, launch) in scans.items():
+        for (B, Q, nc) in SCAN_CASES:
+            for dname, dt in dts.items():
+                esz = torch.finfo(dt).bits // 8
+                nbytes = _scan_bytes(which, B, Q, nc, esz)
+                ops = _scan_ops(which, B, Q, nc, esz, MS.SPLIT_PARTS)
 
-    def copies(make, nbytes, nc):
-        return cold_copies(make, nbytes) if nc <= 16 else [make(), make()]
-
-    nh, P, N = 64, 64, 64      # zamba2-1.2b: d_in 4096 = 64 heads of 64
-    for Q, nc in cases:
-        def make(Q=Q, nc=nc):
-            return (rn(1, nc, Q, nh, P) * 0.5,
-                    (rn(1, nc, Q, N) * 0.5).to(bf16),
-                    (rn(1, nc, Q, N) * 0.5).to(bf16),
-                    torch.cumsum(-rn(1, nc, Q, nh).abs() * 0.1, 2))
-        rows = nc * Q
-        nbytes = 8 * rows * nh * P + 4 * rows * N + 4 * rows * nh \
-            + 4 * nh * P * N
-        pairs = nc * Q * (Q + 1) // 2
-        ops = 2 * (pairs * N + pairs * nh * P + 2 * rows * nh * P * N)
-        args_list = copies(make, nbytes, nc)
-        a = args_list[0]
-        name = f"mamba_chunk_scan Q={Q} nc={nc}"
-        y, st = K.mamba_chunk_scan(*a)
-        yp, sp = K.mamba_chunk_scan_plain(*a)
-        err = max(_check(f"{name} y", y, yp, tol),
-                  _check(f"{name} state", st, sp, tol))
-        if nc > 1:
-            parts = [K.mamba_chunk_scan(*(t[:, c:c + 1].contiguous()
-                                          for t in a))[0] for c in range(nc)]
-            _reject(f"{name} state not carried", torch.cat(parts, 1), yp, tol)
-        _reject(f"{name} causal mask one off", y,
-                K.mamba_chunk_scan_plain(*a, diagonal=-1)[0], tol)
-        record("mamba_chunk_scan", f"zamba2 Q={Q} nc={nc} nh=64 P=64 N=64",
-               (Q, nc) == (150, 2), err, args_list, K.mamba_chunk_scan,
-               K.mamba_chunk_scan_plain, None, nbytes, ops, "float32")
-
-    nh, dh = 4, 512            # xlstm-350m: d_in 2048 = 4 heads of 512
-    for Q, nc in cases:
-        def make(Q=Q, nc=nc):
-            return (*(((rn(1, nc, Q, nh, dh) * dh ** -0.25).to(bf16))
-                      for _ in range(2)),
-                    rn(1, nc, Q, nh, dh).to(bf16),
-                    torch.cumsum(-rn(1, nc, Q, nh).abs() * 0.2, 2),
-                    torch.clamp_max(rn(1, nc, Q, nh), 8.0))
-        rows = nc * Q
-        nbytes = 6 * rows * nh * dh + 8 * rows * nh + 4 * rows * nh * dh \
-            + 4 * nh * dh * (dh + 1)
-        pairs = nc * Q * (Q + 1) // 2
-        ops = 2 * nh * (pairs * (2 * dh + 1) + 2 * rows * dh * dh + rows * dh)
-        args_list = copies(make, nbytes, nc)
-        a = args_list[0]
-        name = f"mlstm_chunk_scan Q={Q} nc={nc}"
-        got = K.mlstm_chunk_scan(*a)
-        want = K.mlstm_chunk_scan_plain(*a)
-        err = max(_check(f"{name} {part}", g, w, tol)
-                  for part, g, w in zip(("y", "C", "n"), got, want))
-        if nc > 1:
-            parts = [K.mlstm_chunk_scan(*(t[:, c:c + 1].contiguous()
-                                          for t in a))[0] for c in range(nc)]
-            _reject(f"{name} state not carried", torch.cat(parts, 1),
-                    want[0], tol)
-        _reject(f"{name} causal mask one off", got[0],
-                K.mlstm_chunk_scan_plain(*a, diagonal=-1)[0], tol)
-        record("mlstm_chunk_scan", f"xlstm Q={Q} nc={nc} nh=4 dh=512",
-               (Q, nc) == (150, 2), err, args_list, K.mlstm_chunk_scan,
-               K.mlstm_chunk_scan_plain, None, nbytes, ops, "bfloat16")
+                def make(which=which, B=B, Q=Q, nc=nc, dt=dt):
+                    return _scan_inputs(randn, which, B, Q, nc, dt)
+                args_list = cold_copies(make, nbytes) if nc <= 16 \
+                    else [make(), make()]
+                a = args_list[0]
+                name = f"{which} B={B} Q={Q} nc={nc} {dname}"
+                got = kernel(*a)
+                want = plain(*a)
+                err = max(_check(f"{name} {part}", g, w, tol)
+                          for part, g, w in zip(("y", "C", "n"), got, want))
+                assert all(torch.equal(g, h) for g, h in zip(got, kernel(*a))), \
+                    f"{name}: two runs differ"
+                if nc > 1 and dname == "bfloat16":
+                    parts = [kernel(*(t[:, c:c + 1].contiguous()
+                                      for t in a))[0] for c in range(nc)]
+                    _reject(f"{name} state not carried", torch.cat(parts, 1),
+                            want[0], tol)
+                if dname == "bfloat16":
+                    _reject(f"{name} causal mask one off", got[0],
+                            plain(*a, diagonal=-1)[0], tol)
+                faults = []
+                if (B, Q, nc) == SCAN_MAIN:
+                    faults.append(("kernel chunk reads the state entering "
+                                   "the chunk before", MS.FAULT_WRONG_STATE))
+                    if dname == "bfloat16":
+                        faults.append(("each split's parts but the first "
+                                       "dropped", MS.FAULT_SPLIT_LOW))
+                if (B, Q, nc) == (1, 1, 257):
+                    faults.append(("cum not rebased across caller chunks",
+                                   MS.FAULT_NO_REBASE))
+                for label, fault in faults:
+                    _reject(f"{name} {label}", launch(*a, fault=fault)[0],
+                            want[0], tol)
+                record(f"{which}_chunk_scan",
+                       f"{'zamba2 nh=64 P=64 N=64' if which == 'mamba' else 'xlstm nh=4 dh=512'} "
+                       f"B={B} Q={Q} nc={nc} {dname}",
+                       (B, Q, nc) == SCAN_MAIN and dname == "bfloat16", err,
+                       args_list, kernel, plain, None, nbytes, ops, dname,
+                       ms=times[(which, B, Q, nc, dname)])
+                del args_list, a, got, want
 
 
 def _moe_kernels(randn, record, tols):
@@ -1120,15 +1198,46 @@ def _serve_deepseek(state, block_k, max_new):
     state["params"][cfg.name] = params
 
 
+def _device_busy(prof):
+    """(ms of the union of the profiled CUDA kernels' intervals, how many
+    kernels)."""
+    from torch.autograd import DeviceType
+    kern = sorted((e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in kern:
+        if cur_e is None or s > cur_e:
+            busy += 0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + (cur_e - cur_s if cur_e is not None else 0)) / 1e3
+    return busy, len(kern)
+
+
+def _custom_kernel_ms(prof):
+    """[(wrapper, device ms, CUDA kernels)] for each custom kernel: its
+    device intervals, by its source's stem in the CUDA kernel's name
+    (csrc/moe_gmm.cu: moe_gmm_mma_kernel, csrc/mlstm_scan.cu:
+    mlstm_scan_chunk_kernel and mlstm_scan_out_kernel, ...)."""
+    from torch.autograd import DeviceType
+    from repro_torch import kernels as K
+    out = []
+    for k in K.KERNELS:
+        stem = Path(sys.modules[k.__module__].SOURCE).stem
+        ts = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA and stem in e.name]
+        out.append((k.__name__, sum(ts) / 1e3, len(ts)))
+    return out
+
+
 def _profile(cfg, params):
     """Where one fused decode block's time goes at full width: host clock
     around a synchronous block, and torch.profiler's device kernels for
     the same block (busy = union of kernel intervals)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch import kernels as K
     from repro_torch.launch.serve import build_engine
 
     eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=8,
@@ -1155,30 +1264,15 @@ def _profile(cfg, params):
                              ProfilerActivity.CUDA]) as prof:
         eng.step_block()
         torch.cuda.synchronize()
-    kern = sorted((e.time_range.start, e.time_range.end)
-                  for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in kern:
-        if cur_e is None or s > cur_e:
-            busy += 0 if cur_e is None else cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + (cur_e - cur_s if cur_e is not None else 0)) / 1e3
+    busy, n_kern = _device_busy(prof)
     log(f"profile {cfg.name}: one 8-step decode block, 4 slots: {wall:.2f} "
         f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
-        f"{len(kern)} kernels ({len(kern) / 8:.0f} per step); device idle "
+        f"{n_kern} kernels ({n_kern / 8:.0f} per step); device idle "
         f"share {1 - busy / wall:.3f}")
-    # each custom kernel's device intervals, by its source's name in the
-    # CUDA kernel's (csrc/moe_gmm.cu: moe_gmm_mma_kernel, ...)
-    for k in K.KERNELS:
-        stem = Path(sys.modules[k.__module__].SOURCE).stem
-        ts = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and stem in e.name]
-        log(f"profile {cfg.name}: {k.__name__} {sum(ts) / 1e3:.4f} ms of "
-            f"device time per block over {len(ts)} launches "
-            f"({sum(ts) / max(len(ts), 1):.2f} us each; "
-            f"{sum(ts) / 1e3 / busy:.4f} of device busy)")
+    for name, ms, n in _custom_kernel_ms(prof):
+        log(f"profile {cfg.name}: {name} {ms:.4f} ms of device time per "
+            f"block over {n} CUDA kernels ({ms * 1e3 / max(n, 1):.2f} us "
+            f"each; {ms / busy:.4f} of device busy)")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -1188,6 +1282,95 @@ def _profile(cfg, params):
 
 
 PROFILE_ARCHS = ("qwen2.5-3b", "zamba2-1.2b", "deepseek-v2-lite-16b")
+PREFILL_ARCHS = ("zamba2-1.2b", "xlstm-350m")
+PREFILL_TOKENS = 300
+
+
+def _prefill_profile(cfg, params, S=PREFILL_TOKENS):
+    """Where one request's prefill of S tokens spends its time at full
+    width (the prefill step the Engine runs for a recurrent model): host
+    clock around a synchronous prefill (best of three), torch.profiler's
+    device kernels for one more (busy = union of kernel intervals), each
+    custom kernel's device ms, and the wrappers' launch counts."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    from repro_torch.training import steps as ST
+
+    step = ST.make_prefill_step(cfg, 1024)
+    rng = np.random.default_rng(0)
+    toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, S))
+                           .astype("int32"), device="cuda")
+    step(params, {"tokens": toks})      # warm
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in K.KERNELS}
+    busy, n_kern = _device_busy(prof)
+    wall = min(walls)
+    log(f"prefill {cfg.name}: one request of {S} tokens: {wall:.2f} ms wall "
+        f"(best of {[round(w, 2) for w in walls]}); device busy {busy:.2f} "
+        f"ms over {n_kern} kernels; device idle share {1 - busy / wall:.3f}")
+    for name, ms, n in _custom_kernel_ms(prof):
+        if n:
+            log(f"prefill {cfg.name}: {name} {ms:.4f} ms of device time over "
+                f"{launches[name]} launches ({n} CUDA kernels; "
+                f"{ms / busy:.4f} of device busy)")
+
+
+def _scan_times(randn, state):
+    """Each scan's device ms alone at SCAN_CASES with bf16 and fp32
+    inputs, through the public wrappers only (so a parent tree runs it as
+    it is): {(which, B, Q, nc, dtype name): ms}, measured once a run and
+    kept in ``state`` for the kernels and prefill phases."""
+    import torch
+    from repro_torch import kernels as K
+    if "scan_ms" in state:
+        return state["scan_ms"]
+    times = state["scan_ms"] = {}
+    for which, kernel in (("mamba", K.mamba_chunk_scan),
+                          ("mlstm", K.mlstm_chunk_scan)):
+        for (B, Q, nc) in SCAN_CASES:
+            for dname, dt in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32)):
+                nbytes = _scan_bytes(which, B, Q, nc, 2 if dname ==
+                                     "bfloat16" else 4)
+                make = lambda: _scan_inputs(randn, which, B, Q, nc, dt)
+                args = cold_copies(make, nbytes) if nc <= 16 \
+                    else [make(), make()]
+                times[(which, B, Q, nc, dname)] = device_ms(kernel, args)
+                del args
+    return times
+
+
+def phase_prefill(state):
+    """zamba2-1.2b and xlstm-350m prefilling one request of 300 tokens
+    (the scans' main path), then each scan alone at every case."""
+    import torch
+    from repro_torch.configs import get_config
+    for arch in PREFILL_ARCHS:
+        cfg = get_config(arch)
+        params = state.get("params", {}).get(arch)
+        _prefill_profile(cfg, params if params is not None
+                         else _init_params(cfg))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    times = _scan_times(lambda *shape, dt: torch.randn(
+        *shape, generator=gen, device="cuda", dtype=torch.float32).to(dt),
+        state)
+    for (which, B, Q, nc, dname), ms in times.items():
+        log(f"prefill: {which}_chunk_scan B={B} Q={Q} nc={nc} {dname}: "
+            f"kernel {ms:.4f} ms")
 
 
 def phase_profile(state):

@@ -106,6 +106,17 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
       : "r"(s));
 }
 
+// Two 8x8 bf16 matrices, transposed (lanes 0..15 give the row addresses;
+// r[i] as in ldmatrix_x4_trans).
+__device__ __forceinline__ void ldmatrix_x2_trans(unsigned (&r)[2],
+                                                  const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(s));
+}
+
 // d += a b on the tensor cores: a 16x16 bf16 (row major), b 16x8 bf16
 // (column major), d 16x8 fp32, in the fragment layouts of PTX's
 // mma.m16n8k16 (g = lane / 4, t = lane % 4: d[0..1] at row g, columns

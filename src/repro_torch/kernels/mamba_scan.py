@@ -9,16 +9,24 @@ state ``h <- h e^{cum[-1]} + Σ_j B_j e^{cum[-1] - cum_j} x̄_j`` carried
 from chunk to chunk; it returns y and the final state, which the model
 keeps as its decode cache.
 
-What bounds it on the H100: operations at zamba2's widths.  The Pallas
-grid (B, nc) keeps every head's state in one program (1 MiB per batch row
-at zamba2's width); the kernel (``csrc/mamba_scan.cu``) gives a block one
-(b, head) and a 32-wide slice of P, so a B = 1 prefill runs 128 blocks,
-each looping over the chunks with its state slice in shared memory.
+What bounds it on the H100: operations at zamba2's widths: the
+intra-chunk product in fp32 and, with bf16 B and C, the carried term and
+the state update at three bf16 products each (the split).  The Pallas
+grid (B, nc) walks the chunks in order with every head's state in
+one program.  The kernel (``csrc/mamba_scan.cu``) regroups the caller's
+chunks into kernel chunks of ``SCAN_CHUNK`` rows (``plan_scan``, shared
+with the mLSTM scan; the caller's cum is rebased per kernel chunk,
+``rebase``) and runs in stages over (b, kernel chunk, head, tile): the
+state entering each kernel chunk (one ordered pass over the kernel
+chunks per (b, head, 16 rows of P)), ``C Bᵀ`` once per (b, kernel chunk)
+for every head, then the outputs.  ``mamba_chunk_scan_staged`` is the
+same plan and stages in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -27,6 +35,97 @@ from repro_torch.kernels import _build
 SOURCE = "src/repro_torch/csrc/mamba_scan.cu"
 REPLACES = "src/repro/kernels/mamba_scan.py:73"
 MAX_Q, MAX_N = 256, 64
+SCAN_CHUNK = 64     # rows of a kernel chunk (csrc/scan.cuh kL)
+SPLIT_PARTS = 3     # bf16 parts of an fp32 operand (csrc/scan.cuh kParts)
+# planted faults (csrc/scan.cuh kFault*), for the checks only
+FAULT_WRONG_STATE = 1   # chunk c reads the state entering chunk c - 1
+FAULT_SPLIT_LOW = 2     # each split's parts but the first dropped
+FAULT_NO_REBASE = 4     # cum not rebased across caller chunks
+
+
+class ScanPlan(NamedTuple):
+    """A scan's S = nc·Q rows cut into ``chunks`` kernel chunks of
+    ``chunk`` rows (the last may be shorter), whatever the caller's Q."""
+    chunk: int
+    chunks: int
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_scan(nc: int, Q: int) -> ScanPlan:
+    """The kernel chunks of a scan over nc caller chunks of Q rows, from
+    shapes only.  Takes plain ints, never a tensor, so no host read can
+    enter it (300 tokens as two chunks of 150, or 257 as 257 chunks of
+    1: five kernel chunks of 64, the last of 44 or 1 rows)."""
+    for name, v in (("nc", nc), ("Q", Q)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_scan: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    if nc < 1 or Q < 1:
+        raise ValueError(f"plan_scan: nc={nc}, Q={Q}")
+    return ScanPlan(SCAN_CHUNK, -(-nc * Q // SCAN_CHUNK))
+
+
+def rebase(cum: torch.Tensor, plan: ScanPlan, *,
+           fault: int = 0) -> torch.Tensor:
+    """The caller's log-decay cumsum cum [B,nc,Q,nh], restarted every Q
+    rows, as the kernel's (``scan::rebase_chunk``): g [B,chunks,chunk,nh],
+    restarted every kernel chunk, 0 past the last row.  Row t of the
+    kernel chunk that starts at s0 takes cum_t, less cum_{s0-1} where s0
+    is inside a caller chunk, plus the last cum of every caller chunk
+    that ends in [s0, t)."""
+    B, nc, Q, nh = cum.shape
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    flat = cum.reshape(B, S, nh)
+    t = torch.arange(S, device=cum.device)
+    last = (t % Q == Q - 1)[None, :, None]
+    if fault & FAULT_NO_REBASE:
+        last = torch.zeros_like(last)
+    ends = torch.where(last, flat, 0.0)
+    pad = (0, 0, 0, n * L - S)
+    c = torch.nn.functional.pad(flat, pad).reshape(B, n, L, nh)
+    e = torch.nn.functional.pad(ends, pad).reshape(B, n, L, nh)
+    carry = torch.cumsum(e, 2) - e                    # the ends before t
+    s0 = torch.arange(n, device=cum.device) * L
+    base = torch.where((s0 % Q != 0)[None, :, None],
+                       flat[:, (s0 - 1).clamp_min(0)], 0.0)
+    valid = (s0[:, None] + torch.arange(L, device=cum.device) < S)
+    return torch.where(valid[None, :, :, None],
+                       (c - base[:, :, None]) + carry, 0.0)
+
+
+def chunked(t: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
+    """[B,nc,Q,...] -> [B,chunks,chunk,...], rows past S zero."""
+    B, nc, Q = t.shape[:3]
+    rest = t.shape[3:]
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    flat = t.reshape(B, S, -1)
+    flat = torch.nn.functional.pad(flat, (0, 0, 0, n * L - S))
+    return flat.reshape(B, n, L, *rest)
+
+
+def unchunked(t: torch.Tensor, nc: int, Q: int) -> torch.Tensor:
+    """[B,chunks,chunk,...] -> [B,nc,Q,...] (rows past S dropped)."""
+    B, n, L = t.shape[:3]
+    return t.reshape(B, n * L, *t.shape[3:])[:, :nc * Q].reshape(
+        B, nc, Q, *t.shape[3:])
+
+
+def split_bf16(x: torch.Tensor, *, fault: int = 0) -> torch.Tensor:
+    """x as the kernels' bf16 products see an fp32 operand: three bf16
+    parts, each the rounding of what the ones before leave (x to ~2^-26),
+    summed in fp32; only the first with FAULT_SPLIT_LOW."""
+    out = torch.zeros_like(x)
+    for _ in range(1 if fault & FAULT_SPLIT_LOW else SPLIT_PARTS):
+        part = (x - out).to(torch.bfloat16).float()
+        out = out + part
+    return out
+
+
+def last_rows(g: torch.Tensor, S: int) -> torch.Tensor:
+    """g [B,chunks,chunk,nh] at the last row of each kernel chunk."""
+    L, n = g.shape[2], g.shape[1]
+    idx = torch.clamp_max(S - torch.arange(n, device=g.device) * L, L) - 1
+    return g[:, torch.arange(n, device=g.device), idx]
 
 
 def _causal(Q: int, diagonal: int, device) -> torch.Tensor:
@@ -68,6 +167,53 @@ def mamba_chunk_scan_plain(xbar, B_c, C_c, cum, *, diagonal: int = 0):
     return torch.stack(ys, 1), h
 
 
+def mamba_chunk_scan_staged(xbar, B_c, C_c, cum, *, split: bool = False,
+                            fault: int = 0):
+    """The kernel's plan and stages in plain PyTorch, in fp32: the state
+    entering each kernel chunk by one ordered pass, C Bᵀ once per (b,
+    kernel chunk), then the outputs.  With ``split`` the state update and
+    the carried term see their fp32 operand (w ⊙ x̄, the entering state)
+    as the bf16 kernel does (``split_bf16``); C Bᵀ is exact from bf16
+    either way, and the intra-chunk product stays fp32.
+    Same arguments and results as ``mamba_chunk_scan_plain``; ``fault``
+    plants the kernel's faults."""
+    B, nc, Q, nh, P = xbar.shape
+    plan = plan_scan(nc, Q)
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    g = rebase(cum, plan, fault=fault)                   # [B,n,L,nh]
+    gl = last_rows(g, S)                                 # [B,n,nh]
+    x = chunked(xbar.float(), plan)                      # [B,n,L,nh,P]
+    Bm, Cm = chunked(B_c.float(), plan), chunked(C_c.float(), plan)
+    valid = (torch.arange(n, device=g.device)[:, None] * L
+             + torch.arange(L, device=g.device) < S)     # [n,L]
+    w = torch.exp(gl[:, :, None] - g) * valid[None, :, :, None]
+    h = xbar.new_zeros(B, nh, P, Bm.shape[-1])
+    hin = []
+    for c in range(n):                                   # the ordered pass
+        hin.append(h)
+        xw = w[:, c, ..., None] * x[:, c]
+        if split:
+            xw = split_bf16(xw, fault=fault)
+        h = h * torch.exp(gl[:, c])[..., None, None] + torch.einsum(
+            "bjhp,bjn->bhpn", xw, Bm[:, c])
+    G = torch.einsum("bcin,bcjn->bcij", Cm, Bm)           # once per chunk
+    decay = torch.exp(g[:, :, :, None] - g[:, :, None, :])
+    keep = _causal(L, 0, g.device)[None] & valid[:, :, None]
+    M = torch.where(keep[None, ..., None], G[..., None] * decay, 0.0)
+    y = torch.einsum("bcijh,bcjhp->bcihp", M, x)
+    carried = []
+    for c in range(n):
+        src = c - 1 if fault & FAULT_WRONG_STATE else c
+        h_src = hin[max(src, 0)]
+        if split:
+            h_src = split_bf16(h_src, fault=fault)
+        carried.append(torch.zeros_like(y[:, c]) if src <= 0 else
+                       torch.einsum("bin,bhpn->bihp", Cm[:, c], h_src)
+                       * torch.exp(g[:, c])[..., None])
+    y = y + torch.stack(carried, 1)
+    return unchunked(y, nc, Q), h
+
+
 @torch.library.custom_op("repro_torch::mamba_chunk_scan", mutates_args=())
 def _scan_op(xbar: torch.Tensor, B_c: torch.Tensor, C_c: torch.Tensor,
              cum: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -86,11 +232,12 @@ def _scan_fake(xbar, B_c, C_c, cum):
     return torch.empty_like(xbar), xbar.new_empty(B, nh, P, B_c.shape[-1])
 
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-@_scan_op.register_kernel("cuda")
-def _scan_cuda(xbar, B_c, C_c, cum):
+def _launch(xbar, B_c, C_c, cum, fault: int = 0):
+    """One call of the kernel on CUDA tensors (its two launches); a
+    ``fault`` only plants a fault for the checks."""
     B, nc, Q, nh, P = xbar.shape
     N = B_c.shape[-1]
     _build.require(xbar.dtype == torch.float32 and cum.dtype == torch.float32
@@ -107,16 +254,36 @@ def _scan_cuda(xbar, B_c, C_c, cum):
                    "mamba_chunk_scan: inputs must be contiguous on one device")
     _build.require(1 <= Q <= MAX_Q and 1 <= N <= MAX_N,
                    f"mamba_chunk_scan: Q={Q}, N={N} not supported")
+    _build.require(B_c.dtype == torch.float32 or (
+        N % 8 == 0 and B_c.data_ptr() % 16 == 0 and C_c.data_ptr() % 16 == 0),
+                   f"mamba_chunk_scan: bf16 B, C need N % 8 == 0 (N={N}) "
+                   f"and 16-byte rows")
+    plan = plan_scan(nc, Q)
     y = torch.empty_like(xbar)
     state = xbar.new_empty(B, nh, P, N)
+    if y.numel() == 0:
+        return y, state
+    # scratch: the state entering each kernel chunk but the first, and
+    # C Bᵀ of each kernel chunk.  hin grows with the prompt: nh·P·N·4
+    # bytes a kernel chunk and batch row (1 MiB at zamba2-1.2b)
+    hin = xbar.new_empty(plan.chunks - 1, B, nh, P, N)
+    G = xbar.new_empty(B, plan.chunks, plan.chunk, plan.chunk)
     fn = _build.entry("mamba_chunk_scan_launch", _ARGTYPES)
     _build.check(fn(xbar.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
-                    cum.data_ptr(), y.data_ptr(), state.data_ptr(), B, nc, Q,
-                    nh, P, N, _build.DTYPE_CODES[B_c.dtype],
-                    _build.stream_handle(xbar)),
+                    cum.data_ptr(), y.data_ptr(), state.data_ptr(),
+                    hin.data_ptr(), G.data_ptr(), B, nc, Q, nh, P, N,
+                    plan.chunk, plan.chunks, _build.DTYPE_CODES[B_c.dtype],
+                    fault, _build.stream_handle(xbar)),
                  "mamba_chunk_scan")
-    mamba_chunk_scan.launches += 1
     return y, state
+
+
+@_scan_op.register_kernel("cuda")
+def _scan_cuda(xbar, B_c, C_c, cum):
+    out = _launch(xbar, B_c, C_c, cum)
+    if out[0].numel():
+        mamba_chunk_scan.launches += 1
+    return out
 
 
 def mamba_chunk_scan(xbar, B_c, C_c, cum):

@@ -138,21 +138,33 @@ def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0):
 def decode_attention(q, k_cache, v_cache, pos, *, window=0,
                      k_scale=None, v_scale=None):
     """q [B,1,H,hd]; caches [B,W,Hkv,hd]; pos [B] current absolute position
-    (valid slots are ``<= pos``).  The dense form runs the decode kernel;
-    the SWA ring and int8 forms have no kernel yet and run only on CPU."""
+    (valid slots are ``<= pos``).  The dense form and the sliding-window
+    ring run the decode kernel; the int8 form has no kernel yet and runs
+    only on CPU.
+
+    The ring (``slot = p % W``, W <= window) holds the last W positions,
+    and once the ring has wrapped every slot is one of them.  Attention
+    does not depend on the order of the keys, so the ring is the dense
+    form over its first ``min(pos + 1, W)`` slots."""
     B, _, H, hd = q.shape
-    lengths = (pos + 1).to(torch.int32)
-    if window or k_scale is not None:
+    W = k_cache.shape[1]
+    if k_scale is not None:
         if q.device.type != "cpu":
             raise NotImplementedError(
-                "decode_attention: the sliding-window ring and int8-cache "
-                "forms have no CUDA kernel yet (ROADMAP Queue 2, item 2)")
-        o = K.decode_attention_plain(q[:, 0], k_cache, v_cache, lengths,
-                                     window=window, k_scale=k_scale,
-                                     v_scale=v_scale)
-    else:
-        o = K.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                               lengths)
+                "decode_attention: the int8-cache form has no CUDA kernel "
+                "yet (ROADMAP Queue 1, item 12)")
+        o = K.decode_attention_plain(q[:, 0], k_cache, v_cache,
+                                     (pos + 1).to(torch.int32), window=window,
+                                     k_scale=k_scale, v_scale=v_scale)
+        return o.reshape(B, 1, H, hd)
+    if window and W > window:
+        raise ValueError(f"decode_attention: a ring of {W} slots exceeds the "
+                         f"window of {window}")
+    lengths = pos + 1
+    if window:
+        lengths = torch.clamp_max(lengths, W)
+    o = K.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                           lengths.to(torch.int32))
     return o.reshape(B, 1, H, hd)
 
 

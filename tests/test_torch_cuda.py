@@ -119,26 +119,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         K.rmsnorm(rn(65)[1:].view(8, 8), rn(8))
     with pytest.raises(ValueError, match="wider"):
         K.rmsnorm(rn(1, 8192 + 8), rn(8192 + 8))
+    # the int8-cache form has no kernel; the sliding-window ring runs the
+    # dense kernel; a group of 9 (starcoder2-7b at full width) is refused
     q, kc = rn(2, 1, 4, 16), rn(2, 8, 2, 16)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    scale = torch.ones(2, 8, 2, 1, device=cuda)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        L.decode_attention(q, kc, kc, pos, window=4)
+        L.decode_attention(q, kc, kc, pos, k_scale=scale, v_scale=scale)
+    L.decode_attention(q, kc, kc, pos, window=8)
+    lens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="H=18"):
+        K.decode_attention(rn(2, 18, 16), kc, kc, lens)
 
 
-@pytest.mark.parametrize("arch", ["cody-mnist", "qwen2.5-3b"])
+@pytest.mark.parametrize("arch", ["cody-mnist", "qwen2.5-3b",
+                                  "starcoder2-7b"])
 def test_smoke_engine_on_card_matches_cpu(cuda, arch):
     cfg = smoke_shrink(get_config(arch), dtype="float32")
     params = M.init_params(cfg, seed=0, device="cpu")
+    cache_len, max_new = 64, 12
+    if cfg.sliding_window:
+        # the longest request decodes past the ring's W slots, so the card
+        # decodes positions after the wrap
+        W = min(cache_len, cfg.sliding_window)
+        max_new = W + 8 - 13
+        assert 13 + max_new > W + 4 and 13 + max_new <= cache_len
     outs, stats = [], []
     # Module.to moves in place: the card gets its own copy
     for dev, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(cuda))):
         K.reset_launches()
-        eng = build_engine(cfg, n_slots=2, cache_len=64, block_k=4,
+        eng = build_engine(cfg, n_slots=2, cache_len=cache_len, block_k=4,
                            params=p, device=dev)
         g = torch.Generator().manual_seed(5)
         for n in (5, 9, 13):
             eng.submit(torch.randint(3, cfg.vocab_size, (n,),
-                                     generator=g).tolist(), 12)
+                                     generator=g).tolist(), max_new)
         outs.append(eng.run())
         stats.append(dict(eng.stats))
     assert outs[0] == outs[1]
