@@ -16,9 +16,10 @@ Phases, each of which raises (exit code != 0) when it fails:
            one exists, and the least time the card could take (bytes or
            operations at the H100's peak rates), at the shapes qwen2.5-3b,
            zamba2-1.2b, xlstm-350m and deepseek-v2-lite-16b give it (and
-           one mixtral-8x22b expert product); the attention kernels over
-           every head-dim pair, group size, ragged length and split
-           boundary they take; moe_gmm at every row tile's edges (R = 1,
+           one mixtral-8x22b expert product; decode attention also at
+           starcoder2-7b's group of 9 and mixtral-8x22b's of 6); the
+           attention kernels over every head-dim pair, group size, ragged
+           length and split boundary they take; moe_gmm at every row tile's edges (R = 1,
            8, 9, 64, 65) and at a D off the ring's step; rmsnorm on both
            of its paths; the scans at six (B, Q, nc) cases with bf16 and
            fp32 inputs; the HMMA count of the flash, moe_gmm and scan
@@ -29,7 +30,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            one off, a scan's kernel chunk reading the wrong chunk's
            entering state, a scan's bf16 splits cut to their first part,
            cum not rebased across caller chunks, the scale taken from
-           hd_v, the last D tile left out of an expert product, an expert
+           hd_v, a decode group's last head dropped (G = 9 and 6), the
+           last D tile left out of an expert product, an expert
            reading its neighbour's weights, a stale tile in moe_gmm's
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
@@ -45,7 +47,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            300 tokens for the recurrent models, so that a prefill scans
            two chunks, or of 256 for deepseek), qwen2.5-3b and deepseek
            with speculation on and off (the token streams must agree), the
-           recurrent models once (speculation is forced off); the kernel
+           recurrent models and starcoder2-7b (G = 9, sliding window) once
+           (speculation is forced off for the recurrent ones); the kernel
            launch counts must be the exact multiples each model implies;
   prefill  where one 300-token prefill of zamba2-1.2b and xlstm-350m
            spends its time: wall time, device busy time, idle share, each
@@ -56,7 +59,15 @@ Phases, each of which raises (exit code != 0) when it fails:
   profile  where one decode block of qwen2.5-3b, zamba2-1.2b and
            deepseek-v2-lite-16b (or those of --profile-archs) spends its
            time: wall time, device busy time under torch.profiler, idle
-           share, and each custom kernel's device time and launches.
+           share, and each custom kernel's device time and launches;
+  replay   record -> sign -> replay of qwen2.5-3b at full width: prefill
+           and the fused decode block recorded (``torch.export``, params as
+           inputs) and signed by the record launcher's code, every tampered
+           form refused before ``torch.export.load``, 8 prompts of 128
+           tokens served live, replayed eagerly and replayed through the
+           decode block's CUDA graph (identical tokens, host syncs and
+           launches), and one decode block profiled under the graph beside
+           live.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -71,6 +82,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -79,7 +91,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile")
+PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
+          "replay")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -137,12 +150,19 @@ def bound(nbytes, ops, dtype_name):
 
 
 # ----------------------------------------------------------------- phases --
+def _card(state):
+    """The card's name and power limit as nvidia-smi prints them."""
+    if "card" not in state:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True)
+        state["card"] = r.stdout.strip().splitlines()[0]
+    return state["card"]
+
+
 def phase_gpu(state):
     import torch
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, check=True)
-    log(r.stdout.strip().splitlines()[0])
+    log(_card(state))
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -467,6 +487,33 @@ def phase_kernels(state):
                (2 * B * Hz * hdz + 2 * n_valid * Hz * hdz) * esz + 4 * B,
                4 * hdz * Hz * n_valid, dname)
 
+    # the groups that do not divide the block: starcoder2-7b's 36 query
+    # heads over 4 KV heads (G = 9) and mixtral-8x22b's 48 over 8 (G = 6)
+    for arch, Hg, Hkg in (("starcoder2-7b", 36, 4), ("mixtral-8x22b", 48, 8)):
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+
+            def make(dt=dt, Hg=Hg, Hkg=Hkg):
+                return (randn(B, Hg, hd, dt=dt), randn(B, W, Hkg, hd, dt=dt),
+                        randn(B, W, Hkg, hd, dt=dt), lens.clone())
+            args_list = cold_copies(make, 2 * B * W * Hkg * hd * esz)
+            q, kc, vc, ln = args_list[0]
+            G = Hg // Hkg
+            err = _check(f"decode {arch} G={G} {dname}",
+                         K.decode_attention(q, kc, vc, ln),
+                         K.decode_attention_plain(q, kc, vc, ln), tols[dname])
+
+            def lib(q, kc, vc, ln, m=valid[:, None, None, :]):
+                return F.scaled_dot_product_attention(
+                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                    attn_mask=m, enable_gqa=True)
+            record("decode_attention",
+                   f"{arch} B={B} W={W} H={Hg} G={G} hd={hd} {dname}", False,
+                   err, args_list, K.decode_attention,
+                   K.decode_attention_plain, lib,
+                   (2 * B * Hg * hd + 2 * n_valid * Hkg * hd) * esz + 4 * B,
+                   4 * hd * Hg * n_valid, dname)
+
     _attention_sweep(randn, tols, dev)
     _scan_kernels(randn, record, _scan_times(randn, state))
     _moe_kernels(randn, record, tols)
@@ -639,6 +686,23 @@ def _attention_sweep(randn, tols, dev):
                     f"{int(ln[0])} {dname}",
                     DA._launch(q, kc, vc, ln, 128 ** -0.5,
                                DA.SplitPlan(plan.splits - 1, plan.chunk)),
+                    want, tols[dname])
+
+    # planted: a group's last head dropped (what the truncating DV of the
+    # kernel before groups of 6 and 9 left unwritten), at starcoder2-7b's
+    # and mixtral-8x22b's groups
+    for Hg, Hkg in ((36, 4), (48, 8)):
+        ln = torch.tensor([1, 300, 777, 1024], dtype=torch.int32, device=dev)
+        for dname, dt in dts.items():
+            q = randn(4, Hg, 128, dt=dt)
+            kc, vc = randn(4, 1024, Hkg, 128, dt=dt), randn(4, 1024, Hkg, 128,
+                                                            dt=dt)
+            want = K.decode_attention_plain(q, kc, vc, ln)
+            _check(f"decode G={Hg // Hkg} lengths {ln.tolist()} {dname}",
+                   DA._launch(q, kc, vc, ln, 128 ** -0.5), want, tols[dname])
+            _reject(f"decode G={Hg // Hkg} last head dropped {dname}",
+                    DA._launch(q, kc, vc, ln, 128 ** -0.5,
+                               fault=DA.FAULT_DROP_LAST_HEAD),
                     want, tols[dname])
 
     counts = _sass_mma_counts()
@@ -1125,6 +1189,7 @@ def phase_serve(state):
     log("serve: speculative and synchronous token streams are identical")
     state["launches"] = dict(runs[True][1])
     state["params"] = {cfg.name: params}
+    _serve_starcoder2(block_k, max_new)
 
     # the recurrent families: per-request prefill, speculation forced off;
     # a 300-token prompt puts a two-chunk scan on the path
@@ -1156,6 +1221,33 @@ def phase_serve(state):
         log(f"serve {cfg.name}: launches equal {want}")
 
     _serve_deepseek(state, block_k, max_new)
+
+
+def _serve_starcoder2(block_k, max_new):
+    """starcoder2-7b at full width and depth: 36 query heads over 4 KV
+    heads, a group of 9, through the decode kernel; the sliding window of
+    4096 and W = min(1024, 4096) = 1024 slots, so the ring does not wrap
+    here (the wrap is held on the card at smoke width by
+    tests/test_torch_cuda.py).  Per-request prefill (the ring needs true
+    lengths), speculation on.  Its weights are freed afterwards."""
+    import torch
+    from repro_torch.configs import get_config
+
+    cfg = get_config("starcoder2-7b")
+    L = cfg.num_layers
+    params = _init_params(cfg)
+    outs, launches, dt, ntok, st = _serve(cfg, params, _prompts(cfg, 8, 3),
+                                          max_new, block_k)
+    pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+    steps = pd + block_k * bd
+    want = {"flash_attention": L * pd, "decode_attention": L * block_k * bd,
+            "rmsnorm": (2 * L + 1) * steps, "moe_gmm": 0,
+            "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+    assert pd == 8 and launches == want, (st, launches, want)
+    log(f"serve {cfg.name}: G = {cfg.num_heads // cfg.num_kv_heads}, "
+        f"{ntok / dt:.1f} tok/s; launches equal {want}")
+    del params
+    torch.cuda.empty_cache()
 
 
 def _serve_deepseek(state, block_k, max_new):
@@ -1231,17 +1323,21 @@ def _custom_kernel_ms(prof):
     return out
 
 
-def _profile(cfg, params):
+def _profile(cfg, params, eng=None, label=""):
     """Where one fused decode block's time goes at full width: host clock
     around a synchronous block, and torch.profiler's device kernels for
-    the same block (busy = union of kernel intervals)."""
+    the same block (busy = union of kernel intervals).  ``eng`` is the
+    live engine unless given (it must serve 4 slots, cache 1024, block_k
+    8, no speculation); returns (wall ms, device busy ms)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import build_engine
 
-    eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=8,
-                       params=params, device="cuda", speculate=False)
+    if eng is None:
+        eng = build_engine(cfg, n_slots=4, cache_len=1024, block_k=8,
+                           params=params, device="cuda", speculate=False)
+    name = cfg.name + label
     rng = np.random.default_rng(0)
     for _ in range(4):
         eng.submit(list(map(int, rng.integers(3, cfg.vocab_size, 128))), 64)
@@ -1249,7 +1345,7 @@ def _profile(cfg, params):
     t0 = time.perf_counter()
     eng.step_block()                   # admission: the prefills
     torch.cuda.synchronize()
-    log(f"profile {cfg.name}: prefill 4x128 + first block: "
+    log(f"profile {name}: prefill 4x128 + first block: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
     eng.step_block()                   # warm
     walls = []
@@ -1265,20 +1361,21 @@ def _profile(cfg, params):
         eng.step_block()
         torch.cuda.synchronize()
     busy, n_kern = _device_busy(prof)
-    log(f"profile {cfg.name}: one 8-step decode block, 4 slots: {wall:.2f} "
+    log(f"profile {name}: one 8-step decode block, 4 slots: {wall:.2f} "
         f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
         f"{n_kern} kernels ({n_kern / 8:.0f} per step); device idle "
         f"share {1 - busy / wall:.3f}")
-    for name, ms, n in _custom_kernel_ms(prof):
-        log(f"profile {cfg.name}: {name} {ms:.4f} ms of device time per "
+    for kname, ms, n in _custom_kernel_ms(prof):
+        log(f"profile {name}: {kname} {ms:.4f} ms of device time per "
             f"block over {n} CUDA kernels ({ms * 1e3 / max(n, 1):.2f} us "
             f"each; {ms / busy:.4f} of device busy)")
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
                                        row_limit=8, max_name_column_width=40)
-    log(f"profile {cfg.name}: top by device time\n" + by_dev)
-    log(f"profile {cfg.name}: top by host time\n" + by_cpu)
+    log(f"profile {name}: top by device time\n" + by_dev)
+    log(f"profile {name}: top by host time\n" + by_cpu)
+    return wall, busy
 
 
 PROFILE_ARCHS = ("qwen2.5-3b", "zamba2-1.2b", "deepseek-v2-lite-16b")
@@ -1379,6 +1476,246 @@ def phase_profile(state):
         cfg = get_config(arch)
         params = state.get("params", {}).get(arch)
         _profile(cfg, params if params is not None else _init_params(cfg))
+
+
+REPLAY_KEY = b"chip-smoke-signing-key"
+
+
+@contextlib.contextmanager
+def _export_loads_counted():
+    """Count the calls of torch.export.load while the block runs."""
+    import torch
+    real, calls = torch.export.load, [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+    torch.export.load = counted
+    try:
+        yield calls
+    finally:
+        torch.export.load = real
+
+
+def _replay_tampers(blob, key):
+    """Every tampered form of the recording ``blob`` is refused before
+    torch.export.load is reached: a flipped payload byte, a changed
+    manifest, a changed signature, the wrong key, a payload re-signed
+    without its fingerprint (TamperedRecordingError), and the manifest
+    re-signed with another topology (TopologyMismatchError)."""
+    from repro_torch.core.attest import (TamperedRecordingError,
+                                         TopologyMismatchError, fingerprint)
+    from repro_torch.core.recording import Recording
+    from repro_torch.core.replay import Replayer
+
+    rec = Recording.from_bytes(blob, key)
+    flip = bytearray(rec.payload)
+    flip[len(flip) // 2] ^= 0x5A
+    sig = ("0" if rec.signature[0] != "0" else "1") + rec.signature[1:]
+    resigned = Recording(dict(rec.manifest), bytes(flip), rec.trees)
+    cases = {
+        "payload byte flipped": (Recording(
+            rec.manifest, bytes(flip), rec.trees, rec.signature).to_bytes(),
+            key, TamperedRecordingError),
+        "manifest changed": (Recording(
+            dict(rec.manifest, static={**rec.manifest["static"],
+                                       "cache_len": 9999}),
+            rec.payload, rec.trees, rec.signature).to_bytes(), key,
+            TamperedRecordingError),
+        "signature changed": (Recording(
+            rec.manifest, rec.payload, rec.trees, sig).to_bytes(), key,
+            TamperedRecordingError),
+        "wrong key": (blob, key + b"!", TamperedRecordingError),
+        "payload re-signed, fingerprint stale": (
+            resigned.sign_with(key).to_bytes(), key, TamperedRecordingError),
+        "re-signed for another topology": (Recording(
+            dict(rec.manifest, topology=fingerprint(["another card"], 1)),
+            rec.payload, rec.trees).sign_with(key).to_bytes(), key,
+            TopologyMismatchError),
+    }
+    with _export_loads_counted() as loads:
+        for label, (bad, k, err) in cases.items():
+            rp = Replayer(key=k, device="cuda")
+            try:
+                rp.load(bad)
+            except err as e:
+                log(f"replay: tampered ({label}): {type(e).__name__}: {e}")
+            else:
+                raise AssertionError(f"replay: tampered ({label}) loaded")
+            assert rp.stats["rejected"] == 1 and loads[0] == 0, \
+                (label, rp.stats, loads)
+    log(f"replay: {len(cases)} tampered recordings refused, "
+        f"torch.export.load reached {loads[0]} times")
+
+
+def _replay_serve(label, eng, prompts, max_new, rp=None):
+    """Serve ``prompts`` on ``eng``: (outputs, stats, wrapper launches,
+    graph replays) after checking every stream's end."""
+    import torch
+    from repro_torch import kernels as K
+    for p in prompts:
+        eng.submit(p, max_new)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    replays0 = rp.stats["graph_replays"] if rp is not None else 0
+    t0 = time.perf_counter()
+    outs = eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    replays = (rp.stats["graph_replays"] if rp is not None else 0) - replays0
+    st, launches = dict(eng.stats), K.launch_counts()
+    ntok = sum(len(v) for v in outs.values())
+    log(f"replay: serve {label} [{eng.channel.kind}]: {ntok} tokens in "
+        f"{dt:.3f} s ({ntok / dt:.1f} tok/s); stats {st}; wrapper launches "
+        f"{launches}; graph replays {replays}")
+    for rid, toks in outs.items():
+        assert len(toks) == max_new or toks[-1] == 2, (rid, toks)
+    return outs, st, launches, replays
+
+
+def phase_replay(state):
+    """Record -> sign -> replay at full width: qwen2.5-3b's prefill (batch
+    1, seq 128) and fused decode block (4 slots, cache 1024, block_k 8)
+    recorded with the record launcher's code, signed, saved, verified and
+    loaded; the tampered forms refused before load; 8 prompts of 128
+    tokens served live, replayed eagerly and replayed through the decode
+    block's CUDA graph, with identical tokens and host syncs; one decode
+    block profiled under the graph beside live."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.api.workload import recording_name
+    from repro_torch.configs import get_config
+    from repro_torch.core.channel import LiveChannel, ReplayChannel
+    from repro_torch.core.replay import Replayer
+    from repro_torch.launch.record import record_kinds
+    from repro_torch.launch.serve import stream_kwargs
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import steps as ST
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("qwen2.5-3b")
+    L, block_k, seq, max_new = cfg.num_layers, 8, 128, 32
+    log(f"replay: {cfg.name} at full width on {_card(state)}")
+    params = state.get("params", {}).get(cfg.name)
+    params = params if params is not None else _init_params(cfg)
+    kw = dict(n_slots=4, cache_len=1024, block_k=block_k, eos_id=2,
+              speculate=True, pipeline_depth=4, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        recs = record_kinds(cfg, out=d, key=REPLAY_KEY, cache_len=1024,
+                            block_k=block_k, batch=4, seq=seq, params=params,
+                            device="cuda")
+        log(f"replay: recorded and signed both kinds in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for kind, (path, rec) in recs.items():
+            m = rec.manifest
+            log(f"replay: {kind}: record_wall_s {m['record_wall_s']:.2f}, "
+                f"payload {len(rec.payload) / 1e6:.2f} MB, "
+                f"{len(m['inputs'])} inputs, arg_bytes "
+                f"{m['memory']['arg_bytes'] / 1e6:.1f} MB, out_bytes "
+                f"{m['memory']['out_bytes'] / 1e6:.3f} MB")
+        blob = Path(recs["decode"][0]).read_bytes()
+        _replay_tampers(blob, REPLAY_KEY)
+        t0 = time.perf_counter()
+        with _export_loads_counted() as loads:
+            rp = Replayer(key=REPLAY_KEY, device="cuda")
+            pre = rp.load(os.path.join(d, recording_name(cfg.name,
+                                                         "prefill")))
+            dec = rp.load(os.path.join(d, recording_name(cfg.name,
+                                                         "decode")))
+        assert loads[0] == 2, loads
+        log(f"replay: verify + load of both: "
+            f"{time.perf_counter() - t0:.2f} s")
+    channel = ReplayChannel(rp, pre, dec)
+    assert channel.fixed_prompt_len == seq, channel.fixed_prompt_len
+    tree = Lyr.to_tree(params)
+    rng = np.random.default_rng(4)
+    prompts = [list(map(int, rng.integers(3, cfg.vocab_size, seq)))
+               for _ in range(8)]
+
+    # (a) live, through the same per-request prefill the recording pins
+    live = Engine(params, channel=LiveChannel(
+        ST.make_prefill_step(cfg, 1024),
+        ST.make_fused_decode_step(cfg, k=block_k)),
+        **stream_kwargs(cfg, **kw))
+    runs = {"live": _replay_serve("live", live, prompts, max_new)}
+    # (b) replayed eagerly (not warmed)
+    runs["eager"] = _replay_serve("replay eager", Engine(
+        tree, channel=channel, **stream_kwargs(cfg, **kw)), prompts,
+        max_new, rp)
+    # (c) warmed: the decode block captured as a CUDA graph by its first
+    # execute, which reads the params in place and copies only tokens,
+    # positions and caches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp.warm(dec)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
+    caches = M.init_cache(cfg, 4, 1024, device="cuda")
+    torch.cuda.empty_cache()            # the zeros warm ran on
+    mem0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    rp.execute(dec, tree, zeros, zeros.clone(), caches)
+    torch.cuda.synchronize()
+    t_cap = time.perf_counter() - t0
+    graph_bytes = (torch.cuda.memory_allocated() - mem0[0],
+                   torch.cuda.memory_reserved() - mem0[1])
+    del caches
+    per_replay = rp.captured_launches(dec)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in torch.utils._pytree.tree_leaves(tree))
+    log(f"replay: warm of the decode block {t_warm:.2f} s, capture and "
+        f"first replay {t_cap:.2f} s; the graph keeps "
+        f"{graph_bytes[0] / 1e6:.1f} MB allocated (its own inputs and "
+        f"outputs) and {graph_bytes[1] / 1e6:.1f} MB more reserved (its "
+        f"pool, less what the allocator held free) beside "
+        f"{param_bytes / 1e6:.1f} MB of params it reads in place; one "
+        f"replay launches {per_replay}")
+    assert rp.stats["captures"] == 1, rp.stats
+    assert max(graph_bytes) < param_bytes / 4, (graph_bytes, param_bytes)
+    assert per_replay == {"decode_attention": L * block_k,
+                          "rmsnorm": (2 * L + 1) * block_k}, per_replay
+    runs["graph"] = _replay_serve("replay graph", Engine(
+        tree, channel=channel, **stream_kwargs(cfg, **kw)), prompts,
+        max_new, rp)
+    for label in ("eager", "graph"):
+        assert runs[label][0] == runs["live"][0], \
+            f"replay: {label} tokens differ from live"
+        assert runs[label][1]["host_syncs"] == runs["live"][1]["host_syncs"], \
+            (label, runs[label][1], runs["live"][1])
+    # launches: every kernel through its wrapper live and eager; under the
+    # graph the decode blocks' only through their replays
+    for label, (outs, st, launches, replays) in runs.items():
+        pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+        if label == "graph":
+            assert replays == bd, (replays, bd)
+            for k, n in per_replay.items():
+                launches[k] += n * replays
+        want = {"flash_attention": L * pd,
+                "decode_attention": L * block_k * bd,
+                "rmsnorm": (2 * L + 1) * (pd + block_k * bd), "moe_gmm": 0,
+                "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+        assert launches == want, (label, launches, want)
+    log("replay: live, eager replay and graph replay give identical tokens "
+        "and host syncs; launches equal the formulas")
+
+    # one synchronous decode block, live and under the graph
+    live_wall, live_busy = _profile(cfg, params, label=" live")
+    eng = Engine(tree, channel=channel, **stream_kwargs(
+        cfg, **dict(kw, speculate=False)))
+    g_wall, g_busy = _profile(cfg, params, eng=eng, label=" graph replay")
+    log(f"replay: decode block wall {live_wall:.2f} -> {g_wall:.2f} ms, "
+        f"device busy {live_busy:.2f} -> {g_busy:.2f} ms, idle share "
+        f"{1 - live_busy / live_wall:.3f} -> {1 - g_busy / g_wall:.3f} "
+        f"(live -> graph replay)")
+    assert rp.stats["captures"] == 1, rp.stats
+    log(f"replay: replayer stats {rp.stats}; peak memory of the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all figures "
+        f"of this phase on {_card(state)}")
 
 
 def main(argv=None) -> int:

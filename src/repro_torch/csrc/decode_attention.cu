@@ -27,6 +27,14 @@
 //     slice of (head, dims); q stays in registers.  Products run on the CUDA
 //     cores: at ~4 G flops per 2-byte element even G = 16 stays under their
 //     rate, and one code path serves fp32 and bf16.
+//   * takes any G from 1 to 16 (instantiated: 1, 2, 4, 6, 8, 9, 16).  Where
+//     G is not a power of two the work does not divide the block: the score
+//     role gives each head RP = 256 / (TPD G) row lanes and walks the tile in
+//     passes of RP rows, the threads past RP G lanes idle; the PV role gives
+//     each thread DV dims, DV the power of two that makes 256 DV cover G HD,
+//     the threads past G HD / DV idle (G = 9, hd 128: DV 8, 144 threads, as
+//     many dims a thread as at G = 16).  Every (head, row) score and every
+//     (head, dim) output has one owner at every G.
 //   * merges the splits' partial (m, l, acc) in split order, so a run's bits
 //     do not depend on timing.  Method (b) of the design: one launch; each
 //     block writes its partial to scratch (the wrapper's torch.empty),
@@ -47,9 +55,21 @@ constexpr int kWarps = kThreads / 32;
 constexpr int TR = 32;  // cache rows per shared-memory tile
 static_assert(TR == 32, "the softmax step gives one row of a tile per lane");
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxGroup = 16;
+
+// planted fault, for the checks only: the last head of a group written as
+// zeros, the dims the old truncating DV (G * HD / 256) never wrote at G = 9
+constexpr int kDropLastHead = 1;
+
+// the least power of two >= x, and the greatest <= x (1 for x < 2)
+constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+constexpr int pow2_at_most(int x) { return x < 2 ? 1 : 2 * pow2_at_most(x / 2); }
 
 template <typename T, int HD, int G>
 struct DecodeTiles {
+  static_assert(G >= 1 && G <= kMaxGroup, "groups of 1 to 16 query heads");
   static constexpr int EPC = 16 / static_cast<int>(sizeof(T));  // per 16 B
   static constexpr int RS = HD + EPC;  // row stride, padded by 16 bytes
   static constexpr int TILE = TR * RS;
@@ -57,11 +77,18 @@ struct DecodeTiles {
   // and the rescale alpha, in fp32
   static constexpr int SMEM_BYTES =
       4 * TILE * static_cast<int>(sizeof(T)) + (G * TR + 3 * G) * 4;
-  static constexpr int DV = G * HD >= kThreads ? G * HD / kThreads : 1;
-  // threads that share one (head, row) dot product where G * TR pairs
-  // would leave threads idle, and the dims each of them holds
-  static constexpr int TPD = G * TR >= kThreads ? 1 : kThreads / (G * TR);
+  // PV role: dims per thread, a power of two with kThreads * DV >= G * HD
+  static constexpr int DV = pow2_at_least((G * HD + kThreads - 1) / kThreads);
+  static_assert(HD % DV == 0, "a thread's dims lie in one head");
+  // score role: threads that share one (head, row) dot product where G * TR
+  // pairs would leave threads idle (a power of two), the dims each of them
+  // holds, and the rows of a tile each head takes in one pass
+  static constexpr int TPD = pow2_at_most(kThreads / (G * TR));
   static constexpr int DPT = HD / TPD;
+  static constexpr int RP = kThreads / (TPD * G);
+  static constexpr int PASSES = (TR + RP - 1) / RP;
+  // every thread holds a (head, row) lane on every pass (powers of two)
+  static constexpr bool kFullPasses = RP * TPD * G == kThreads && TR % RP == 0;
 };
 
 // Rows [r0, r0 + TR) of one KV head (row stride `stride`) into dst
@@ -106,7 +133,7 @@ __global__ void __launch_bounds__(kThreads)
                             const int* __restrict__ lengths,
                             T* __restrict__ out, float* __restrict__ scratch,
                             int* __restrict__ counters, int Hkv, int W,
-                            int chunk, float scale) {
+                            int chunk, float scale, int fault) {
   using L = DecodeTiles<T, HD, G>;
   constexpr int DV = L::DV;
   extern __shared__ __align__(16) unsigned char decode_smem[];
@@ -137,18 +164,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   cp_async_commit();
 
-  // score role: TPD adjacent threads share pair tid / TPD, which is head
-  // sg over rows pair / G + k * (kThreads / TPD / G); this thread holds
-  // dims [part * DPT, (part + 1) * DPT) of the head's q
+  // score role: TPD adjacent threads share lane pidx = tid / TPD, which is
+  // head sg over rows pidx / G + k * RP of the tile (lanes past RP * G
+  // idle); this thread holds dims [part * DPT, (part + 1) * DPT) of the
+  // head's q
   constexpr int TPD = L::TPD, DPT = L::DPT, CH = DPT < 8 ? DPT : 8;
+  constexpr int RP = L::RP;
   const int pidx = tid / TPD, part = tid % TPD, sg = pidx % G;
+  const bool scores = L::kFullPasses || pidx < RP * G;
   float qf[DPT];
   load_floats<T, DPT>(
       q + (static_cast<size_t>(b) * H + hk * G + sg) * HD + part * DPT, qf);
-  // PV role: head og, dims [od, od + DV)
+  // PV role: head og, dims [od, od + DV) (threads past G * HD / DV idle)
   const int oidx = tid * DV;
   const bool owns = oidx < G * HD;
   const int og = owns ? oidx / HD : 0, od = owns ? oidx % HD : 0;
+  // 0 only where the planted fault drops the group's last head
+  const float keep = fault == kDropLastHead && og == G - 1 ? 0.f : 1.f;
   float acc[DV];
 #pragma unroll
   for (int e = 0; e < DV; ++e) acc[e] = 0.f;
@@ -174,23 +206,29 @@ __global__ void __launch_bounds__(kThreads)
     const T* tK = sK + stage * L::TILE;
     const T* tV = sV + stage * L::TILE;
 
-    // 1. the G heads' scores of the whole tile (log2 units, masked -inf)
-    //    (every thread runs the same number of rows: G * TR * TPD is a
-    //    multiple of kThreads)
-    for (int r = pidx / G; r < TR; r += kThreads / TPD / G) {
-      const T* krow = tK + r * L::RS + part * DPT;
+    // 1. the G heads' scores of the whole tile (log2 units, masked -inf),
+    //    in PASSES passes of RP rows; every thread runs every pass, so the
+    //    shuffles of a TPD group see all 32 lanes of the warp
+#pragma unroll
+    for (int pass = 0; pass < L::PASSES; ++pass) {
+      const int r = pass * RP + pidx / G;
+      const bool mine = scores && (L::kFullPasses || r < TR);
       float dot = 0.f;
+      if (mine) {
+        const T* krow = tK + r * L::RS + part * DPT;
 #pragma unroll
-      for (int c = 0; c < DPT; c += CH) {
-        float kf[CH];
-        load_floats<T, CH>(krow + c, kf);
+        for (int c = 0; c < DPT; c += CH) {
+          float kf[CH];
+          load_floats<T, CH>(krow + c, kf);
 #pragma unroll
-        for (int e = 0; e < CH; ++e) dot += qf[c + e] * kf[e];
+          for (int e = 0; e < CH; ++e) dot += qf[c + e] * kf[e];
+        }
       }
 #pragma unroll
       for (int o = TPD / 2; o > 0; o >>= 1)
         dot += __shfl_xor_sync(0xffffffffu, dot, o);
-      if (part == 0) sS[sg * TR + r] = r0 + r < hi ? dot * sl2 : -INFINITY;
+      if (mine && part == 0)
+        sS[sg * TR + r] = r0 + r < hi ? dot * sl2 : -INFINITY;
     }
     __syncthreads();
 
@@ -237,7 +275,7 @@ __global__ void __launch_bounds__(kThreads)
       const float denom = fmaxf(sL[og], 1e-30f);
 #pragma unroll
       for (int e = 0; e < DV; ++e)
-        out[obase + og * HD + od + e] = from_float<T>(acc[e] / denom);
+        out[obase + og * HD + od + e] = from_float<T>(keep * acc[e] / denom);
     }
     return;
   }
@@ -288,13 +326,14 @@ __global__ void __launch_bounds__(kThreads)
   const float denom = fmaxf(Lsum, 1e-30f);
 #pragma unroll
   for (int e = 0; e < DV; ++e)
-    out[obase + og * HD + od + e] = from_float<T>(o[e] / denom);
+    out[obase + og * HD + od + e] = from_float<T>(keep * o[e] / denom);
 }
 
 template <typename T, int HD, int G>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, void* scratch, void* counters, int B, int Hkv, int W,
-           int splits, int chunk, float scale, cudaStream_t stream) {
+           int splits, int chunk, float scale, int fault,
+           cudaStream_t stream) {
   using L = DecodeTiles<T, HD, G>;
   static const cudaError_t attr = cudaFuncSetAttribute(
       decode_attention_kernel<T, HD, G>,
@@ -305,7 +344,7 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
           static_cast<const T*>(q), static_cast<const T*>(k),
           static_cast<const T*>(v), static_cast<const int*>(lengths),
           static_cast<T*>(out), static_cast<float*>(scratch),
-          static_cast<int*>(counters), Hkv, W, chunk, scale);
+          static_cast<int*>(counters), Hkv, W, chunk, scale, fault);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,16 +352,18 @@ template <typename T, int HD>
 int launch_g(int G, const void* q, const void* k, const void* v,
              const void* lengths, void* out, void* scratch, void* counters,
              int B, int Hkv, int W, int splits, int chunk, float scale,
-             cudaStream_t s) {
+             int fault, cudaStream_t s) {
   switch (G) {
 #define REPRO_DECODE_G(GG)                                                \
   case GG:                                                                \
     return launch<T, HD, GG>(q, k, v, lengths, out, scratch, counters, B, \
-                             Hkv, W, splits, chunk, scale, s);
+                             Hkv, W, splits, chunk, scale, fault, s);
     REPRO_DECODE_G(1)
     REPRO_DECODE_G(2)
     REPRO_DECODE_G(4)
+    REPRO_DECODE_G(6)
     REPRO_DECODE_G(8)
+    REPRO_DECODE_G(9)
     REPRO_DECODE_G(16)
 #undef REPRO_DECODE_G
     default:
@@ -334,12 +375,12 @@ template <typename T>
 int launch_hd(int hd, int G, const void* q, const void* k, const void* v,
               const void* lengths, void* out, void* scratch, void* counters,
               int B, int Hkv, int W, int splits, int chunk, float scale,
-              cudaStream_t s) {
+              int fault, cudaStream_t s) {
   switch (hd) {
 #define REPRO_DECODE_HD(HD)                                                  \
   case HD:                                                                   \
     return launch_g<T, HD>(G, q, k, v, lengths, out, scratch, counters, B,   \
-                           Hkv, W, splits, chunk, scale, s);
+                           Hkv, W, splits, chunk, scale, fault, s);
     REPRO_DECODE_HD(16)
     REPRO_DECODE_HD(32)
     REPRO_DECODE_HD(64)
@@ -353,22 +394,24 @@ int launch_hd(int hd, int G, const void* q, const void* k, const void* v,
 }  // namespace
 
 // scratch: B*Hkv*splits*G*(hd+2) fp32; counters: B*Hkv int32, all zero
-// between calls (the merging block resets its own).
+// between calls (the merging block resets its own); fault 0 but for a
+// planted fault.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* lengths,
                                        void* out, void* scratch,
                                        void* counters, int B, int H, int Hkv,
                                        int W, int hd, int splits, int chunk,
-                                       float scale, int dtype, void* stream) {
+                                       float scale, int dtype, int fault,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = H / Hkv;
   if (splits < 1 || chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
     return launch_hd<float>(hd, G, q, k, v, lengths, out, scratch, counters,
-                            B, Hkv, W, splits, chunk, scale, s);
+                            B, Hkv, W, splits, chunk, scale, fault, s);
   if (dtype == kBFloat16)
     return launch_hd<__nv_bfloat16>(hd, G, q, k, v, lengths, out, scratch,
                                     counters, B, Hkv, W, splits, chunk,
-                                    scale, s);
+                                    scale, fault, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

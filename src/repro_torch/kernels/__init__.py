@@ -34,9 +34,14 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+def launch_counts() -> dict:
+    """{kernel name: launches so far} of every wrapper."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
 __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "flash_attention_plain", "decode_attention",
            "decode_attention_plain", "mamba_chunk_scan",
            "mamba_chunk_scan_plain", "mlstm_chunk_scan",
            "mlstm_chunk_scan_plain", "moe_gmm", "moe_gmm_plain",
-           "KERNELS", "TOLERANCE", "reset_launches"]
+           "KERNELS", "TOLERANCE", "reset_launches", "launch_counts"]

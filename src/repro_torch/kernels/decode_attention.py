@@ -38,7 +38,8 @@ from repro_torch.kernels.flash_attention import HEAD_DIMS, masked_softmax
 
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:60"
-GROUP_SIZES = (1, 2, 4, 8, 16)
+GROUP_SIZES = (1, 2, 4, 6, 8, 9, 16)   # instantiated in the .cu's switch
+FAULT_DROP_LAST_HEAD = 1   # csrc: kDropLastHead, for the checks only
 SPLIT_GRANULE = 32      # the kernel's tile of cache rows
 MAX_SPLITS = 32
 MAX_CHUNK = 128         # slots one block walks, where MAX_SPLITS allows
@@ -170,27 +171,31 @@ def _decode_fake(q, k_cache, v_cache, lengths, scale):
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
     """The per-(b, kv head) arrival counters on ``device``: allocated and
     zeroed once (grown when a call needs more), and left at zero by every
-    call, so no call clears them."""
+    call, so no call clears them.  A buffer outgrown is kept, never freed:
+    a CUDA graph captured on it goes on using its address."""
     buf = _COUNTERS.get(device)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = _COUNTERS[device] = torch.zeros(max(n, 256), dtype=torch.int32,
                                               device=device)
     return buf
 
 
 _COUNTERS: dict = {}
+_OUTGROWN: list = []
 
 
-def _launch(q, k_cache, v_cache, lengths, scale, plan=None):
+def _launch(q, k_cache, v_cache, lengths, scale, plan=None, fault: int = 0):
     """One launch of the kernel on CUDA tensors, split by ``plan``
     (``plan_splits`` unless given: a plan that does not cover W only
-    plants a fault for the checks)."""
+    plants a fault for the checks, as ``fault`` does)."""
     B, H, hd = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
     _build.require(q.dtype in _build.DTYPE_CODES and k_cache.dtype == q.dtype
@@ -221,7 +226,8 @@ def _launch(q, k_cache, v_cache, lengths, scale, plan=None):
                     lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                     _counters(q.device, B * Hkv).data_ptr(), B, H, Hkv, W,
                     hd, plan.splits, plan.chunk, scale,
-                    _build.DTYPE_CODES[q.dtype], _build.stream_handle(q)),
+                    _build.DTYPE_CODES[q.dtype], fault,
+                    _build.stream_handle(q)),
                  "decode_attention")
     return out
 

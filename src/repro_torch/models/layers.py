@@ -73,6 +73,28 @@ def to_module(tree):
     return tree
 
 
+def to_tree(module):
+    """``to_module``'s inverse: a ParamTree as the nested dicts/lists of
+    plain tensors it holds (the same storage), the form in which a
+    recorded step takes its params as inputs."""
+    if isinstance(module, ParamTree):
+        return {k: to_tree(module[k]) for k in module.keys()}
+    if isinstance(module, nn.ModuleList):
+        return [to_tree(m) for m in module]
+    return module.detach()
+
+
+def zeros_like_schema(schema, default_dtype: str, device):
+    """Zeros of a schema's shapes and dtypes, as nested dicts/lists."""
+    if isinstance(schema, dict):
+        return {k: zeros_like_schema(v, default_dtype, device)
+                for k, v in schema.items()}
+    if isinstance(schema, list):
+        return [zeros_like_schema(v, default_dtype, device) for v in schema]
+    return torch.zeros(schema.shape, dtype=torch_dtype(
+        schema.dtype or default_dtype), device=device)
+
+
 def materialize(schema, generator: torch.Generator, default_dtype: str,
                 device):
     """Random tensors for a schema, drawn in schema order from

@@ -131,3 +131,19 @@ def test_planners_take_shapes_not_tensors():
     (1, 37, 16, 32), (4, 512, 16, 64)])
 def test_tile_rows(B_, Sq, H_, want):
     assert FA.tile_rows(B_, Sq, H_, 132) == want
+
+
+def test_an_outgrown_counter_buffer_is_kept():
+    """A CUDA graph captured on the counter buffer goes on using its
+    address, so a larger call that outgrows the buffer must not free it."""
+    import gc
+    import weakref
+    dev = torch.device("cpu")
+    first = DA._counters(dev, 8)
+    assert DA._counters(dev, 8) is first
+    kept = weakref.ref(first)
+    del first
+    grown = DA._counters(dev, kept().numel() + 1)
+    gc.collect()
+    assert kept() is not None and kept() is not grown
+    assert grown.numel() > kept().numel() and not grown.any()

@@ -13,6 +13,7 @@ wrappers take their plain versions.
 import copy
 import dataclasses
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -22,11 +23,17 @@ torch = pytest.importorskip("torch")
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.core.channel import LiveChannel  # noqa: E402
-from repro_torch.launch.serve import build_engine  # noqa: E402
+from repro_torch.core.attest import (TamperedRecordingError,  # noqa: E402
+                                     TopologyMismatchError)
+from repro_torch.api.workload import recording_name  # noqa: E402
+from repro_torch.core.channel import LiveChannel, ReplayChannel  # noqa: E402
+from repro_torch.core.replay import Replayer  # noqa: E402
+from repro_torch.launch.record import record_kinds  # noqa: E402
+from repro_torch.launch.serve import build_engine, stream_kwargs  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.config import MLAConfig  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.training import steps as ST  # noqa: E402
 
 TOL = K.TOLERANCE
@@ -120,7 +127,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="wider"):
         K.rmsnorm(rn(1, 8192 + 8), rn(8192 + 8))
     # the int8-cache form has no kernel; the sliding-window ring runs the
-    # dense kernel; a group of 9 (starcoder2-7b at full width) is refused
+    # dense kernel; a group of 7, which no config has, is refused (groups
+    # of 6 and 9, mixtral's and starcoder2-7b's, are instantiated)
     q, kc = rn(2, 1, 4, 16), rn(2, 8, 2, 16)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
     scale = torch.ones(2, 8, 2, 1, device=cuda)
@@ -128,8 +136,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         L.decode_attention(q, kc, kc, pos, k_scale=scale, v_scale=scale)
     L.decode_attention(q, kc, kc, pos, window=8)
     lens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="H=18"):
-        K.decode_attention(rn(2, 18, 16), kc, kc, lens)
+    with pytest.raises(ValueError, match="H=14"):
+        K.decode_attention(rn(2, 14, 16), kc, kc, lens)
 
 
 @pytest.mark.parametrize("arch", ["cody-mnist", "qwen2.5-3b",
@@ -545,3 +553,107 @@ def test_tolerance_rejects_the_redesigns_planted_faults(cuda, dt):
         short = DA.SplitPlan(plan.splits - 1, plan.chunk)
         assert not _agree(DA._launch(q, kc, vc, ln, 128 ** -0.5, short),
                           want, TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv", [(36, 4), (48, 8)])
+def test_decode_groups_of_9_and_6_match_plain(cuda, dt, H, Hkv):
+    """starcoder2-7b's group of 9 and mixtral-8x22b's of 6 at hd 128, which
+    do not divide the kernel's block; the last head dropped (what the
+    truncating DV of the kernel before them left unwritten) fails."""
+    rn = _randn(cuda, 14)
+    lens = torch.tensor([1, 300, 777, 1024], dtype=torch.int32, device=cuda)
+    q, kc, vc = rn(4, H, 128, dt=dt), rn(4, 1024, Hkv, 128, dt=dt), \
+        rn(4, 1024, Hkv, 128, dt=dt)
+    want = K.decode_attention_plain(q, kc, vc, lens)
+    assert _agree(K.decode_attention(q, kc, vc, lens), want, TOL[dt])
+    assert not _agree(DA._launch(q, kc, vc, lens, 128 ** -0.5,
+                                 fault=DA.FAULT_DROP_LAST_HEAD), want, TOL[dt])
+
+
+KEY = b"card-replay-key"
+
+
+def _served(eng, vocab, n=3, max_new=24):
+    g = torch.Generator().manual_seed(9)
+    for _ in range(n):
+        eng.submit(torch.randint(3, vocab, (eng.fixed_prompt_len,),
+                                 generator=g).tolist(), max_new)
+    return eng.run(), dict(eng.stats)
+
+
+def _replay_engine(cfg, params, d, dev):
+    """An unwarmed replay Engine over the recordings in ``d``, built as
+    phase ``replay`` of chip_smoke.py builds it."""
+    rp = Replayer(key=KEY, device=dev)
+    pre, dec = (rp.load(os.path.join(d, recording_name(cfg.name, kind)))
+                for kind in ("prefill", "decode"))
+    return Engine(L.to_tree(params), channel=ReplayChannel(rp, pre, dec),
+                  **stream_kwargs(cfg, n_slots=2, cache_len=64, block_k=4,
+                                  eos_id=2, pipeline_depth=4, device=dev))
+
+
+@pytest.mark.parametrize("arch", ["cody-mnist", "qwen2.5-3b"])
+def test_smoke_replay_on_card_matches_cpu(cuda, arch, tmp_path):
+    """Recorded and replayed at smoke width on each device: the card's
+    tokens equal the CPU's, eagerly and through the decode block's CUDA
+    graph, with up to 4 blocks in flight (each block's outputs are read
+    after later replays).  The graph reads the caller's params in place
+    (captured once, though each Engine takes its own tree of them), and
+    replays right after an eager decode_attention outgrew the counter
+    buffer it was captured on."""
+    cfg = smoke_shrink(get_config(arch), dtype="float32")
+    params = M.init_params(cfg, seed=0, device="cpu")
+    runs = {}
+    for dev, p in (("cpu", params), ("cuda", copy.deepcopy(params).to(cuda))):
+        d = str(tmp_path / dev)
+        record_kinds(cfg, out=d, key=KEY, cache_len=64, block_k=4, batch=2,
+                     seq=8, params=p, device=dev)
+        runs[dev, "eager"] = _served(_replay_engine(cfg, p, d, dev),
+                                     cfg.vocab_size)
+    eng = build_engine(cfg, n_slots=2, cache_len=64, block_k=4, params=p,
+                       device=cuda, recordings_dir=d, key=KEY,
+                       pipeline_depth=4)
+    runs["cuda", "graph"] = _served(eng, cfg.vocab_size)
+    rp = eng.channel.replayer
+    assert rp.stats["captures"] == 1
+    assert rp.stats["graph_replays"] == \
+        runs["cuda", "graph"][1]["blocks_dispatched"]
+    here = torch.zeros(1, device=cuda).device       # with its index
+    before = DA._counters(here, 0).numel()
+    B, rn = before // 8 + 1, _randn(cuda, 15)
+    K.decode_attention(rn(B, 8, 64), rn(B, 32, 8, 64), rn(B, 32, 8, 64),
+                       torch.full((B,), 32, dtype=torch.int32, device=cuda))
+    assert DA._counters(here, 0).numel() > before
+    again = Engine(L.to_tree(p), channel=eng.channel, **stream_kwargs(
+        cfg, n_slots=2, cache_len=64, block_k=4, eos_id=2, pipeline_depth=4,
+        device=cuda))
+    runs["cuda", "graph again"] = _served(again, cfg.vocab_size)
+    assert rp.stats["captures"] == 1
+    assert runs["cuda", "graph"][1]["spec_blocks"] > 0
+    assert runs["cuda", "eager"] == runs["cpu", "eager"]
+    assert runs["cuda", "graph"] == runs["cuda", "eager"]
+    assert runs["cuda", "graph again"] == runs["cuda", "eager"]
+
+
+def test_tampered_recordings_are_refused_on_the_card(cuda, tmp_path,
+                                                     monkeypatch):
+    cfg = smoke_shrink(get_config("cody-mnist"), dtype="float32")
+    recs = {dev: record_kinds(cfg, ("decode",), out=str(tmp_path / dev),
+                              key=KEY, cache_len=32, block_k=2, batch=2,
+                              seq=8, device=dev)["decode"][0]
+            for dev in ("cpu", "cuda")}
+    blob = open(recs["cuda"], "rb").read()
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.export.load reached")
+    monkeypatch.setattr(torch.export, "load", refuse)
+    for off in (10, len(blob) // 2, len(blob) - 20):
+        bad = bytearray(blob)
+        bad[off] ^= 0x5A
+        with pytest.raises(TamperedRecordingError):
+            Replayer(key=KEY, device=cuda).load(bytes(bad))
+    with pytest.raises(TamperedRecordingError):
+        Replayer(key=b"wrong", device=cuda).load(blob)
+    with pytest.raises(TopologyMismatchError):      # made on the CPU
+        Replayer(key=KEY, device=cuda).load(recs["cpu"])

@@ -24,16 +24,22 @@ def _port_modules():
 
 
 def test_import_loads_no_jax():
+    """Nor ``msgpack``: the recordings are framed by ``core/_msgpack``."""
     mods = _port_modules()
     assert {"repro_torch.kernels.flash_attention",
             "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mlstm",
-            "repro_torch.models.ssm", "repro_torch.models.xlstm"} <= set(mods)
+            "repro_torch.models.ssm", "repro_torch.models.xlstm",
+            "repro_torch.core.attest", "repro_torch.core._msgpack",
+            "repro_torch.core.recording", "repro_torch.core.recorder",
+            "repro_torch.core.replay", "repro_torch.api.workload",
+            "repro_torch.launch.record"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
-            "             or m == 'repro' or m.startswith('repro.'))\n"
+            "             or m == 'repro' or m.startswith('repro.')\n"
+            "             or m == 'msgpack' or m.startswith('msgpack.'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -52,6 +58,7 @@ def test_no_port_file_imports_repro(path):
     src = path.read_text()
     assert not _IMPORTS_REPRO.search(src), path
     assert "import jax" not in src and "from jax" not in src, path
+    assert "import msgpack" not in src, path
 
 
 def test_serving_stack_loads_no_model_code():
