@@ -62,12 +62,27 @@ Phases, each of which raises (exit code != 0) when it fails:
            share, and each custom kernel's device time and launches;
   replay   record -> sign -> replay of qwen2.5-3b at full width: prefill
            and the fused decode block recorded (``torch.export``, params as
-           inputs) and signed by the record launcher's code, every tampered
-           form refused before ``torch.export.load``, 8 prompts of 128
-           tokens served live, replayed eagerly and replayed through the
-           decode block's CUDA graph (identical tokens, host syncs and
-           launches), and one decode block profiled under the graph beside
-           live.
+           inputs) through a wifi ``RecordingSession`` with all passes and
+           signed by the record launcher's code (each session report
+           printed; the session's host seconds naive and with all
+           passes), every tampered form refused before
+           ``torch.export.load``, 8 prompts of 128 tokens served live,
+           replayed eagerly, replayed through the decode block's CUDA
+           graph, and live and under the graph again with every dispatch
+           billed to a wifi emulator (identical tokens, host syncs and
+           launches; the two billing logs equal), and one decode block
+           profiled under the graph beside live;
+  session  the CODY recording session: cody-mnist's prefill (published
+           config, cache 64, block_k 4, batch 1, seq 16) exported once;
+           the record-side ablation (naive, +deferral, +speculation,
+           +metasync) on wifi and cellular at 32 jobs, each stack's round
+           trips equal to ``BENCH_recording.json``'s, virtual time
+           strictly falling, all passes >= 90% below naive, every payload
+           the local record's; the replay-side ablation (plan compaction
+           over wifi) equal to ``BENCH_replay.json``'s; the session-made
+           recording verified and replayed on the card, bit-identical to
+           live execution, with 2 L + 1 rmsnorm and L flash launches.
+           Emulated seconds are the link model's output, not measured.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -92,7 +107,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
-          "replay")
+          "replay", "session")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -1576,22 +1591,30 @@ def _replay_serve(label, eng, prompts, max_new, rp=None):
 def phase_replay(state):
     """Record -> sign -> replay at full width: qwen2.5-3b's prefill (batch
     1, seq 128) and fused decode block (4 slots, cache 1024, block_k 8)
-    recorded with the record launcher's code, signed, saved, verified and
-    loaded; the tampered forms refused before load; 8 prompts of 128
-    tokens served live, replayed eagerly and replayed through the decode
-    block's CUDA graph, with identical tokens and host syncs; one decode
-    block profiled under the graph beside live."""
+    recorded with the record launcher's code through a wifi
+    ``RecordingSession`` with all passes, signed, saved, verified and
+    loaded; the session's host seconds naive and with all passes; the
+    tampered forms refused before load; 8 prompts of 128 tokens served
+    live, replayed eagerly and replayed through the decode block's CUDA
+    graph, then live and under the graph again, each dispatch billed to
+    a wifi emulator through a ``NetemBilledChannel``, with identical
+    tokens and host syncs and identical billing logs; one decode block
+    profiled under the graph beside live."""
     import tempfile
     import numpy as np
     import torch
-    from repro_torch.api.workload import recording_name
+    from repro_torch.api.workload import format_session_report, recording_name
     from repro_torch.configs import get_config
-    from repro_torch.core.channel import LiveChannel, ReplayChannel
+    from repro_torch.core.channel import (LiveChannel, NetemBilledChannel,
+                                          ReplayChannel)
+    from repro_torch.core.netem import WIFI, NetworkEmulator
+    from repro_torch.core.recording import Recording
     from repro_torch.core.replay import Replayer
     from repro_torch.launch.record import record_kinds
     from repro_torch.launch.serve import stream_kwargs
     from repro_torch.models import layers as Lyr
     from repro_torch.models import model as M
+    from repro_torch.record import RecordingSession
     from repro_torch.serving.engine import Engine
     from repro_torch.training import steps as ST
 
@@ -1607,9 +1630,9 @@ def phase_replay(state):
         t0 = time.perf_counter()
         recs = record_kinds(cfg, out=d, key=REPLAY_KEY, cache_len=1024,
                             block_k=block_k, batch=4, seq=seq, params=params,
-                            device="cuda")
-        log(f"replay: recorded and signed both kinds in "
-            f"{time.perf_counter() - t0:.2f} s")
+                            device="cuda", net="wifi", passes="all")
+        log(f"replay: recorded and signed both kinds through wifi "
+            f"sessions in {time.perf_counter() - t0:.2f} s")
         for kind, (path, rec) in recs.items():
             m = rec.manifest
             log(f"replay: {kind}: record_wall_s {m['record_wall_s']:.2f}, "
@@ -1617,6 +1640,21 @@ def phase_replay(state):
                 f"{len(m['inputs'])} inputs, arg_bytes "
                 f"{m['memory']['arg_bytes'] / 1e6:.1f} MB, out_bytes "
                 f"{m['memory']['out_bytes'] / 1e6:.3f} MB")
+            log(f"replay: {kind}: "
+                f"{format_session_report(m['record_session'])} (emulated)")
+            assert m["record_session"]["net"] == "wifi", m["record_session"]
+            # the session's own host cost at full width, naive and all
+            # passes, over a copy of this artifact
+            for passes in ("none", "all"):
+                s = RecordingSession.for_profile(WIFI, passes=passes)
+                t1 = time.perf_counter()
+                s.finalize(Recording(dict(m), rec.payload, rec.trees))
+                r = s.report()
+                log(f"replay: {kind}: session {passes:4s} host "
+                    f"{time.perf_counter() - t1:.3f} s for {r['jobs']} "
+                    f"jobs; emulated {r['virtual_time_s']} s, "
+                    f"{r['blocking_round_trips']} blocking RTs, "
+                    f"{(r['bytes_sent'] + r['bytes_received']) / 1e6:.3f} MB")
         blob = Path(recs["decode"][0]).read_bytes()
         _replay_tampers(blob, REPLAY_KEY)
         t0 = time.perf_counter()
@@ -1682,7 +1720,26 @@ def phase_replay(state):
     runs["graph"] = _replay_serve("replay graph", Engine(
         tree, channel=channel, **stream_kwargs(cfg, **kw)), prompts,
         max_new, rp)
-    for label in ("eager", "graph"):
+    # the same two ways again, every dispatch, commit and drain billed to
+    # an emulated wifi link (the reference's "identical across live and
+    # replay channels")
+    billed = {}
+    for label, inner, p in (
+            ("billed live", LiveChannel(
+                ST.make_prefill_step(cfg, 1024),
+                ST.make_fused_decode_step(cfg, k=block_k)), params),
+            ("billed graph", channel, tree)):
+        em = NetworkEmulator(WIFI)
+        eng = Engine(p, channel=NetemBilledChannel(inner, em), netem=em,
+                     **stream_kwargs(cfg, **kw))
+        runs[label] = _replay_serve(label, eng, prompts, max_new,
+                                    rp if "graph" in label else None)
+        billed[label] = (eng.channel.log, em.snapshot())
+        log(f"replay: {label}: emulated wifi link {em.virtual_time_s:.6f} s "
+            f"(model output, not measured), {em.snapshot()}")
+    assert billed["billed live"] == billed["billed graph"], \
+        "replay: billing logs differ across live and replay channels"
+    for label in ("eager", "graph", "billed live", "billed graph"):
         assert runs[label][0] == runs["live"][0], \
             f"replay: {label} tokens differ from live"
         assert runs[label][1]["host_syncs"] == runs["live"][1]["host_syncs"], \
@@ -1691,7 +1748,7 @@ def phase_replay(state):
     # graph the decode blocks' only through their replays
     for label, (outs, st, launches, replays) in runs.items():
         pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
-        if label == "graph":
+        if "graph" in label:
             assert replays == bd, (replays, bd)
             for k, n in per_replay.items():
                 launches[k] += n * replays
@@ -1700,8 +1757,9 @@ def phase_replay(state):
                 "rmsnorm": (2 * L + 1) * (pd + block_k * bd), "moe_gmm": 0,
                 "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
         assert launches == want, (label, launches, want)
-    log("replay: live, eager replay and graph replay give identical tokens "
-        "and host syncs; launches equal the formulas")
+    log("replay: live, eager replay, graph replay and both billed serves "
+        "give identical tokens and host syncs; the billing logs are equal; "
+        "launches equal the formulas")
 
     # one synchronous decode block, live and under the graph
     live_wall, live_busy = _profile(cfg, params, label=" live")
@@ -1716,6 +1774,164 @@ def phase_replay(state):
     log(f"replay: replayer stats {rp.stats}; peak memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all figures "
         f"of this phase on {_card(state)}")
+
+
+SESSION_KEY = b"chip-smoke-session-key"
+# the reference bench's shapes (benchmarks/recording_ablation_bench.py)
+SESSION_SHAPES = dict(cache_len=64, block_k=4, batch=1, seq=16)
+SESSION_JOBS = 32
+SESSION_STACKS = (("naive", ()), ("+deferral", ("deferral",)),
+                  ("+speculation", ("deferral", "speculation")),
+                  ("+metasync", ("deferral", "speculation", "metasync")))
+REPLAY_STACKS = (("naive", ()), ("+dead-elim", ("dead",)),
+                 ("+poll-collapse", ("dead", "poll")),
+                 ("+coalesce", ("dead", "poll", "coalesce")))
+
+
+def _bench_rows(name, *path):
+    """The rows of the reference's BENCH file ``name`` by stack (read
+    only: the gates the port's session must meet)."""
+    rows = json.loads((ROOT / name).read_text())
+    for key in path:
+        rows = rows[key]
+    return {r["stack"]: r for r in rows if r.get("net", "wifi") == "wifi"}
+
+
+def phase_session(state):
+    """The CODY recording session on the card: cody-mnist's prefill
+    (published config) exported once, the record-side ablation (naive,
+    +deferral, +speculation, +metasync on wifi and cellular at 32 jobs)
+    over copies of that artifact, the replay-side ablation (plan
+    compaction over wifi), and the session-made recording verified and
+    replayed on the card, bit-identical to live execution."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.api.workload import (build_step, format_session_report,
+                                          static_meta_for)
+    from repro_torch.configs import get_config
+    from repro_torch.core.netem import CELLULAR, WIFI, NetworkEmulator
+    from repro_torch.core.recorder import compile_artifact
+    from repro_torch.core.recording import Recording
+    from repro_torch.core.replay import Replayer
+    from repro_torch.core.replay_passes import PlanExecutor, plan_for
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.record import (REPLAY_CONSUMED_SITES, CloudDryrun,
+                                    RecordingSession)
+
+    def copy_of(rec):
+        return Recording(dict(rec.manifest), rec.payload, rec.trees)
+
+    cfg = get_config("cody-mnist")
+    L = cfg.num_layers
+    log(f"session: {cfg.name} at full width ({cfg.d_model} wide, {L} "
+        f"layers, {cfg.dtype}), prefill at {SESSION_SHAPES}, "
+        f"{SESSION_JOBS} jobs, on {_card(state)}")
+    params = M.init_params(cfg, seed=0, device="cuda")
+    tree = Lyr.to_tree(params)
+    fn, args, donate = build_step(cfg, "prefill", params=tree,
+                                  device="cuda", **SESSION_SHAPES)
+    t0 = time.perf_counter()
+    base = compile_artifact(f"{cfg.name}_prefill", fn, args,
+                            donate_argnums=donate,
+                            config_fingerprint=cfg.fingerprint(),
+                            static_meta=static_meta_for("prefill",
+                                                        **SESSION_SHAPES))
+    log(f"session: exported once in {time.perf_counter() - t0:.2f} s, "
+        f"payload {len(base.payload)} bytes, memory {base.manifest['memory']}")
+    local = RecordingSession.local(cloud=CloudDryrun(jobs=SESSION_JOBS)) \
+        .finalize(copy_of(base))
+    assert local.manifest["record_virtual_s"] == 0.0, local.manifest
+
+    # record side: the four stacks on two links over one artifact
+    rows = _bench_rows("BENCH_recording.json", "rows")
+    signed = None
+    for profile in (WIFI, CELLULAR):
+        times = []
+        for label, passes in SESSION_STACKS:
+            s = RecordingSession.for_profile(
+                profile, passes=passes, cloud=CloudDryrun(jobs=SESSION_JOBS))
+            t0 = time.perf_counter()
+            rec = s.finalize(copy_of(base))
+            host_s = time.perf_counter() - t0
+            rep = rec.manifest["record_session"]
+            spec = rep["per_pass"].get("speculation", {})
+            want = rows[label]
+            got = (rep["blocking_round_trips"], rep["async_round_trips"],
+                   int(spec.get("spec_commits", 0)),
+                   int(spec.get("mispredicts", 0)), rep["jobs"])
+            assert got == (want["blocking_rts"], want["async_rts"],
+                           want["spec_commits"], want["mispredicts"],
+                           want["jobs"]), (profile.name, label, got, want)
+            assert rec.payload == local.payload and rec.trees == local.trees
+            assert rec.manifest["exec_fingerprint"] == \
+                local.manifest["exec_fingerprint"]
+            blob = copy_of(rec).sign_with(SESSION_KEY).to_bytes()
+            Recording.from_bytes(blob, SESSION_KEY)     # verifies
+            if profile is WIFI and label == "+metasync":
+                signed = blob
+            times.append(rep["virtual_time_s"])
+            mb = (rep["bytes_sent"] + rep["bytes_received"]) / 1e6
+            ref = (f"; reference (wifi, smoke) {want['wire_MB']} MB, "
+                   f"{want['virtual_time_s']} s" if profile is WIFI else "")
+            log(f"session: record {profile.name:8s} {label:13s} "
+                f"{got[0]:3d} blocking / {got[1]:3d} async RTs, "
+                f"{got[2]} spec commits, {got[3]} mispredicts; emulated "
+                f"{mb:.3f} MB, {rep['virtual_time_s']} s{ref}; host "
+                f"{host_s:.3f} s")
+        assert all(a > b for a, b in zip(times, times[1:])), times
+        cut = 1 - times[-1] / times[0]
+        assert cut >= 0.90, (profile.name, times)
+        log(f"session: record {profile.name}: emulated virtual time "
+            f"{times} s, all passes {100 * cut:.2f}% below naive")
+    log("session: " + format_session_report(
+        Recording.from_bytes(signed, SESSION_KEY).manifest["record_session"]))
+
+    # replay side: the compacted plans, priced over wifi
+    rows = _bench_rows("BENCH_replay.json", "ablation", "rows")
+    witness = None
+    for label, passes in REPLAY_STACKS:
+        ex = PlanExecutor(netem=NetworkEmulator(WIFI))
+        rep = ex.run(plan_for(local, passes, jobs=SESSION_JOBS))
+        want = rows[label]
+        got = (rep["blocking_round_trips"], rep["dispatches"],
+               rep["collapsed_spins"])
+        assert got == (want["blocking_rts"], want["dispatches"],
+                       want["collapsed_spins"]), (label, got, want)
+        w = (ex.write_log(), ex.consumed_log(REPLAY_CONSUMED_SITES))
+        witness = witness or w
+        assert w == witness, label
+        log(f"session: replay plan {label:15s} {got[0]:3d} blocking RTs, "
+            f"{got[1]:3d} dispatches, {got[2]:2d} collapsed spins; "
+            f"emulated {rep['virtual_time_s']} s (reference "
+            f"{want['plan_virtual_s']} s)")
+
+    # the session-made recording, verified and replayed on the card
+    rp = Replayer(key=SESSION_KEY, device="cuda")
+    name = rp.load(signed)
+    batch = {"tokens": torch.randint(3, cfg.vocab_size, (1, 16),
+                                     dtype=torch.int32, device="cuda")}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    got = rp.execute(name, tree, batch)
+    torch.cuda.synchronize()
+    replayed = K.launch_counts()
+    K.reset_launches()
+    want = fn(tree, batch)
+    torch.cuda.synchronize()
+    live = K.launch_counts()
+    flat, spec = torch.utils._pytree.tree_flatten(got)
+    wflat, wspec = torch.utils._pytree.tree_flatten(want)
+    assert spec == wspec, (spec, wspec)
+    for a, b in zip(flat, wflat):
+        assert a.dtype == b.dtype and a.shape == b.shape and \
+            torch.equal(a, b), "session: replay differs from live"
+    formula = {"rmsnorm": 2 * L + 1, "flash_attention": L}
+    for counts in (replayed, live):
+        assert {k: counts[k] for k in formula} == formula, (counts, formula)
+    log(f"session: the wifi all-passes recording verified and replayed on "
+        f"the card: {len(flat)} outputs bit-identical to live; launches "
+        f"{ {k: replayed[k] for k in formula} } (2 L + 1 and L)")
 
 
 def main(argv=None) -> int:

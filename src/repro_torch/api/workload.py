@@ -1,8 +1,8 @@
 """Step building, static meta and recording names for one workload.
 
 Counterpart of the module functions of ``repro/api/workload.py``
-(``static_meta_for``, ``build_step``, ``recording_name``), shared by the
-record and serve launchers so that both derive the same shapes and names
+(``static_meta_for``, ``build_step``, ``recording_name``,
+``format_session_report``), shared by the record and serve launchers so that both derive the same shapes and names
 from the same arguments.  The ``Workload`` class comes with ROADMAP
 Queue 1, item 7.
 """
@@ -71,5 +71,16 @@ def recording_name(arch: str, kind: str, extra: str = "") -> str:
     return f"{key_arch(arch)}_{kind}{('_' + extra) if extra else ''}.codyrec"
 
 
+def format_session_report(rep: dict) -> str:
+    """One-line summary of a RecordingSession report."""
+    mb = (rep["bytes_sent"] + rep["bytes_received"]) / 1e6
+    passes = "+".join(rep["passes"]) or "naive"
+    return (f"session[{rep['net']}|{passes}]: "
+            f"{rep['virtual_time_s']:.2f}s virtual, "
+            f"{rep['blocking_round_trips']} blocking / "
+            f"{rep['async_round_trips']} async RTs, {mb:.2f} MB, "
+            f"{rep['jobs']} jobs")
+
+
 __all__ = ["KINDS", "key_arch", "static_meta_for", "build_step",
-           "recording_name"]
+           "recording_name", "format_session_report"]

@@ -3,7 +3,7 @@
 Counterpart of ``repro/core/channel.py``.  The serving stack (scheduler /
 stream executors / commit frontier) is transport-agnostic: a channel
 exposes the three step kinds it dispatches — ``prefill``,
-``batched_prefill`` (optional capability) and ``decode_block``.  Two
+``batched_prefill`` (optional capability) and ``decode_block``.  Three
 transports share the interface:
 
   * ``LiveChannel``   — the step functions run eagerly (the cloud / record
@@ -12,15 +12,20 @@ transports share the interface:
                         paper's in-TEE mode).  Trust boundary: this module
                         imports no model, kernel or step code, so a replay
                         channel reaches decode with nothing but verified
-                        programs in the TCB.
-
-``NetemBilledChannel`` comes with the port of ``core/netem.py``.
+                        programs in the TCB;
+  * ``NetemBilledChannel`` — wraps another channel, billing every
+                        dispatch to a ``NetworkEmulator`` and logging the
+                        interaction trace (step + input shapes and
+                        dtypes): the record/emulation transport the paper
+                        uses to price the distributed-driver link.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
+
+from repro_torch.core.recorder import dtype_name
 
 
 class ChannelCapabilityError(NotImplementedError):
@@ -144,3 +149,53 @@ class ReplayChannel(ExecutionChannel):
     def decode_block(self, params, tokens, pos, caches):
         return self._rp.execute(self._dec, params, self._put(tokens),
                                 self._put(pos), caches)
+
+
+class NetemBilledChannel(ExecutionChannel):
+    """Record/emulation transport: every dispatch crosses the emulated
+    link and lands in the interaction log.
+
+    Dispatches ship as ASYNC trips (commands are metastate-sized and the
+    distributed driver does not stall on a dispatch — paper fig. 5c); the
+    log rows ``(step, ((shape, dtype), ...))`` are the recording trace a
+    record phase persists, equal for a live and a replayed inner channel
+    (``dtype_name`` spells a numpy array's and a tensor's dtype alike).
+    Wrap any inner channel: a ``LiveChannel`` for record mode, a
+    ``ReplayChannel`` for priced replay emulation.
+    """
+
+    kind = "netem-billed"
+    DISPATCH_BYTES = 256          # command + descriptor metastate per step
+
+    def __init__(self, inner: ExecutionChannel, netem):
+        self.inner = inner
+        self.netem = netem
+        self.log: List[tuple] = []
+
+    @property
+    def fixed_prompt_len(self) -> Optional[int]:
+        return self.inner.fixed_prompt_len
+
+    @property
+    def supports_batched_prefill(self) -> bool:
+        return self.inner.supports_batched_prefill
+
+    def _bill(self, step: str, *shaped):
+        self.log.append((step, tuple(
+            (tuple(getattr(a, "shape", ())), dtype_name(a)) for a in shaped)))
+        if self.netem is not None:
+            self.netem.async_trip(send_bytes=self.DISPATCH_BYTES,
+                                  recv_bytes=0)
+
+    def prefill(self, params, batch):
+        self._bill("prefill", *(batch.values() if isinstance(batch, dict)
+                                else (batch,)))
+        return self.inner.prefill(params, batch)
+
+    def batched_prefill(self, params, tokens, lengths):
+        self._bill("batched_prefill", tokens, lengths)
+        return self.inner.batched_prefill(params, tokens, lengths)
+
+    def decode_block(self, params, tokens, pos, caches):
+        self._bill("decode_block", tokens, pos)
+        return self.inner.decode_block(params, tokens, pos, caches)

@@ -11,9 +11,11 @@ metrics).  ``CommitQueue`` preserves program order per stream, coalesces
 round trips, and supports symbolic reads exactly like the paper.
 
 This module is runtime-agnostic: the channel is anything callable that
-executes one ``Op`` at a time in program order — a real device loop or a
-serving stream's executor (which turns ops into ``ExecutionChannel`` step
-dispatches, see ``repro_torch.core.channel``).
+executes one ``Op`` at a time in program order — a real device loop, the
+NetworkEmulator-backed ``DeviceProxy`` of a recording session
+(``repro_torch.record``), or a serving stream's executor (which turns ops
+into ``ExecutionChannel`` step dispatches, see
+``repro_torch.core.channel``).
 """
 from __future__ import annotations
 
@@ -92,11 +94,14 @@ class CommitQueue:
     device side; a commit ships the whole queue in a single round trip and
     the client executes ops in order, resolving intra-batch symbolic
     references as it goes (the paper ships symbols to the client the same
-    way).  The log of committed interactions *is* the recording trace.
+    way).  ``netem`` (optional) accounts the virtual network cost; the log
+    of committed interactions *is* the recording trace.
     """
 
-    def __init__(self, channel: Callable[[Op], Any], name: str = "stream0"):
+    def __init__(self, channel: Callable[[Op], Any],
+                 netem=None, name: str = "stream0"):
         self.channel = channel
+        self.netem = netem
         self.name = name
         # symbol ids are scoped to THIS queue: two freshly built sessions
         # replaying the same program produce identical op logs (a module-
@@ -146,7 +151,7 @@ class CommitQueue:
                 results.append(res)
         return results
 
-    def commit(self) -> List[Any]:
+    def commit(self, approx_bytes: int = 256) -> List[Any]:
         if not self.queue:
             return []
         ops = self.queue
@@ -154,15 +159,22 @@ class CommitQueue:
         results = self.execute_ops(ops)
         self.log.extend(ops)
         self.commits += 1
+        if self.netem is not None:
+            send, recv = _wire_bytes(ops, results)
+            self.netem.round_trip(send_bytes=max(send, approx_bytes),
+                                  recv_bytes=recv)
         return results
 
-    def commit_async(self) -> List[Any]:
+    def commit_async(self, approx_bytes: int = 256) -> List[Any]:
         """Ship the queue WITHOUT a blocking round trip (paper fig. 5c).
 
         The client executes the batch now; read symbols resolve to whatever
         the channel returns — for the serving engine that is an in-flight
         device future, so the host keeps running and only materializes the
-        value at the commit frontier."""
+        value at the commit frontier.  Wire bytes are accounted with the
+        same op/byte math as ``commit`` but as a non-blocking trip, so
+        speculative and synchronous shipping can never drift apart in
+        netem accounting."""
         if not self.queue:
             return []
         ops = self.queue
@@ -170,8 +182,33 @@ class CommitQueue:
         results = self.execute_ops(ops)
         self.log.extend(ops)
         self.async_commits += 1
+        if self.netem is not None:
+            send, recv = _wire_bytes(ops, results)
+            self.netem.async_trip(send_bytes=max(send, approx_bytes),
+                                  recv_bytes=recv)
         return results
 
     def flush(self):
         return self.commit()
 
+
+def _wire_bytes(ops: List[Op], results: List[Any]):
+    """(send, recv) bytes for one shipped batch — the single source of
+    truth for commit/commit_async netem accounting."""
+    send = sum(64 + _payload_bytes(o.payload) for o in ops)
+    recv = 64 + 8 * len(results)
+    return send, recv
+
+
+def _payload_bytes(p) -> int:
+    if p is None:
+        return 0
+    if isinstance(p, (bytes, bytearray)):
+        return len(p)
+    if isinstance(p, (list, tuple)):
+        return sum(_payload_bytes(x) for x in p)
+    if isinstance(p, dict):
+        return sum(_payload_bytes(v) for v in p.values())
+    if hasattr(p, "nbytes"):
+        return int(p.nbytes)
+    return 8

@@ -16,8 +16,13 @@ are real tensors (zeros, or the caller's own): a program exported against
 the recording device into the graph, so a recording replays only on the
 device type it was made on; the topology fingerprint says which.
 
-``record()``, the two-party recording session, comes with the port of
-``repro/record`` (ROADMAP Queue 1, item 8).
+``record()`` is the paper's full record phase: it runs the export through
+an in-process degenerate ``repro_torch.record.RecordingSession`` (device
+proxy and cloud dryrun co-located, all three optimization passes on,
+nothing billed) — the same Recording ``compile_artifact`` builds, plus
+the session fields (``record_virtual_s`` and per-pass counters, zero for
+local records).  A session built over a real ``NetProfile`` runs the
+distributed record phase over an emulated link and bills it.
 """
 from __future__ import annotations
 
@@ -130,4 +135,24 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
     return Recording(manifest=manifest, payload=payload, trees=trees)
 
 
-__all__ = ["compile_artifact", "topology_fingerprint", "dtype_name"]
+def record(name: str, fn, args: Sequence[Any], *, donate_argnums=(),
+           config_fingerprint: str = "", static_meta: Optional[dict] = None,
+           session=None) -> Recording:
+    """Record ``fn`` through a ``RecordingSession`` (the CODY two-party
+    record phase).  Without ``session`` this is the in-process degenerate
+    session — LOCAL co-located device+cloud, all passes on, nothing billed
+    — whose Recording is the same artifact ``compile_artifact`` builds.
+    Pass a session built over a real ``NetProfile`` (see
+    ``repro_torch.record.RecordingSession.for_profile``) to bill the
+    distributed record protocol into its emulator and into the
+    manifest."""
+    # lazy import: repro_torch.record composes over this module's export
+    from repro_torch.record import RecordingSession
+    sess = session if session is not None else RecordingSession.local()
+    return sess.record(name, fn, args, donate_argnums=donate_argnums,
+                       config_fingerprint=config_fingerprint,
+                       static_meta=static_meta)
+
+
+__all__ = ["compile_artifact", "record", "topology_fingerprint",
+           "dtype_name"]

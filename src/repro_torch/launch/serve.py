@@ -4,8 +4,12 @@ Counterpart of the single-stream paths of ``repro/launch/serve.py``
 (``Workload.channel`` + ``Workload.engine``): live steps, or, with
 ``--from-recordings``, the signed recordings of ``repro_torch.launch.
 record`` verified and replayed through a ``ReplayChannel`` (the paper's
-in-TEE mode; on the card the decode block replays as a CUDA graph).  It
-runs on the CUDA device unless asked for the CPU:
+in-TEE mode; on the card the decode block replays as a CUDA graph).
+``--net`` bills the stream's commits, prefills and frontier drains to an
+emulated link (``NetworkEmulator``), and ``build_engine(...,
+bill_dispatches=True)`` also bills each step dispatch through a
+``NetemBilledChannel``.  It runs on the CUDA device unless asked for the
+CPU:
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b
     python -m repro_torch.launch.serve --arch cody-mnist --smoke --device cpu
@@ -26,7 +30,9 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.api.workload import recording_name
 from repro_torch.configs import get_config, smoke_shrink
-from repro_torch.core.channel import LiveChannel, ReplayChannel
+from repro_torch.core.channel import (LiveChannel, NetemBilledChannel,
+                                      ReplayChannel)
+from repro_torch.core.netem import PROFILES, NetworkEmulator
 from repro_torch.core.replay import Replayer
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
@@ -57,15 +63,17 @@ def stream_kwargs(cfg, *, n_slots: int, cache_len: int, block_k: int,
 def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
                  eos_id: int = 2, params=None, speculate: bool = True,
                  pipeline_depth: int = 4, device="cuda",
-                 recordings_dir: str = "", key: bytes = b"") -> Engine:
+                 recordings_dir: str = "", key: bytes = b"", netem=None,
+                 bill_dispatches: bool = False) -> Engine:
     """One stream on ``device``.  Live: the prefill, batched-prefill and
     fused-decode steps behind a ``LiveChannel``.  With ``recordings_dir``:
     its prefill and decode recordings, verified and loaded through one
     ``Replayer``, behind a ``ReplayChannel``, fed the params as the tree
     the recorded steps take; the decode variant is warmed (on the card:
-    captured as a CUDA graph at its first block).  Without
-    ``params`` the weights are drawn at random from seed 0 on the
-    device."""
+    captured as a CUDA graph at its first block).  ``netem`` bills the
+    engine's round trips; ``bill_dispatches`` wraps the channel in a
+    ``NetemBilledChannel`` on the same emulator.  Without ``params`` the
+    weights are drawn at random from seed 0 on the device."""
     device = resolve_device(device)
     if params is None:
         params = M.init_params(cfg, seed=0, device=device)
@@ -73,6 +81,12 @@ def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
                            block_k=block_k, eos_id=eos_id,
                            speculate=speculate,
                            pipeline_depth=pipeline_depth, device=device)
+    kwargs["netem"] = netem
+
+    def billed(channel):
+        return NetemBilledChannel(channel, netem) if bill_dispatches \
+            else channel
+
     if recordings_dir:
         rp = Replayer(key=key, device=device)
         pre, dec = (rp.load(os.path.join(recordings_dir,
@@ -82,7 +96,7 @@ def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
         channel = ReplayChannel(rp, pre, dec)
         tree = L.to_tree(params) if isinstance(params, torch.nn.Module) \
             else params
-        return Engine(tree, channel=channel, **kwargs)
+        return Engine(tree, channel=billed(channel), **kwargs)
     prefill = ST.make_prefill_step(cfg, cache_len)
     decode = ST.make_fused_decode_step(cfg, k=block_k, eos_id=eos_id)
     # grouped right-padded admission: attention families only (decode
@@ -91,7 +105,7 @@ def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
     if cfg.family in ("dense", "moe") and not cfg.sliding_window:
         batched = ST.make_batched_prefill_step(cfg, cache_len)
     channel = LiveChannel(prefill, decode, batched)
-    return Engine(params, channel=channel, **kwargs)
+    return Engine(params, channel=billed(channel), **kwargs)
 
 
 def main(argv=None):
@@ -111,7 +125,14 @@ def main(argv=None):
                     help="serve from the signed recordings in this "
                          "directory (repro_torch.launch.record)")
     ap.add_argument("--key", default="cody-demo-key")
+    ap.add_argument("--net", default="none",
+                    choices=["none"] + sorted(PROFILES),
+                    help="emulated network profile the engine's round "
+                         "trips are billed to")
     args = ap.parse_args(argv)
+    netem = None
+    if args.net != "none":
+        netem = NetworkEmulator(PROFILES[args.net])
 
     cfg = get_config(args.arch)
     if args.smoke:
@@ -121,7 +142,7 @@ def main(argv=None):
                        speculate=not args.no_speculate,
                        pipeline_depth=args.pipeline_depth,
                        recordings_dir=args.from_recordings,
-                       key=args.key.encode())
+                       key=args.key.encode(), netem=netem)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         plen = eng.fixed_prompt_len or int(rng.integers(4, 16))
@@ -137,6 +158,8 @@ def main(argv=None):
     print("speculator:", dict(eng.spec.stats))
     if isinstance(eng.channel, ReplayChannel):
         print("replayer:", dict(eng.channel.replayer.stats))
+    if netem is not None:
+        print(f"net ({netem.profile.name}, emulated):", netem.snapshot())
     return outs, eng
 
 

@@ -4,8 +4,8 @@ Every claim this repro makes (95% fewer recording delays, replay 25%
 faster than native, frontier-only host syncs) is an *attribution* claim
 about where round trips and virtual time go.  The ``Tracer`` turns the
 scattered counters into one timeline: spans and instant events stamped
-on a **deterministic virtual clock** supplied by the caller (wall time
-rides along as secondary metadata), exported as Chrome
+on the **deterministic virtual clock** (``NetworkEmulator.virtual_time_s``
+— wall time rides along as secondary metadata), exported as Chrome
 trace-event JSON that Perfetto / ``chrome://tracing`` loads directly.
 
 Design constraints, in order:
@@ -18,9 +18,15 @@ Design constraints, in order:
     wall fields.
   * **Zero-cost when off.**  ``NULL`` (a falsy ``NullTracer``) is what
     every component holds by default; call sites guard hot paths with
-    ``if tracer:`` or the ``traced()`` helper.  Tracing never mutates a
-    stats counter — it only *reads* the clock — so all accounting is
-    bit-identical whether tracing is on, off, or absent.
+    ``if tracer:`` or the ``traced()`` helper.  Tracing never mutates an
+    emulator, a session, or a stats counter — it only *reads* the
+    virtual clock — so all accounting is bit-identical whether tracing
+    is on, off, or absent.
+  * **Multi-clock.**  Components that own their own emulator (a record
+    session, a replay plan executor) enter a ``clock_scope(netem)``:
+    their events are stamped by *that* emulator's virtual clock, rebased
+    onto the trace's high-water mark so consecutive sessions lay out
+    end-to-end instead of piling up at t=0.
 
 Event vocabulary (Chrome trace phases): ``X`` complete spans (duration =
 virtual time elapsed inside), ``i`` instants, ``C`` counter samples.
@@ -67,6 +73,9 @@ class NullTracer:
     def span(self, name, track="main", **args):
         return _NULL_SPAN
 
+    def clock_scope(self, netem):
+        return _NULL_SPAN
+
     def instant(self, name, track="main", **args) -> None:
         pass
 
@@ -91,7 +100,7 @@ class Tracer:
     """Deterministic virtual-time span/event recorder.
 
     ``clock`` is a zero-arg callable returning the current virtual time
-    in seconds; omitted, the
+    in seconds (typically ``lambda: netem.virtual_time_s``); omitted, the
     base clock is a constant 0 — spans still nest and count, with wall
     time as the only moving timestamp (kept out of the deterministic
     export).
@@ -99,7 +108,9 @@ class Tracer:
 
     def __init__(self, clock: Optional[Callable[[], float]] = None):
         self.events: List[dict] = []
-        self._clock = clock if clock is not None else (lambda: 0.0)
+        self._clocks: List[Callable[[], float]] = [
+            clock if clock is not None else (lambda: 0.0)]
+        self._hwm = 0.0                 # latest virtual timestamp emitted
         self._t0_wall = time.time()
 
     def __bool__(self) -> bool:
@@ -107,10 +118,29 @@ class Tracer:
 
     # --------------------------------------------------------------- time --
     def now(self) -> float:
-        return float(self._clock())
+        return float(self._clocks[-1]())
+
+    @contextlib.contextmanager
+    def clock_scope(self, netem):
+        """Stamp events inside this scope with ``netem``'s virtual clock,
+        rebased onto the trace high-water mark (sessions with private
+        emulators lay out sequentially instead of overlapping at 0).
+        ``netem=None`` is a no-op scope."""
+        if netem is None:
+            yield self
+            return
+        base = max(self.now(), self._hwm) - float(netem.virtual_time_s)
+        self._clocks.append(lambda: base + float(netem.virtual_time_s))
+        try:
+            yield self
+        finally:
+            self._clocks.pop()
 
     # ------------------------------------------------------------- events --
     def _emit(self, ev: dict) -> None:
+        end = ev["ts"] + ev.get("dur", 0.0)
+        if end > self._hwm:
+            self._hwm = end
         self.events.append(ev)
 
     @contextlib.contextmanager

@@ -37,18 +37,19 @@ class Engine:
     admission) and decode_block(params, tokens, pos, caches) ->
     ({"tokens":[B,k], "pos", "done"}, caches).  ``pipeline_depth`` bounds
     how many decode blocks may be in flight before the frontier must
-    drain.
+    drain.  ``netem`` (a ``NetworkEmulator``) bills the stream's commits,
+    synchronous prefills and frontier drains to the emulated link.
     """
 
     def __init__(self, params, *, channel: ExecutionChannel, n_slots: int,
                  cache_len: int, block_k: int, eos_id: int = 2,
-                 init_caches_fn=None, cache_batch_axes=None,
+                 init_caches_fn=None, cache_batch_axes=None, netem=None,
                  spec_k: int = 3, speculate: bool = True,
                  pipeline_depth: int = 4,
                  prefill_buckets: Sequence[int] = (8, 16, 32, 64, 128),
                  stream_name: str = "stream0", tracer=None, metrics=None):
-        self.scheduler = Scheduler(spec_k=spec_k, tracer=tracer,
-                                   metrics=metrics)
+        self.scheduler = Scheduler(netem=netem, spec_k=spec_k,
+                                   tracer=tracer, metrics=metrics)
         self.stream = self.scheduler.add_stream(
             stream_name, channel, params, n_slots=n_slots,
             cache_len=cache_len, block_k=block_k, eos_id=eos_id,

@@ -76,13 +76,14 @@ class StreamExecutor:
     def __init__(self, name: str, channel: ExecutionChannel, params, *,
                  n_slots: int, cache_len: int, block_k: int,
                  frontier: CommitFrontier, speculator, eos_id: int = 2,
-                 init_caches_fn=None, cache_batch_axes=None,
+                 init_caches_fn=None, cache_batch_axes=None, netem=None,
                  speculate: bool = True, pipeline_depth: int = 4,
                  prefill_buckets: Sequence[int] = (8, 16, 32, 64, 128),
                  admission_gate=None, tracer=None, metrics=None):
         self.name = name
         self.channel = channel
         self.params = params
+        self.netem = netem
         self.tracer = tracer if tracer is not None else NULL
         self.metrics = metrics
         self.track = f"serve.{name}"
@@ -99,7 +100,7 @@ class StreamExecutor:
         self.requests: Dict[int, Request] = {}
         self.pending: collections.deque = collections.deque()
         self._rid = 0              # monotonic: rids survive request removal
-        self.queue = CommitQueue(self._exec_op, name=name)
+        self.queue = CommitQueue(self._exec_op, netem=netem, name=name)
         self.spec = speculator
         self.speculate = speculate
         self.pipeline_depth = max(1, pipeline_depth)
@@ -254,6 +255,8 @@ class StreamExecutor:
             for row, (req, slot) in enumerate(members):
                 self._seed_slot(req, slot, int(firsts[row]))
             self._scatter_caches(caches, np.array([s for _, s in members]))
+            if self.netem is not None:
+                self.netem.round_trip()  # ONE synchronous commit per bucket
         self.stats["prefill_dispatches"] += 1
 
     def _scatter_caches(self, new_caches, slots_arr: np.ndarray):
@@ -277,6 +280,8 @@ class StreamExecutor:
             out, caches = self.channel.prefill(self.params, batch)
             self._seed_slot(req, slot, int(to_host(out["next_tokens"])[0]))
             self._scatter_caches(caches, np.array([slot]))
+            if self.netem is not None:
+                self.netem.round_trip()  # prefill is a synchronous commit
         self.stats["prefill_dispatches"] += 1
 
     # ------------------------------------------------------------- decode --

@@ -74,6 +74,13 @@ class CommitFrontier:
                                     blocks=len(pipeline))
             with traced(self.tracer, "frontier.drain", track,
                         blocks=len(pipeline)):
+                if stream.netem is not None:
+                    # the paper's metastate-only sync: done masks + token
+                    # tails
+                    n, k = stream.slots.n_slots, stream.block_k
+                    stream.netem.round_trip(
+                        send_bytes=64,
+                        recv_bytes=len(pipeline) * n * (4 * k + 5))
                 for b_idx, blk in enumerate(pipeline):
                     actual = self.materialize(blk["out"])
                     outcome = SOME_DONE if actual[1].any() else ALL_RUNNING

@@ -43,10 +43,11 @@ class UnknownStreamError(KeyError):
 
 
 class Scheduler:
-    def __init__(self, *, spec_k: int = 3,
+    def __init__(self, *, netem=None, spec_k: int = 3,
                  max_live_slots: Optional[int] = None,
                  stall_limit: Optional[int] = None,
                  tracer=None, metrics: Optional[Metrics] = None):
+        self.netem = netem
         self.tracer = tracer if tracer is not None else NULL
         self.metrics = metrics if metrics is not None else Metrics()
         self.frontier = CommitFrontier()
@@ -76,7 +77,7 @@ class Scheduler:
             name, channel, params, n_slots=n_slots, cache_len=cache_len,
             block_k=block_k, frontier=self.frontier, speculator=self.spec,
             eos_id=eos_id, init_caches_fn=init_caches_fn,
-            cache_batch_axes=cache_batch_axes,
+            cache_batch_axes=cache_batch_axes, netem=self.netem,
             speculate=speculate, pipeline_depth=pipeline_depth,
             prefill_buckets=prefill_buckets,
             admission_gate=self._may_admit,

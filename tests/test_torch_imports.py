@@ -32,7 +32,11 @@ def test_import_loads_no_jax():
             "repro_torch.core.attest", "repro_torch.core._msgpack",
             "repro_torch.core.recording", "repro_torch.core.recorder",
             "repro_torch.core.replay", "repro_torch.api.workload",
-            "repro_torch.launch.record"} <= set(mods)
+            "repro_torch.launch.record", "repro_torch.core.netem",
+            "repro_torch.core.metasync", "repro_torch.core.replay_passes",
+            "repro_torch.record", "repro_torch.record.session",
+            "repro_torch.record.cloud", "repro_torch.record.device",
+            "repro_torch.record.fanout"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -42,6 +46,25 @@ def test_import_loads_no_jax():
             "             or m == 'msgpack' or m.startswith('msgpack.'))\n"
             "assert not bad, bad\n"
             "print(len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("mods", [
+    ("repro_torch.record", "repro_torch.core.metasync",
+     "repro_torch.core.replay_passes"),
+    ("repro_torch.core.netem",), ("repro_torch.record.fanout",)],
+    ids=lambda m: m[0].removeprefix("repro_torch."))
+def test_recording_session_modules_load_no_jax_or_msgpack(mods):
+    """The CODY session's modules alone: metastate sync frames through
+    ``core/_msgpack``, never the ``msgpack`` package, and no JAX."""
+    code = (f"import importlib, sys\nfor m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "             ('jax', 'jaxlib', 'msgpack', 'repro'))\n"
+            "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)

@@ -36,7 +36,9 @@ from repro_torch.api.workload import (build_step, recording_name,  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.core import _msgpack  # noqa: E402
 from repro_torch.core import attest as A  # noqa: E402
-from repro_torch.core.channel import ReplayChannel  # noqa: E402
+from repro_torch.core.channel import (LiveChannel,  # noqa: E402
+                                      NetemBilledChannel, ReplayChannel)
+from repro_torch.core.netem import WIFI, NetworkEmulator  # noqa: E402
 from repro_torch.core.recorder import compile_artifact  # noqa: E402
 from repro_torch.core.recording import Recording  # noqa: E402
 from repro_torch.core.replay import ReplayArgumentError, Replayer  # noqa: E402
@@ -45,6 +47,7 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.serving.engine import Engine  # noqa: E402
 from repro_torch.training import steps as ST  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -485,6 +488,35 @@ def test_replay_engine_equals_live_and_the_jax_replay_engine(recorded):
         jwant, jst = _serve(jeng, prompts)
     assert got == jwant
     assert got_st["host_syncs"] == jst["host_syncs"]
+
+
+def test_billed_live_and_replay_channels_log_the_same(recorded):
+    """Every dispatch billed to an emulated wifi link: a live and a
+    replay channel give the same tokens, host syncs, billing log and
+    netem totals (the reference's "identical across live and replay
+    channels"); the launcher's sessions annotated both recordings."""
+    _, _, cfg, _, tp, d, recs = recorded
+    for _path, rec in recs.values():
+        rs = rec.manifest["record_session"]
+        assert rs["net"] == "local" and rs["jobs"] > 0
+        assert rec.manifest["record_virtual_s"] == rs["virtual_time_s"]
+    rp = Replayer(key=KEY, device="cpu")
+    pre, dec = (rp.load(os.path.join(d, recording_name(cfg.name, kind)))
+                for kind in ("prefill", "decode"))
+    kw = serve.stream_kwargs(cfg, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                             block_k=BLOCK_K, eos_id=2, device="cpu")
+    runs = []
+    for inner, params in (
+            (LiveChannel(ST.make_prefill_step(cfg, CACHE_LEN),
+                         ST.make_fused_decode_step(cfg, k=BLOCK_K)), tp),
+            (ReplayChannel(rp, pre, dec), L.to_tree(tp))):
+        em = NetworkEmulator(WIFI)
+        eng = Engine(params, channel=NetemBilledChannel(inner, em),
+                     netem=em, **kw)
+        outs, st = _serve(eng, _prompts(cfg.vocab_size))
+        runs.append((outs, st, eng.channel.log, em.snapshot()))
+    assert runs[0] == runs[1]
+    assert runs[0][2] and runs[0][3]["async_trips"] >= len(runs[0][2])
 
 
 def test_launchers_round_trip_on_the_cpu(capsys):

@@ -1,7 +1,9 @@
 """The port's serving stack (Engine -> Scheduler -> StreamExecutor ->
 CommitFrontier over a LiveChannel) against the JAX Engine on the CPU: the
 same params and prompts give the same tokens and the same host-sync and
-speculation counts."""
+speculation counts; billed to an emulated link (``netem=``, and each
+dispatch through a ``NetemBilledChannel``), the same netem totals and
+billing log."""
 import os
 import pathlib
 import subprocess
@@ -16,6 +18,10 @@ import jax  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.configs import smoke_shrink as jax_smoke_shrink  # noqa: E402
+from repro.core import netem as JN  # noqa: E402
+from repro.core.channel import LiveChannel as JaxLiveChannel  # noqa: E402
+from repro.core.channel import \
+    NetemBilledChannel as JaxBilledChannel  # noqa: E402
 from repro.launch.mesh import make_host_mesh  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.serving.engine import Engine as JaxEngine  # noqa: E402
@@ -24,6 +30,8 @@ from repro.serving.engine import \
 from repro.sharding import rules_for  # noqa: E402
 from repro.training import steps as JST  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
+from repro_torch.core import netem as N  # noqa: E402
+from repro_torch.core.channel import NetemBilledChannel  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.serving.engine import cache_batch_axes_for  # noqa: E402
@@ -34,19 +42,23 @@ STATS = ("host_syncs", "spec_blocks", "sync_blocks", "mispredicts",
          "blocks_dispatched", "prefill_dispatches", "retired")
 
 
-def _jax_engine(cfg, params, *, speculate, depth):
-    """Built as tests/test_serving_pipeline.py builds it."""
+def _jax_engine(cfg, params, *, speculate, depth, netem=None, bill=False):
+    """Built as tests/test_serving_pipeline.py builds it; ``bill`` wraps
+    its live channel in a NetemBilledChannel on ``netem``."""
     rules = rules_for("serve", make_host_mesh(model=1).axis_names)
-    return JaxEngine(
-        params, jax.jit(JST.make_prefill_step(cfg, rules, CACHE_LEN)),
+    channel = JaxLiveChannel(
+        jax.jit(JST.make_prefill_step(cfg, rules, CACHE_LEN)),
         jax.jit(JST.make_fused_decode_step(cfg, rules, k=BLOCK_K, eos_id=2),
                 donate_argnums=(3,)),
+        jax.jit(JST.make_batched_prefill_step(cfg, rules, CACHE_LEN)))
+    if bill:
+        channel = JaxBilledChannel(channel, netem)
+    return JaxEngine(
+        params, channel=channel, netem=netem,
         n_slots=N_SLOTS, cache_len=CACHE_LEN, block_k=BLOCK_K, eos_id=2,
         init_caches_fn=lambda: JM.init_cache(cfg, N_SLOTS, CACHE_LEN),
         cache_batch_axes=jax_cache_batch_axes_for(cfg), speculate=speculate,
-        pipeline_depth=depth,
-        batched_prefill_fn=jax.jit(
-            JST.make_batched_prefill_step(cfg, rules, CACHE_LEN)))
+        pipeline_depth=depth)
 
 
 def _submit(eng, vocab, n=5, max_new=14, seed=7):
@@ -89,6 +101,37 @@ def test_engine_matches_jax_engine(models, speculate, depth):
         assert req.done and req.committed == len(req.generated)
 
 
+@pytest.mark.parametrize("bill", [True, False], ids=["billed", "netem"])
+@pytest.mark.parametrize("profile,speculate,depth",
+                         [("wifi", True, 4), ("cellular", False, 1)])
+def test_netem_billed_engine_matches_jax_engine(models, profile, speculate,
+                                                depth, bill):
+    """The round trips the engine bills (synchronous prefills, commits,
+    frontier drains) and, billed, each step dispatch: equal netem totals
+    and an equal billing log, beside equal tokens and host syncs."""
+    jcfg, cfg, jp, tp = models
+    jem = JN.NetworkEmulator(JN.PROFILES[profile])
+    jeng = _jax_engine(jcfg, jp, speculate=speculate, depth=depth,
+                       netem=jem, bill=bill)
+    _submit(jeng, cfg.vocab_size)
+    want = jeng.run()
+    em = N.NetworkEmulator(N.PROFILES[profile])
+    eng = serve.build_engine(cfg, n_slots=N_SLOTS, cache_len=CACHE_LEN,
+                             block_k=BLOCK_K, params=tp, device="cpu",
+                             speculate=speculate, pipeline_depth=depth,
+                             netem=em, bill_dispatches=bill)
+    _submit(eng, cfg.vocab_size)
+    assert eng.run() == want
+    assert {k: eng.stats[k] for k in STATS} == \
+        {k: jeng.stats[k] for k in STATS}
+    assert em.snapshot() == jem.snapshot()
+    assert em.round_trips > 0
+    assert isinstance(eng.channel, NetemBilledChannel) == bill
+    if bill:
+        assert eng.channel.log == jeng.channel.log
+        assert em.async_trips >= len(eng.channel.log)
+
+
 def test_spec_and_sync_streams_identical(models):
     _, cfg, _, tp = models
     outs, syncs = [], []
@@ -115,6 +158,16 @@ def test_serve_cli_on_cpu(capsys, arch):
         # prefill, no spec
         assert eng.stats["spec_blocks"] == 0
         assert eng.stats["prefill_dispatches"] == 3
+
+
+def test_serve_cli_bills_the_net(capsys):
+    outs, eng = serve.main(["--arch", "cody-mnist", "--smoke", "--device",
+                            "cpu", "--requests", "2", "--max-new", "5",
+                            "--cache-len", "32", "--block-k", "4",
+                            "--net", "cellular"])
+    assert len(outs) == 2
+    assert "net (cellular, emulated)" in capsys.readouterr().out
+    assert eng.scheduler.netem.round_trips >= eng.stats["host_syncs"] > 0
 
 
 def test_build_engine_needs_a_card_unless_asked_for_cpu():
