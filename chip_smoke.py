@@ -72,6 +72,22 @@ Phases, each of which raises (exit code != 0) when it fails:
            billed to a wifi emulator (identical tokens, host syncs and
            launches; the two billing logs equal), and one decode block
            profiled under the graph beside live;
+  registry record -> publish -> fetch -> verify -> replay of qwen2.5-3b at
+           full width: phase replay's recordings (recorded here when
+           that phase did not run) published through a cloud
+           ``Workspace`` into a file-backed registry, a fresh TEE
+           ``Workspace`` booting ``wl.engine()`` from it over emulated
+           wifi (chunked fetch, HMAC and inclusion proof verified, both
+           programs preloaded, warmed and captured as CUDA graphs) and
+           serving phase replay's 8 prompts with its live tokens and host
+           syncs, launches equal to the formulas; a tampered chunk and a
+           validly signed swap (split view) refused with 0 loads; quotes
+           of ``attested_replay`` and ``Replayer.quote`` verified offline,
+           perturbed ones rejected; the three scenarios of
+           ``BENCH_registry.json`` (cold record on miss, warm hit, delta
+           re-record) on cody-mnist at its published config over wifi and
+           cellular, with its three acceptance flags; and both ported
+           examples (``repro_torch.examples``) run on the card;
   session  the CODY recording session: cody-mnist's prefill (published
            config, cache 64, block_k 4, batch 1, seq 16) exported once;
            the record-side ablation (naive, +deferral, +speculation,
@@ -107,7 +123,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
-          "replay", "session")
+          "replay", "registry", "session")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -1588,6 +1604,14 @@ def _replay_serve(label, eng, prompts, max_new, rp=None):
     return outs, st, launches, replays
 
 
+def _replay_prompts(cfg, seq=128, n=8):
+    """The prompts phases replay and registry serve (seed 4)."""
+    import numpy as np
+    rng = np.random.default_rng(4)
+    return [list(map(int, rng.integers(3, cfg.vocab_size, seq)))
+            for _ in range(n)]
+
+
 def phase_replay(state):
     """Record -> sign -> replay at full width: qwen2.5-3b's prefill (batch
     1, seq 128) and fused decode block (4 slots, cache 1024, block_k 8)
@@ -1601,7 +1625,6 @@ def phase_replay(state):
     tokens and host syncs and identical billing logs; one decode block
     profiled under the graph beside live."""
     import tempfile
-    import numpy as np
     import torch
     from repro_torch.api.workload import format_session_report, recording_name
     from repro_torch.configs import get_config
@@ -1633,6 +1656,7 @@ def phase_replay(state):
                             device="cuda", net="wifi", passes="all")
         log(f"replay: recorded and signed both kinds through wifi "
             f"sessions in {time.perf_counter() - t0:.2f} s")
+        state["replay_recs"] = {k: rec for k, (_p, rec) in recs.items()}
         for kind, (path, rec) in recs.items():
             m = rec.manifest
             log(f"replay: {kind}: record_wall_s {m['record_wall_s']:.2f}, "
@@ -1670,9 +1694,7 @@ def phase_replay(state):
     channel = ReplayChannel(rp, pre, dec)
     assert channel.fixed_prompt_len == seq, channel.fixed_prompt_len
     tree = Lyr.to_tree(params)
-    rng = np.random.default_rng(4)
-    prompts = [list(map(int, rng.integers(3, cfg.vocab_size, seq)))
-               for _ in range(8)]
+    prompts = _replay_prompts(cfg, seq)
 
     # (a) live, through the same per-request prefill the recording pins
     live = Engine(params, channel=LiveChannel(
@@ -1680,6 +1702,7 @@ def phase_replay(state):
         ST.make_fused_decode_step(cfg, k=block_k)),
         **stream_kwargs(cfg, **kw))
     runs = {"live": _replay_serve("live", live, prompts, max_new)}
+    state["replay_live"] = runs["live"]
     # (b) replayed eagerly (not warmed)
     runs["eager"] = _replay_serve("replay eager", Engine(
         tree, channel=channel, **stream_kwargs(cfg, **kw)), prompts,
@@ -1774,6 +1797,340 @@ def phase_replay(state):
     log(f"replay: replayer stats {rp.stats}; peak memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all figures "
         f"of this phase on {_card(state)}")
+
+
+REGISTRY_BENCH_KEY = b"registry-bench-key"
+# the reference bench's shapes (benchmarks/registry_bench.py)
+REGISTRY_SHAPES = dict(cache_len=64, block_k=4, batch=1, prefill_batch=1,
+                       seq=16)
+
+
+@contextlib.contextmanager
+def _wall_of(owner, name, into):
+    """Add the wall seconds of every call of ``owner.name`` (ended by a
+    device synchronise) to ``into[name]`` while the block runs."""
+    import torch
+    real = getattr(owner, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+    setattr(owner, name, timed)
+    try:
+        yield into
+    finally:
+        setattr(owner, name, real)
+
+
+def _registry_scenarios(profile, reg_key, rec, key, device="cuda"):
+    """The three scenarios of the reference's registry bench
+    (``benchmarks/registry_bench.py``) through the port's ``Workspace``,
+    on one signed recording: a cold fetch that records on miss (single-
+    flight, the record cost read off the manifest), a warm hit from a new
+    device, and a delta re-record (the manifest changed, the payload
+    not) refetched by the warm device.  Returns the rows, emulated
+    seconds unrounded (link model output)."""
+    from repro_torch.api import Workspace
+    from repro_torch.core.recording import Recording
+    ws = Workspace(registry=":memory:", key=key, net=profile.name,
+                   device=device)
+    rows = []
+    net = ws.fresh_netem()
+    cold = ws.new_client(netem=net)
+    calls = []
+    blob = cold.fetch(reg_key, record_fn=lambda: calls.append(1) or rec)
+    rows.append({"scenario": "cold_record", "net": profile.name,
+                 "time_s": net.virtual_time_s,
+                 "recording_round_trips":
+                     cold.stats["recording_round_trips"],
+                 "record_calls": len(calls),
+                 "bytes_received": net.bytes_received})
+    net = ws.fresh_netem()
+    warm = ws.new_client(netem=net)
+    assert warm.fetch(reg_key) == blob
+    rows.append({"scenario": "warm_hit", "net": profile.name,
+                 "time_s": net.virtual_time_s,
+                 "recording_round_trips":
+                     warm.stats["recording_round_trips"],
+                 "record_calls": 0, "bytes_received": net.bytes_received})
+    full = ws.service.publish(reg_key + "/fullbase", rec)
+    tweaked = Recording(dict(rec.manifest, static=dict(
+        rec.manifest.get("static", {}), revision=2)), rec.payload,
+        rec.trees).sign_with(key)
+    delta = ws.service.publish(reg_key, tweaked)
+    mark = net.checkpoint()
+    warm.fetch(reg_key)         # holds v1's chunks: pulls the delta only
+    d = net.delta(mark)
+    rows.append({"scenario": "delta_rerecord", "net": profile.name,
+                 "time_s": d["time_s"], "recording_round_trips": 0,
+                 "record_calls": 0, "bytes_received": d["bytes_received"],
+                 "publish_wire_bytes": delta["wire_bytes"],
+                 "full_publish_wire_bytes": full["wire_bytes"],
+                 "chunks_reused": delta["chunks_reused"]})
+    return rows
+
+
+def _registry_flags(rows):
+    """``BENCH_registry.json``'s acceptance flags over one link's rows."""
+    by = {r["scenario"]: r for r in rows}
+    cold, warm, delta = (by[k] for k in ("cold_record", "warm_hit",
+                                         "delta_rerecord"))
+    return {"warm_zero_recording_rts": warm["recording_round_trips"] == 0,
+            "warm_reduction_ge_80pct": warm["time_s"] <= 0.2 * cold["time_s"],
+            "delta_wire_lt_full": delta["publish_wire_bytes"]
+            < delta["full_publish_wire_bytes"]}
+
+
+def _tee_boot_refused(label, root, cfg, shapes, params, err):
+    """A fresh TEE workspace over the registry at ``root`` refuses to boot
+    with ``err`` before ``torch.export.load`` is reached."""
+    from repro_torch.api import Workspace
+    tee = Workspace(registry=root, key=REPLAY_KEY, net="wifi",
+                    device="cuda")
+    with _export_loads_counted() as loads:
+        try:
+            tee.workload(cfg, **shapes).engine(params=params)
+        except err as e:
+            log(f"registry: {label}: refused, {type(e).__name__}: {e}")
+        else:
+            raise AssertionError(f"registry: {label}: the TEE booted")
+    assert loads[0] == 0, (label, loads)
+
+
+def _run_examples(names):
+    """Run ``repro_torch.examples.<name>`` for each name on the card, as
+    subprocesses started together; each must exit 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}"], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in names}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            tail = "\n".join(out.strip().splitlines()[-4:])
+            log(f"registry: example {name}: exit {proc.returncode} "
+                f"{time.perf_counter() - t0:.1f} s after the start\n{tail}")
+            assert proc.returncode == 0, err[-4000:]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phase_registry(state):
+    """record -> publish -> fetch -> verify -> replay at full width: phase
+    ``replay``'s qwen2.5-3b recordings (recorded here when that phase did
+    not run) published through a cloud ``Workspace`` into a file-backed
+    registry, a fresh TEE ``Workspace`` booting ``wl.engine()`` from it
+    over emulated wifi (chunked fetch, HMAC and inclusion proof verified,
+    preload, warm; both programs captured as CUDA graphs) and serving
+    phase ``replay``'s 8 prompts with its live tokens and host syncs and
+    launches equal to the formulas; a tampered chunk and a validly
+    signed swap refused with 0 loads; attested quotes verified offline,
+    a perturbed one rejected; ``BENCH_registry.json``'s three scenarios
+    on cody-mnist (published config) over wifi and cellular with their
+    flags; both ported examples run on the card."""
+    import tempfile
+    import torch
+    from repro_torch.api import Workspace
+    from repro_torch.attest import KeySchedule, verify_quote
+    from repro_torch.configs import get_config
+    from repro_torch.core.attest import (QuoteVerificationError,
+                                         SplitViewError,
+                                         TamperedRecordingError)
+    from repro_torch.core.channel import LiveChannel
+    from repro_torch.core.netem import CELLULAR, WIFI
+    from repro_torch.core.replay import Replayer
+    from repro_torch.launch.record import record_kinds
+    from repro_torch.launch.serve import stream_kwargs
+    from repro_torch.models import model as M
+    from repro_torch.registry import RegistryClient, recording_to_parts
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import steps as ST
+
+    cfg = get_config("qwen2.5-3b")
+    L, block_k, seq, max_new = cfg.num_layers, 8, 128, 32
+    shapes = dict(cache_len=1024, block_k=block_k, batch=4, prefill_batch=1,
+                  seq=seq)
+    log(f"registry: {cfg.name} at full width on {_card(state)}")
+    params = state.get("params", {}).get(cfg.name)
+    params = params if params is not None else _init_params(cfg)
+    prompts = _replay_prompts(cfg, seq)
+    recs = state.get("replay_recs")
+    if recs is None:
+        with tempfile.TemporaryDirectory() as d:
+            made = record_kinds(cfg, out=d, key=REPLAY_KEY, cache_len=1024,
+                                block_k=block_k, batch=4, seq=seq,
+                                params=params, device="cuda", net="wifi",
+                                passes="all")
+        recs = {k: rec for k, (_p, rec) in made.items()}
+    live = state.get("replay_live")
+    if live is None:
+        live = _replay_serve("live", Engine(params, channel=LiveChannel(
+            ST.make_prefill_step(cfg, 1024),
+            ST.make_fused_decode_step(cfg, k=block_k)), **stream_kwargs(
+                cfg, n_slots=4, cache_len=1024, block_k=block_k, eos_id=2,
+                device="cuda")), prompts, max_new)
+
+    with tempfile.TemporaryDirectory() as root:
+        # cloud role: publish the signed recordings
+        cloud = Workspace(registry=root, key=REPLAY_KEY, net="wifi",
+                          device="cuda")
+        cwl = cloud.workload(cfg, **shapes)
+        for kind in ("prefill", "decode"):
+            t0 = time.perf_counter()
+            pub = cwl.publish(recs[kind])
+            assert pub["key"] == cwl.key(kind), (pub["key"], cwl.key(kind))
+            log(f"registry: published {kind} as {pub['key']} "
+                f"v{pub['version']}: {pub['full_bytes'] / 1e6:.3f} MB in "
+                f"{pub['chunks_new']} chunks, {pub['wire_bytes'] / 1e6:.3f} "
+                f"MB delta wire, log index {pub['log_index']}; host "
+                f"{time.perf_counter() - t0:.2f} s")
+
+        # TEE role: a fresh workspace with the same key boots from it
+        tee = Workspace(registry=root, key=REPLAY_KEY, net="wifi",
+                        device="cuda")
+        twl = tee.workload(cfg, **shapes)
+        pre, dec = twl.key("prefill"), twl.key("decode")
+        walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _export_loads_counted() as loads, \
+                _wall_of(RegistryClient, "fetch", walls), \
+                _wall_of(Replayer, "load", walls), \
+                _wall_of(Replayer, "warm", walls):
+            eng = twl.engine(params=params)
+        boot = time.perf_counter() - t0
+        assert loads[0] == 2, loads
+        rp = eng.channel.replayer
+        net, cs = tee.netem.snapshot(), dict(tee.client.stats)
+        assert cs["verified_fetches"] == cs["proofs_verified"] == 2, cs
+        log(f"registry: TEE boot {boot:.2f} s: fetched "
+            f"{net['bytes_received'] / 1e6:.3f} MB, {net['round_trips']} "
+            f"blocking RTs, {net['time_s']:.6f} s on the emulated wifi link "
+            f"(link model output, not measured); host: fetch (chunks read, "
+            f"HMAC and proofs verified) {walls['fetch']:.2f} s, verify + "
+            f"load {walls['load']:.2f} s, warm {walls['warm']:.2f} s; "
+            f"client {cs}")
+        # the warmed programs are captured at their first execute: do it
+        # here, on the engine's params, so the serve replays graphs only
+        zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
+        caches = M.init_cache(cfg, 4, 1024, device="cuda")
+        tokens = {"tokens": torch.zeros((1, seq), dtype=torch.int32,
+                                        device="cuda")}
+        t0 = time.perf_counter()
+        rp.execute(pre, eng.params, tokens)
+        rp.execute(dec, eng.params, zeros, zeros.clone(), caches)
+        torch.cuda.synchronize()
+        t_cap = time.perf_counter() - t0
+        del caches
+        per = {pre: rp.captured_launches(pre), dec: rp.captured_launches(dec)}
+        captured = rp.stats["captures"] == 2
+        log(f"registry: warm + capture {walls['warm'] + t_cap:.2f} s "
+            f"(capture and first replay of both {t_cap:.2f} s); prefill "
+            f"captured: {captured}; one replay launches {per}")
+        assert captured, rp.stats
+        assert per == {pre: {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                       dec: {"decode_attention": L * block_k,
+                             "rmsnorm": (2 * L + 1) * block_k}}, per
+        outs, st, launches, replays = _replay_serve(
+            "registry graph", eng, prompts, max_new, rp)
+        assert outs == live[0], "registry: tokens differ from live"
+        assert st["host_syncs"] == live[1]["host_syncs"], (st, live[1])
+        pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+        assert replays == pd + bd and rp.stats["captures"] == 2, \
+            (replays, pd, bd, rp.stats)
+        for name, n in ((pre, pd), (dec, bd)):
+            for k, c in per[name].items():
+                launches[k] += c * n
+        want = {"flash_attention": L * pd,
+                "decode_attention": L * block_k * bd,
+                "rmsnorm": (2 * L + 1) * (pd + block_k * bd), "moe_gmm": 0,
+                "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+        assert launches == want, (launches, want)
+        log(f"registry: served from the registry with live's tokens and "
+            f"{st['host_syncs']} host syncs; launches {launches} (the "
+            f"formulas; {pd} prefill and {bd} decode graph replays)")
+
+        # attacks: a tampered chunk, a validly signed swap (split view)
+        dkey = cwl.key("decode")
+        c = next(c for c in cloud.store.entry(dkey)["chunks"]
+                 if c["part"].startswith("payload/"))
+        path = Path(root, "chunks", c["d"][:2], c["d"])
+        good = path.read_bytes()
+        path.write_bytes(good[:len(good) // 2] +
+                         bytes([good[len(good) // 2] ^ 0x5A]) +
+                         good[len(good) // 2 + 1:])
+        try:
+            _tee_boot_refused("tampered chunk", root, cfg, shapes, params,
+                              TamperedRecordingError)
+        finally:
+            path.write_bytes(good)
+        meta, parts = cloud.store.entry(dkey)["meta"], cloud.store.get(dkey)
+        cloud.store.put(dkey, recording_to_parts(
+            recs["prefill"], cloud.store.chunk_size), meta=meta)
+        try:
+            _tee_boot_refused("validly signed swap (split view)", root, cfg,
+                              shapes, params, SplitViewError)
+        finally:
+            cloud.store.put(dkey, parts, meta=meta)
+
+        # attestation: quotes verified offline, a perturbed one rejected
+        offline = KeySchedule(REPLAY_KEY)
+        rep, quote, bundle = twl.attested_replay("decode")
+        rq = rp.quote(tee.keys, dec, head=bundle["head"])
+        for label, q in (("attested_replay", quote), ("Replayer", rq)):
+            v = verify_quote(q, head=bundle["head"], keys=offline,
+                             leaf=bundle["leaf"], proof=bundle["path"],
+                             leaf_index=bundle["index"])
+            assert v["ok"] and v["inclusion_checked"], v
+            bad = dict(q, exec_fingerprint=q["exec_fingerprint"][::-1])
+            try:
+                verify_quote(bad, head=bundle["head"], keys=offline)
+            except QuoteVerificationError:
+                pass
+            else:
+                raise AssertionError(f"registry: perturbed {label} quote "
+                                     "verified")
+            log(f"registry: {label} quote verified offline (inclusion "
+                f"checked, log size {v['log_size']}); the perturbed quote "
+                f"rejected")
+        log(f"registry: attested plan replay {rep['dispatches']} "
+            f"dispatches, {rep['virtual_time_s']} emulated s (link model "
+            f"output)")
+        del eng, rp
+
+    # BENCH_registry.json's scenarios on cody-mnist at its published config
+    mcfg = get_config("cody-mnist")
+    mws = Workspace(key=REGISTRY_BENCH_KEY, net="wifi", device="cuda")
+    mwl = mws.workload(mcfg, **REGISTRY_SHAPES)
+    rec = mwl.record("prefill").sign_with(REGISTRY_BENCH_KEY)
+    ref = {r["scenario"]: r for r in json.loads(
+        (ROOT / "BENCH_registry.json").read_text())["rows"]}
+    log(f"registry: cody-mnist prefill recorded: record_wall_s "
+        f"{rec.manifest['record_wall_s']:.3f} (measured), record_virtual_s "
+        f"{rec.manifest['record_virtual_s']} (link model output)")
+    for profile in (WIFI, CELLULAR):
+        rows = _registry_scenarios(profile, mwl.key("prefill"), rec,
+                                   REGISTRY_BENCH_KEY)
+        for r in rows:
+            note = (f"; reference (wifi, smoke artifact) {ref[r['scenario']]}"
+                    if profile is WIFI else "")
+            log(f"registry: scenario {r} (emulated){note}")
+        flags = _registry_flags(rows)
+        log(f"registry: {profile.name} flags {flags}")
+        assert all(flags.values()), (profile.name, flags, rows)
+
+    _run_examples(("quickstart", "secure_inference"))
+    log(f"registry: all figures of this phase on {_card(state)}")
 
 
 SESSION_KEY = b"chip-smoke-session-key"

@@ -4,8 +4,10 @@ recordings; the TEE replayer only accepts signed ones).
 Counterpart of ``repro/core/attest.py``: the same canonical encoding,
 SHA-256 fingerprints and HMAC-SHA256 signatures, so a digest or a
 signature made by either package equals the other's on the same inputs,
-and the same error taxonomy (the epoch keys, transparency log and quotes
-that raise the attest-level errors come with a later slice).
+and the same error taxonomy.  ``repro_torch.attest`` builds on these
+primitives: epoch-rotated signing keys, the registry's transparency log
+and replay quotes, whose errors live here so that the offline verifier
+and the registry share them without importing each other.
 """
 from __future__ import annotations
 

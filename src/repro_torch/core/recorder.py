@@ -51,6 +51,22 @@ def topology_fingerprint(device="cuda") -> str:
     return fingerprint(sorted(names), n)
 
 
+def mesh_descriptor() -> dict:
+    """The mesh a recording was made for, as the reference's manifests
+    describe one.  The port runs on one device, whose mesh is the
+    reference's host mesh on one device (``shape`` [1, 1] over ``data``
+    and ``model``); every manifest records it and every registry key
+    fingerprints it (``repro_torch.api.workload.Workload``)."""
+    return {"shape": [1, 1], "axes": ["data", "model"]}
+
+
+def recorded_static(static_meta: Optional[dict]) -> dict:
+    """The static meta a manifest records: the caller's shapes, and the
+    backend that exported the program (registry keys fingerprint it, so
+    a ``torch.export`` recording never shares a key with an XLA one)."""
+    return dict(static_meta or {}, backend="torch")
+
+
 def dtype_name(x) -> str:
     """``float32``, ``bfloat16``, ``int32``...: the name of a tensor's (or
     numpy array's) dtype without its module, as the reference's
@@ -116,7 +132,7 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
         "record_wall_s": time.time() - t0,
         "torch_version": torch.__version__,
         "topology": topology_fingerprint(device),
-        "mesh": None,
+        "mesh": mesh_descriptor(),
         "config_fingerprint": config_fingerprint,
         "donate": list(donate_argnums),
         "inputs": [{"shape": list(getattr(a, "shape", ())),
@@ -129,7 +145,7 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
         "memory": {"arg_bytes": sum(map(_nbytes, flat)),
                    "temp_bytes": None,
                    "out_bytes": _out_bytes(ep)},
-        "static": dict(static_meta or {}, backend="torch"),
+        "static": recorded_static(static_meta),
     }
     manifest["exec_fingerprint"] = fingerprint(payload)
     return Recording(manifest=manifest, payload=payload, trees=trees)
@@ -155,4 +171,4 @@ def record(name: str, fn, args: Sequence[Any], *, donate_argnums=(),
 
 
 __all__ = ["compile_artifact", "record", "topology_fingerprint",
-           "dtype_name"]
+           "mesh_descriptor", "recorded_static", "dtype_name"]

@@ -307,6 +307,26 @@ class Replayer:
             self.stats["executions"] += 1
         return name
 
+    def quote(self, keys, name: str, *, head: dict,
+              recording_key: Optional[str] = None) -> dict:
+        """Replay attestation quote for a loaded recording: binds the
+        registry key, the verified program fingerprint (the manifest's
+        ``exec_fingerprint``, the log leaf's ``payload_digest``) and how
+        many executions this replayer has served, against the signed
+        tree head the recording was fetched under.  (Plan-level replays
+        quote through ``PlanExecutor.quote``, which also binds the
+        compacted plan and the committed write frontier.)"""
+        from repro_torch.attest.quote import build_quote
+        manifests = self.manifests(name)
+        return build_quote(
+            keys, recording_key=recording_key or name,
+            exec_fingerprint=manifests[0].get("exec_fingerprint", ""),
+            plan_fingerprint="",
+            frontier_digest=fingerprint({
+                "executions": self.stats["executions"],
+                "loads": self.stats["loads"]}),
+            head=head, annotations={"variants": len(self._loaded[name])})
+
     def captured_launches(self, name: str) -> dict:
         """{kernel: launches} one graph replay of ``name`` makes ({} for
         a variant not captured); with several variants, their sum."""

@@ -1,9 +1,8 @@
 """Replay-time interaction-plan compaction — the GPUReplay asymmetry.
 
 Counterpart of ``repro/core/replay_passes.py``; its plans, logs and
-reports equal the reference's for the same ``Recording`` bytes.  The
-attestation quote of an executed plan (``PlanExecutor.quote``) comes with
-the port of ``repro/attest``.
+reports equal the reference's for the same ``Recording`` bytes, and so
+do the attestation quotes of executed plans (``PlanExecutor.quote``).
 
 Record needs the whole GPU software stack in the loop; replay does not.
 A recorded interaction plan still carries everything the *driver* needed
@@ -345,6 +344,28 @@ class PlanExecutor:
                     q.commit()
         totals = self.netem.delta(mark) if mark is not None else {}
         return self._report(plan, totals)
+
+    # ---------------------------------------------------------- attestation --
+    def quote(self, keys, *, recording_key: str, head: dict) -> dict:
+        """Emit a replay attestation quote for the plan this executor
+        ran: binds the recording key, the source program fingerprint,
+        the compacted plan's identity, the committed write frontier, and
+        the signed tree head the recording was fetched under.  Offline-
+        verifiable via ``repro_torch.attest.verifier.verify_quote``."""
+        from repro_torch.attest.quote import (build_quote, frontier_digest_of,
+                                              plan_fingerprint_of)
+        if not self._ran or self._plan is None:
+            raise RuntimeError("quote() before run(): a quote attests an "
+                               "executed replay, not an intention")
+        return build_quote(
+            keys, recording_key=recording_key,
+            exec_fingerprint=self._plan.source_fingerprint,
+            plan_fingerprint=plan_fingerprint_of(self._plan),
+            frontier_digest=frontier_digest_of(self.write_log()),
+            head=head,
+            annotations={"passes": list(self._plan.passes),
+                         "dispatches": len(self._plan.groups),
+                         "writes": len(self.write_log())})
 
     # ----------------------------------------------------------- inspection --
     def write_log(self) -> List[tuple]:

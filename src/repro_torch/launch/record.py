@@ -1,15 +1,21 @@
-"""Record launcher: CODY's "cloud dryrun service" on the flat-file path.
+"""Record launcher: CODY's "cloud dryrun service", a thin shim over
+``repro_torch.api``.
 
-Counterpart of the flat-file path of ``repro/launch/record.py``.  Each
-kind is recorded as a distributed ``RecordingSession`` (device proxy +
+Counterpart of ``repro/launch/record.py``.  Each kind is recorded by
+``Workload.record``: a distributed ``RecordingSession`` (device proxy +
 cloud dryrun over the ``--net`` emulated link, the record optimizations
 selected by ``--passes``; one fresh session per recording) whose dryrun
 exports the step through ``compile_artifact`` (the params as inputs: a
-recording carries no weights); the recording is signed with ``--key``
-and written to ``--out`` as ``recording_name(arch, kind)``, and the
-session report printed: virtual record time, blocking/async round trips,
-wire bytes.  It records on the CUDA device unless asked for the CPU, and
-a recording replays only on the device type it was made on:
+recording carries no weights).  The recording is named by its registry
+key (``registry.key_for``, the key ``serve --from-registry`` fetches
+by), signed with ``--key``, written to ``--out`` as
+``recording_name(arch, kind)``, and published (delta-published, logged
+in the transparency log) into the content-addressed registry at
+``--registry`` (default ``<out>/registry``; ``--no-registry`` writes the
+flat files only); the session report is printed: virtual record time,
+blocking/async round trips, wire bytes.  It records on the CUDA device
+unless asked for the CPU, and a recording replays only on the device
+type it was made on:
 
     python -m repro_torch.launch.record --arch qwen2.5-3b --out recs \\
         --key secret --cache-len 1024 --batch 4 --seq 128 \\
@@ -19,22 +25,18 @@ a recording replays only on the device type it was made on:
 
 ``--batch`` is the decode batch, the serving slots of ``serve --slots``;
 prefill is recorded at batch 1, as the engine admits one request per
-prefill.  The registry and the ``--devices`` fan-out come with later
-slices of the port.
+prefill.  The ``--devices`` fan-out comes with the port's ``fanout``
+launcher.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-from repro_torch import resolve_device
-from repro_torch.api.workload import (KINDS, build_step,
-                                      format_session_report, recording_name,
-                                      static_meta_for)
+from repro_torch.api import (KINDS, Workspace, format_session_report,
+                             recording_name)
 from repro_torch.configs import get_config, smoke_shrink
 from repro_torch.core.netem import PROFILES
-from repro_torch.core.recorder import record
-from repro_torch.record import CloudDryrun, RecordingSession
 
 __all__ = ["record_kinds", "main"]
 
@@ -44,34 +46,20 @@ def record_kinds(cfg, kinds=KINDS, *, out: str, key: bytes, cache_len: int,
                  params=None, device="cuda", net: str = "local",
                  passes="all", jobs=None) -> dict:
     """Record, sign and save each kind into ``out``; returns {kind: (path,
-    Recording)}.  Each kind runs through its own ``RecordingSession`` over
-    ``PROFILES[net]`` with ``passes`` (``jobs`` pins the GPU job count),
-    whose report lands in the manifest (``record_session``).  ``params``
-    (a ParamTree or its tree) serve as the example inputs of the export
-    where given, else zeros do: only their shapes and dtypes enter the
-    recording."""
-    device = resolve_device(device)
+    Recording)}.  Each kind runs through ``Workload.record``: its own
+    ``RecordingSession`` over ``PROFILES[net]`` with ``passes`` (``jobs``
+    pins the GPU job count), whose report lands in the manifest
+    (``record_session``).  ``params`` (a ParamTree or its tree) serve as
+    the example inputs of the export where given, else zeros do: only
+    their shapes and dtypes enter the recording."""
+    ws = Workspace(key=key, net=net, record_passes=passes, device=device)
+    wl = ws.workload(cfg, cache_len=cache_len, block_k=block_k, batch=batch,
+                     prefill_batch=1, seq=seq, eos_id=eos_id)
     os.makedirs(out, exist_ok=True)
     done = {}
     for kind in kinds:
-        b = 1 if kind == "prefill" else batch
-        static = static_meta_for(kind, cache_len=cache_len, block_k=block_k,
-                                 batch=b, seq=seq, eos_id=eos_id)
-        fn, args, donate = build_step(cfg, kind, cache_len=cache_len,
-                                      block_k=block_k, batch=b, seq=seq,
-                                      eos_id=eos_id, params=params,
-                                      device=device)
-        fname = recording_name(cfg.name, kind)
-        # one two-party session per recording: fresh device proxy, fresh
-        # speculation history, per-recording report
-        session = RecordingSession.for_profile(
-            PROFILES[net], passes=passes,
-            cloud=CloudDryrun(jobs=jobs) if jobs is not None else None)
-        rec = record(fname.removesuffix(".codyrec"), fn, args,
-                     donate_argnums=donate,
-                     config_fingerprint=cfg.fingerprint(),
-                     static_meta=static, session=session)
-        path = os.path.join(out, fname)
+        rec = wl.record(kind, jobs=jobs, params=params)
+        path = os.path.join(out, recording_name(cfg.name, kind))
         rec.save(path, key)
         done[kind] = (path, rec)
     return done
@@ -84,6 +72,10 @@ def main(argv=None):
                     help="record the reduced same-family config")
     ap.add_argument("--kinds", default="prefill,decode")
     ap.add_argument("--out", required=True)
+    ap.add_argument("--registry", default=None,
+                    help="registry root (default: <out>/registry)")
+    ap.add_argument("--no-registry", action="store_true",
+                    help="skip registry publishing (flat files only)")
     ap.add_argument("--key", default="cody-demo-key")
     ap.add_argument("--cache-len", type=int, default=128)
     ap.add_argument("--block-k", type=int, default=8)
@@ -113,9 +105,24 @@ def main(argv=None):
                         cache_len=args.cache_len, block_k=args.block_k,
                         batch=args.batch, seq=args.seq, device=args.device,
                         net=args.net, passes=args.passes, jobs=args.jobs)
+    wl = None
+    if not args.no_registry:
+        ws = Workspace(registry=args.registry or
+                       os.path.join(args.out, "registry"),
+                       key=args.key.encode(), device=args.device)
+        wl = ws.workload(cfg, cache_len=args.cache_len,
+                         block_k=args.block_k, batch=args.batch,
+                         prefill_batch=1, seq=args.seq)
     for kind, (path, rec) in done.items():
-        print(f"recorded {kind}: {path} ({len(rec.payload)/1e6:.2f} MB "
-              f"program, {rec.manifest['record_wall_s']:.1f}s record time)")
+        line = (f"recorded {kind}: {path} ({len(rec.payload)/1e6:.2f} MB "
+                f"program, {rec.manifest['record_wall_s']:.1f}s record time)")
+        if wl is not None:
+            pub = wl.publish(rec)
+            line += (f"; published {pub['key']} v{pub['version']} "
+                     f"({pub['wire_bytes']/1e3:.1f} kB wire, "
+                     f"{pub['chunks_new']} new / "
+                     f"{pub['chunks_reused']} reused chunks)")
+        print(line)
         print("  " + format_session_report(rec.manifest["record_session"]))
     return done
 

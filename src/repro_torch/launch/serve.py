@@ -1,111 +1,75 @@
-"""Serving launcher: one stream behind the ``Engine`` facade.
+"""Serving launcher: one stream behind the ``Engine`` facade, a thin shim
+over ``repro_torch.api``.
 
-Counterpart of the single-stream paths of ``repro/launch/serve.py``
-(``Workload.channel`` + ``Workload.engine``): live steps, or, with
-``--from-recordings``, the signed recordings of ``repro_torch.launch.
-record`` verified and replayed through a ``ReplayChannel`` (the paper's
-in-TEE mode; on the card the decode block replays as a CUDA graph).
-``--net`` bills the stream's commits, prefills and frontier drains to an
-emulated link (``NetworkEmulator``), and ``build_engine(...,
-bill_dispatches=True)`` also bills each step dispatch through a
-``NetemBilledChannel``.  It runs on the CUDA device unless asked for the
-CPU:
+Counterpart of the single-stream paths of ``repro/launch/serve.py``:
+live steps; with ``--from-recordings``, the signed recordings of
+``repro_torch.launch.record`` in a flat directory; with
+``--from-registry``, recordings fetched from the content-addressed
+registry (chunked, resumable, billed to the ``--net`` emulated link,
+HMAC and transparency-log proof verified before ``torch.export.load``),
+with collaborative record-on-miss under ``--record-on-miss``.  Replayed
+recordings run through a ``ReplayChannel`` (the paper's in-TEE mode; on
+the card the warmed programs replay as CUDA graphs).  ``--net`` also
+bills the stream's commits, prefills and frontier drains, and
+``build_engine(..., bill_dispatches=True)`` each step dispatch.  It runs
+on the CUDA device unless asked for the CPU:
 
     python -m repro_torch.launch.serve --arch qwen2.5-3b
     python -m repro_torch.launch.serve --arch cody-mnist --smoke --device cpu
-    python -m repro_torch.launch.serve --arch cody-mnist --smoke \
+    python -m repro_torch.launch.serve --arch cody-mnist --smoke \\
         --device cpu --cache-len 32 --from-recordings recs --key secret
+    python -m repro_torch.launch.serve --arch cody-mnist --smoke \\
+        --device cpu --cache-len 32 --from-registry recs/registry \\
+        --net wifi --key secret
 
-Registries and multi-stream serving come with later slices of the port.
+Passing both ``--from-recordings`` and ``--from-registry`` is refused:
+recordings come from exactly one source.  Multi-stream serving comes
+with a later slice of the port.
 """
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 import numpy as np
-import torch
 
 from repro_torch import resolve_device
-from repro_torch.api.workload import recording_name
+from repro_torch.api import Workspace, stream_kwargs
 from repro_torch.configs import get_config, smoke_shrink
-from repro_torch.core.channel import (LiveChannel, NetemBilledChannel,
-                                      ReplayChannel)
+from repro_torch.core.channel import ReplayChannel
 from repro_torch.core.netem import PROFILES, NetworkEmulator
-from repro_torch.core.replay import Replayer
-from repro_torch.models import layers as L
-from repro_torch.models import model as M
-from repro_torch.serving.engine import Engine, cache_batch_axes_for
-from repro_torch.training import steps as ST
+from repro_torch.serving.engine import Engine
 
-__all__ = ["stream_kwargs", "build_engine", "main"]
+__all__ = ["REC_SEQ", "stream_kwargs", "build_engine", "main"]
 
-
-def stream_kwargs(cfg, *, n_slots: int, cache_len: int, block_k: int,
-                  eos_id: int, speculate: bool = True,
-                  pipeline_depth: int = 4, device="cuda") -> dict:
-    """Per-stream policy for ``Scheduler.add_stream`` derived from the
-    model family: recurrent state is not position-indexed, so dropped
-    pipeline tails cannot be re-executed against an already-advanced
-    state — metastate-only rollback is unsound there and speculation is
-    forced off."""
-    if cfg.family in ("ssm", "hybrid"):
-        speculate = False
-    return dict(n_slots=n_slots, cache_len=cache_len, block_k=block_k,
-                eos_id=eos_id,
-                init_caches_fn=lambda: M.init_cache(cfg, n_slots, cache_len,
-                                                    device=device),
-                cache_batch_axes=cache_batch_axes_for(cfg),
-                speculate=speculate, pipeline_depth=pipeline_depth)
+# registry prefill recordings are fetched at this prompt length; a
+# published prefill of another length substitutes for it (the engine
+# adapts admission via channel.fixed_prompt_len)
+REC_SEQ = 16
 
 
 def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
                  eos_id: int = 2, params=None, speculate: bool = True,
                  pipeline_depth: int = 4, device="cuda",
-                 recordings_dir: str = "", key: bytes = b"", netem=None,
+                 recordings_dir: str = "", registry_dir: str = "",
+                 record_on_miss: bool = False, key: bytes = b"", netem=None,
                  bill_dispatches: bool = False) -> Engine:
-    """One stream on ``device``.  Live: the prefill, batched-prefill and
-    fused-decode steps behind a ``LiveChannel``.  With ``recordings_dir``:
-    its prefill and decode recordings, verified and loaded through one
-    ``Replayer``, behind a ``ReplayChannel``, fed the params as the tree
-    the recorded steps take; the decode variant is warmed (on the card:
-    captured as a CUDA graph at its first block).  ``netem`` bills the
-    engine's round trips; ``bill_dispatches`` wraps the channel in a
-    ``NetemBilledChannel`` on the same emulator.  Without ``params`` the
-    weights are drawn at random from seed 0 on the device."""
-    device = resolve_device(device)
-    if params is None:
-        params = M.init_params(cfg, seed=0, device=device)
-    kwargs = stream_kwargs(cfg, n_slots=n_slots, cache_len=cache_len,
-                           block_k=block_k, eos_id=eos_id,
-                           speculate=speculate,
-                           pipeline_depth=pipeline_depth, device=device)
-    kwargs["netem"] = netem
-
-    def billed(channel):
-        return NetemBilledChannel(channel, netem) if bill_dispatches \
-            else channel
-
-    if recordings_dir:
-        rp = Replayer(key=key, device=device)
-        pre, dec = (rp.load(os.path.join(recordings_dir,
-                                         recording_name(cfg.name, kind)))
-                    for kind in ("prefill", "decode"))
-        rp.warm(dec)    # decode joins the pipeline with no cold start
-        channel = ReplayChannel(rp, pre, dec)
-        tree = L.to_tree(params) if isinstance(params, torch.nn.Module) \
-            else params
-        return Engine(tree, channel=billed(channel), **kwargs)
-    prefill = ST.make_prefill_step(cfg, cache_len)
-    decode = ST.make_fused_decode_step(cfg, k=block_k, eos_id=eos_id)
-    # grouped right-padded admission: attention families only (decode
-    # masks rows >= pos), and the SWA ring layout needs true lengths
-    batched = None
-    if cfg.family in ("dense", "moe") and not cfg.sliding_window:
-        batched = ST.make_batched_prefill_step(cfg, cache_len)
-    channel = LiveChannel(prefill, decode, batched)
-    return Engine(params, channel=billed(channel), **kwargs)
+    """One stream on ``device`` through ``Workload.engine``: live steps,
+    the flat recordings of ``recordings_dir``, or the verified registry
+    at ``registry_dir`` (both at once raise ``ValueError``).  ``netem``
+    bills the engine's round trips and a registry's fetches;
+    ``bill_dispatches`` wraps the channel in a ``NetemBilledChannel`` on
+    the same emulator.  Without ``params`` the weights are drawn at
+    random from seed 0 on the device."""
+    ws = Workspace(registry=registry_dir or None, key=key, net=netem,
+                   device=resolve_device(device))
+    wl = ws.workload(cfg, cache_len=cache_len, block_k=block_k,
+                     batch=n_slots, prefill_batch=1, seq=REC_SEQ,
+                     eos_id=eos_id)
+    return wl.engine(params=params, recordings_dir=recordings_dir,
+                     record_on_miss=record_on_miss,
+                     bill_dispatches=bill_dispatches, speculate=speculate,
+                     pipeline_depth=pipeline_depth)
 
 
 def main(argv=None):
@@ -124,11 +88,16 @@ def main(argv=None):
     ap.add_argument("--from-recordings", default="",
                     help="serve from the signed recordings in this "
                          "directory (repro_torch.launch.record)")
+    ap.add_argument("--from-registry", default="",
+                    help="registry root to fetch recordings from")
+    ap.add_argument("--record-on-miss", action="store_true",
+                    help="on registry miss, record through the service's "
+                         "single-flight lease")
     ap.add_argument("--key", default="cody-demo-key")
     ap.add_argument("--net", default="none",
                     choices=["none"] + sorted(PROFILES),
-                    help="emulated network profile the engine's round "
-                         "trips are billed to")
+                    help="emulated network profile the registry fetches "
+                         "and the engine's round trips are billed to")
     args = ap.parse_args(argv)
     netem = None
     if args.net != "none":
@@ -142,7 +111,12 @@ def main(argv=None):
                        speculate=not args.no_speculate,
                        pipeline_depth=args.pipeline_depth,
                        recordings_dir=args.from_recordings,
+                       registry_dir=args.from_registry,
+                       record_on_miss=args.record_on_miss,
                        key=args.key.encode(), netem=netem)
+    # registry boot traffic, snapshotted BEFORE the engine starts billing
+    # its own commit round trips into the same emulated link
+    registry_net = dict(netem.snapshot()) if netem is not None else None
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         plen = eng.fixed_prompt_len or int(rng.integers(4, 16))
@@ -158,6 +132,11 @@ def main(argv=None):
     print("speculator:", dict(eng.spec.stats))
     if isinstance(eng.channel, ReplayChannel):
         print("replayer:", dict(eng.channel.replayer.stats))
+    if eng.registry_client is not None:
+        print("registry client:", dict(eng.registry_client.stats))
+        if registry_net is not None:
+            print(f"registry net (boot, {netem.profile.name}, emulated):",
+                  registry_net)
     if netem is not None:
         print(f"net ({netem.profile.name}, emulated):", netem.snapshot())
     return outs, eng

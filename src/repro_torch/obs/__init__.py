@@ -1,1 +1,2 @@
-"""Tracing and metrics used by the serving stack."""
+"""Tracing, metrics and the report schemas (``schema.py``) used by the
+serving stack and the lifecycle API."""

@@ -1,10 +1,10 @@
 """RecordCampaign — multi-device record fan-out on a virtual tick clock.
 
-Counterpart of ``repro/record/fanout.py``.  The registry's
-``variant_lease`` (the ``service=`` path) and the ``Workload`` /
-``Workspace`` builders named below come with the port's registry and
-API; until then a campaign runs without a service, over ``VariantSpec``s
-whose compile is any zero-argument callable returning a ``Recording``.
+Counterpart of ``repro/record/fanout.py``.  ``Workspace.campaign``
+builds one over a workload's variants; with a ``service``
+(``repro_torch.registry.RegistryService``) variants are claimed through
+its ``variant_lease`` and published as they finish.  A ``VariantSpec``'s
+compile is any zero-argument callable returning a ``Recording``.
 
 The paper's recording environment drives ONE mobile device against the
 cloud dry-run per session, so populating the registry with a new key's

@@ -5,8 +5,9 @@ a machine with a card and no JAX:
 
     python -m pytest -q tests/test_torch_cuda.py
 
-Each kernel against its plain version, the wrappers' refusals, and the
-smoke engines on the card against the same engines on the CPU.  The tests
+Each kernel against its plain version, the wrappers' refusals, the
+smoke engines on the card against the same engines on the CPU, and a
+registry boot on the card against live serving.  The tests
 that the tolerances reject planted faults also run on the CPU, where the
 wrappers take their plain versions.
 """
@@ -25,6 +26,7 @@ from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.core.attest import (TamperedRecordingError,  # noqa: E402
                                      TopologyMismatchError)
+from repro_torch.api import Workspace  # noqa: E402
 from repro_torch.api.workload import recording_name  # noqa: E402
 from repro_torch.core.channel import LiveChannel, ReplayChannel  # noqa: E402
 from repro_torch.core.replay import Replayer  # noqa: E402
@@ -657,3 +659,62 @@ def test_tampered_recordings_are_refused_on_the_card(cuda, tmp_path,
         Replayer(key=b"wrong", device=cuda).load(blob)
     with pytest.raises(TopologyMismatchError):      # made on the CPU
         Replayer(key=KEY, device=cuda).load(recs["cpu"])
+
+
+REG_SHAPES = dict(cache_len=64, block_k=4, batch=2, prefill_batch=1, seq=8)
+
+
+def _published(cfg, root, dev):
+    """cody-mnist smoke recorded on ``dev`` by a cloud workspace and
+    published into the registry at ``root``."""
+    cloud = Workspace(registry=root, key=KEY, net="wifi", device=dev)
+    wl = cloud.workload(cfg, **REG_SHAPES)
+    for kind in ("prefill", "decode"):
+        wl.publish(wl.record(kind))
+    return cloud, wl
+
+
+def test_registry_boot_on_the_card_matches_live(cuda, tmp_path):
+    """A fresh TEE workspace boots ``wl.engine()`` from the registry
+    (fetch, HMAC and proofs verified, preload, warm): both programs are
+    captured as CUDA graphs at their first execute, and the tokens and
+    host syncs equal live serving's with the same per-request prefill."""
+    cfg = smoke_shrink(get_config("cody-mnist"), dtype="float32")
+    root = str(tmp_path / "reg")
+    _published(cfg, root, cuda)
+    tee = Workspace(registry=root, key=KEY, net="wifi", device=cuda)
+    twl = tee.workload(cfg, **REG_SHAPES)
+    params = twl.params(0)
+    eng = twl.engine(params=params)
+    got = _served(eng, cfg.vocab_size)
+    rp = eng.channel.replayer
+    assert rp.stats["captures"] == 2
+    assert rp.stats["graph_replays"] == \
+        got[1]["prefill_dispatches"] + got[1]["blocks_dispatched"]
+    assert tee.client.stats["proofs_verified"] == 2
+    live = twl.engine(params=params, channel=LiveChannel(
+        ST.make_prefill_step(cfg, 64), ST.make_fused_decode_step(cfg, k=4),
+        fixed_prompt_len=REG_SHAPES["seq"]))
+    want = _served(live, cfg.vocab_size)
+    assert got[0] == want[0]
+    assert got[1]["host_syncs"] == want[1]["host_syncs"]
+
+
+def test_a_tampered_registry_chunk_is_refused_before_load(cuda, tmp_path,
+                                                          monkeypatch):
+    cfg = smoke_shrink(get_config("cody-mnist"), dtype="float32")
+    root = tmp_path / "reg"
+    cloud, wl = _published(cfg, str(root), cuda)
+    c = [c for c in cloud.store.entry(wl.key("decode"))["chunks"]
+         if c["part"].startswith("payload/")][-1]
+    path = root / "chunks" / c["d"][:2] / c["d"]
+    blob = bytearray(path.read_bytes())
+    blob[len(blob) // 2] ^= 0x5A
+    path.write_bytes(bytes(blob))
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.export.load reached")
+    monkeypatch.setattr(torch.export, "load", refuse)
+    tee = Workspace(registry=str(root), key=KEY, net="wifi", device=cuda)
+    with pytest.raises(TamperedRecordingError):
+        tee.workload(cfg, **REG_SHAPES).engine()

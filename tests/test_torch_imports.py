@@ -36,7 +36,14 @@ def test_import_loads_no_jax():
             "repro_torch.core.metasync", "repro_torch.core.replay_passes",
             "repro_torch.record", "repro_torch.record.session",
             "repro_torch.record.cloud", "repro_torch.record.device",
-            "repro_torch.record.fanout"} <= set(mods)
+            "repro_torch.record.fanout", "repro_torch.attest.keys",
+            "repro_torch.attest.log", "repro_torch.attest.quote",
+            "repro_torch.attest.verifier", "repro_torch.registry.store",
+            "repro_torch.registry.service", "repro_torch.registry.client",
+            "repro_torch.registry.replica", "repro_torch.api.workspace",
+            "repro_torch.obs.schema", "repro_torch.launch.attest",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.secure_inference"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -55,7 +62,9 @@ def test_import_loads_no_jax():
 @pytest.mark.parametrize("mods", [
     ("repro_torch.record", "repro_torch.core.metasync",
      "repro_torch.core.replay_passes"),
-    ("repro_torch.core.netem",), ("repro_torch.record.fanout",)],
+    ("repro_torch.core.netem",), ("repro_torch.record.fanout",),
+    ("repro_torch.attest",), ("repro_torch.registry",),
+    ("repro_torch.api",)],
     ids=lambda m: m[0].removeprefix("repro_torch."))
 def test_recording_session_modules_load_no_jax_or_msgpack(mods):
     """The CODY session's modules alone: metastate sync frames through
@@ -64,6 +73,27 @@ def test_recording_session_modules_load_no_jax_or_msgpack(mods):
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'msgpack', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_offline_verifier_imports_no_model_or_registry_code():
+    """What a remote verifier runs: ``attest/verifier.py`` names no model,
+    config, serving, registry or record module (nor torch), and importing
+    it loads none of the port's (as the reference pins at
+    ``tests/test_attest.py``)."""
+    src = (PORT / "attest" / "verifier.py").read_text()
+    banned = ("repro_torch.models", "repro_torch.configs",
+              "repro_torch.training", "repro_torch.serving",
+              "repro_torch.registry", "repro_torch.record",
+              "repro_torch.api", "repro_torch.kernels", "jax")
+    for name in banned + ("torch",):
+        assert f"import {name}" not in src and f"from {name}" not in src
+    code = ("import sys\nimport repro_torch.attest.verifier\n"
+            f"bad = sorted(m for m in sys.modules if m.startswith({banned!r}))\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,

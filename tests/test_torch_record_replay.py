@@ -526,8 +526,11 @@ def test_launchers_round_trip_on_the_cpu(capsys):
                                 "--cache-len", "32", "--block-k", "4",
                                 "--batch", "2", "--seq", "8"])
         assert sorted(done) == ["decode", "prefill"]
+        # the flat files, and the registry the launcher publishes into by
+        # default (as the reference's does)
         assert sorted(os.listdir(d)) == ["cody-mnist_decode.codyrec",
-                                         "cody-mnist_prefill.codyrec"]
+                                         "cody-mnist_prefill.codyrec",
+                                         "registry"]
         outs, eng = serve.main(["--arch", "cody-mnist", "--smoke",
                                 "--device", "cpu", "--requests", "3",
                                 "--max-new", "6", "--slots", "2",
