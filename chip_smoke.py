@@ -88,6 +88,23 @@ Phases, each of which raises (exit code != 0) when it fails:
            re-record) on cody-mnist at its published config over wifi and
            cellular, with its three acceptance flags; and both ported
            examples (``repro_torch.examples``) run on the card;
+  fleet    fleet-scale replay serving: a 2-replica qwen2.5-3b fleet at
+           full width booted from a file-backed registry (phase
+           replay's recordings, recorded here when it did not run)
+           through two regional read-replicas, each replica with its own
+           client and wifi span (fetch, HMAC and proof verified, load,
+           warm, both programs captured), serving ~35 open-loop arrivals
+           with live's tokens and launches equal to the formulas (per
+           replica boot host seconds, boot_virtual_s and the virtual-
+           clock latencies printed as model output); qwen2.5-3b and
+           xlstm-350m at full width through one Scheduler (serve
+           --streams' path) with BENCH_multitenant.json's two flags;
+           BENCH_fleet.json's scenario at its smoke shapes (its flags, a
+           schema check, arrivals, served counts, ticks and balancer
+           counts equal to the file's); BENCH_fanout.json's campaign
+           through launch/fanout.py's code path (its flags, and round
+           trips, speculation hits, ticks and virtual seconds at 24
+           pinned jobs equal to the file's);
   session  the CODY recording session: cody-mnist's prefill (published
            config, cache 64, block_k 4, batch 1, seq 16) exported once;
            the record-side ablation (naive, +deferral, +speculation,
@@ -123,7 +140,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
-          "replay", "registry", "session")
+          "replay", "registry", "fleet", "session")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -1807,7 +1824,7 @@ REGISTRY_SHAPES = dict(cache_len=64, block_k=4, batch=1, prefill_batch=1,
 
 @contextlib.contextmanager
 def _wall_of(owner, name, into):
-    """Add the wall seconds of every call of ``owner.name`` (ended by a
+    """Append the wall seconds of each call of ``owner.name`` (ended by a
     device synchronise) to ``into[name]`` while the block runs."""
     import torch
     real = getattr(owner, name)
@@ -1819,7 +1836,7 @@ def _wall_of(owner, name, into):
         finally:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
-            into[name] = into.get(name, 0.0) + time.perf_counter() - t0
+            into.setdefault(name, []).append(time.perf_counter() - t0)
     setattr(owner, name, timed)
     try:
         yield into
@@ -2017,9 +2034,9 @@ def phase_registry(state):
             f"{net['bytes_received'] / 1e6:.3f} MB, {net['round_trips']} "
             f"blocking RTs, {net['time_s']:.6f} s on the emulated wifi link "
             f"(link model output, not measured); host: fetch (chunks read, "
-            f"HMAC and proofs verified) {walls['fetch']:.2f} s, verify + "
-            f"load {walls['load']:.2f} s, warm {walls['warm']:.2f} s; "
-            f"client {cs}")
+            f"HMAC and proofs verified) {sum(walls['fetch']):.2f} s, "
+            f"verify + load {sum(walls['load']):.2f} s, warm "
+            f"{sum(walls['warm']):.2f} s; client {cs}")
         # the warmed programs are captured at their first execute: do it
         # here, on the engine's params, so the serve replays graphs only
         zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
@@ -2034,7 +2051,7 @@ def phase_registry(state):
         del caches
         per = {pre: rp.captured_launches(pre), dec: rp.captured_launches(dec)}
         captured = rp.stats["captures"] == 2
-        log(f"registry: warm + capture {walls['warm'] + t_cap:.2f} s "
+        log(f"registry: warm + capture {sum(walls['warm']) + t_cap:.2f} s "
             f"(capture and first replay of both {t_cap:.2f} s); prefill "
             f"captured: {captured}; one replay launches {per}")
         assert captured, rp.stats
@@ -2131,6 +2148,490 @@ def phase_registry(state):
 
     _run_examples(("quickstart", "secure_inference"))
     log(f"registry: all figures of this phase on {_card(state)}")
+
+
+# BENCH_fleet.json's scenario (the reference's benchmarks/fleet_bench.py,
+# quick): smoke tenants, shapes, policies, replicas, regions, traffic
+FLEET_BENCH_ARCHS = ("qwen2.5-3b", "xlstm-350m")
+FLEET_BENCH_SHAPES = dict(cache_len=64, block_k=4, batch=2, seq=8)
+FLEET_BENCH_POLICIES = ("round_robin", "least_loaded", "cache_affinity")
+# BENCH_fanout.json's campaign (benchmarks/fanout_bench.py, quick)
+FANOUT_JOBS = 24
+FANOUT_SHAPES = dict(cache_len=64, block_k=4, batch=1, prefill_batch=1)
+FANOUT_SEQS = (8, 16, 24, 32)
+FANOUT_LADDER = (1, 2, 4, 8)
+
+
+def _fleet_registry(state, cfg, params, shapes):
+    """Part 1: a 2-replica qwen2.5-3b fleet at full width booted from a
+    file-backed registry over two regional read-replicas, serving
+    open-loop traffic with live's tokens and launches equal to the
+    formulas."""
+    import tempfile
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.api import Workspace
+    from repro_torch.core.channel import LiveChannel
+    from repro_torch.core.replay import Replayer
+    from repro_torch.fleet import OpenLoopTraffic, TenantMix
+    from repro_torch.launch.record import record_kinds
+    from repro_torch.launch.serve import stream_kwargs
+    from repro_torch.models import model as M
+    from repro_torch.obs.schema import (check_fleet_stats,
+                                        check_workspace_report)
+    from repro_torch.registry import RegistryClient
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import steps as ST
+
+    L, block_k, seq = cfg.num_layers, shapes["block_k"], shapes["seq"]
+    slots, cache_len = shapes["batch"], shapes["cache_len"]
+    recs = state.get("replay_recs")
+    if recs is None:
+        with tempfile.TemporaryDirectory() as d:
+            made = record_kinds(cfg, out=d, key=REPLAY_KEY,
+                                cache_len=cache_len, block_k=block_k,
+                                batch=slots, seq=seq,
+                                params=params, device="cuda", net="wifi",
+                                passes="all")
+        recs = {k: rec for k, (_p, rec) in made.items()}
+    arrivals = OpenLoopTraffic(
+        [TenantMix(cfg.name, 12.0, prompt_len=seq, max_new=(8, 32),
+                   vocab=256)], seed=0, burst_every_s=1.0, burst_len_s=0.25,
+        burst_x=4.0).generate(1.5)
+    with tempfile.TemporaryDirectory() as root:
+        cloud = Workspace(registry=root, key=REPLAY_KEY, net="wifi",
+                          device="cuda")
+        cwl = cloud.workload(cfg, **shapes)
+        for kind in ("prefill", "decode"):
+            assert cwl.publish(recs[kind])["key"] == cwl.key(kind)
+        ws = Workspace(registry=root, key=REPLAY_KEY, net="wifi",
+                       device="cuda")
+        wl = ws.workload(cfg, **shapes)
+        wl._params[0] = params        # the replicas share these weights
+        pre, dec = wl.key("prefill"), wl.key("decode")
+        clients, new_client = [], ws.new_client
+
+        def spy(*a, **k):
+            clients.append(new_client(*a, **k))
+            return clients[-1]
+        ws.new_client = spy
+        walls = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _export_loads_counted() as loads, \
+                _wall_of(RegistryClient, "fetch", walls), \
+                _wall_of(Replayer, "load", walls), \
+                _wall_of(Replayer, "warm", walls):
+            pool, _ = ws.fleet([wl], replicas=2, regions=2,
+                               policy="least_loaded", tick_s=0.02)
+        del ws.new_client
+        boot = time.perf_counter() - t0
+        assert loads[0] == 4, loads
+        assert len(clients) == 2 and clients[0] is not clients[1]
+        assert ws.report()["registry_client"] == {}   # shared: never made
+        # capture both programs on each replica's params before serving
+        for i, r in enumerate(pool.replicas):
+            ex = r.scheduler.streams[cfg.name]
+            rp = ex.channel.replayer
+            zeros = torch.zeros(slots, dtype=torch.int32, device="cuda")
+            caches = M.init_cache(cfg, slots, cache_len, device="cuda")
+            tokens = {"tokens": torch.zeros((1, seq), dtype=torch.int32,
+                                            device="cuda")}
+            t1 = time.perf_counter()
+            rp.execute(pre, ex.params, tokens)
+            rp.execute(dec, ex.params, zeros, zeros.clone(), caches)
+            torch.cuda.synchronize()
+            t_cap = time.perf_counter() - t1
+            del caches
+            cs, net = dict(clients[i].stats), r.netem.snapshot()
+            assert cs["registry_hits"] == cs["verified_fetches"] == \
+                cs["proofs_verified"] == 2, cs
+            assert cs.get("recording_round_trips", 0) == 0, cs
+            assert net["time_s"] == r.boot_virtual_s > 0, (net, r)
+            assert rp.stats["captures"] == 2, rp.stats
+            log(f"fleet: replica {r.name} (region r{r.region}) boot host: "
+                f"fetch (chunks, HMAC, proofs) "
+                f"{sum(walls['fetch'][2 * i:2 * i + 2]):.2f} s, verify + "
+                f"load {sum(walls['load'][2 * i:2 * i + 2]):.2f} s, warm + "
+                f"capture {sum(walls['warm'][2 * i:2 * i + 2]) + t_cap:.2f} "
+                f"s; boot_virtual_s {r.boot_virtual_s} (link model output: "
+                f"{net['bytes_received'] / 1e6:.3f} MB over emulated wifi); "
+                f"client {cs}")
+        log(f"fleet: 2 replicas booted in {boot:.2f} s of host time; "
+            f"{len(arrivals)} open-loop arrivals over 1.5 s of the virtual "
+            f"clock")
+        per = {n: pool.replicas[0].scheduler.streams[cfg.name].channel
+               .replayer.captured_launches(n) for n in (pre, dec)}
+        assert per == {pre: {"flash_attention": L, "rmsnorm": 2 * L + 1},
+                       dec: {"decode_attention": L * block_k,
+                             "rmsnorm": (2 * L + 1) * block_k}}, per
+        replays0 = [r.scheduler.streams[cfg.name].channel.replayer.stats[
+            "graph_replays"] for r in pool.replicas]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        outs = pool.run(arrivals)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = K.launch_counts()
+        stats = check_fleet_stats(pool.stats())
+        ntok = sum(len(v) for v in outs.values())
+        assert len(outs) == len(arrivals) and not pool.failed, stats
+        assert all(r.served > 0 for r in pool.replicas), stats
+        pd = bd = 0
+        for r, r0 in zip(pool.replicas, replays0):
+            st = r.scheduler.streams[cfg.name].stats
+            rp = r.scheduler.streams[cfg.name].channel.replayer
+            assert rp.stats["graph_replays"] - r0 == \
+                st["prefill_dispatches"] + st["blocks_dispatched"], \
+                (rp.stats, dict(st))
+            assert rp.stats["captures"] == 2, rp.stats
+            pd += st["prefill_dispatches"]
+            bd += st["blocks_dispatched"]
+        for name, n in ((pre, pd), (dec, bd)):
+            for k, c in per[name].items():
+                launches[k] += c * n
+        want = {"flash_attention": L * pd,
+                "decode_attention": L * block_k * bd,
+                "rmsnorm": (2 * L + 1) * (pd + block_k * bd), "moe_gmm": 0,
+                "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+        assert launches == want, (launches, want)
+        q = ws.metrics.quantiles("fleet_request_latency_s",
+                                 pool=pool.name, tenant=cfg.name)
+        log(f"fleet: served {len(outs)} of {len(arrivals)} arrivals, {ntok} "
+            f"tokens in {dt:.3f} s on the card ({ntok / dt:.1f} tok/s), "
+            f"{stats['ticks']} ticks; per replica served "
+            f"{[r.served for r in pool.replicas]}; latency quantiles "
+            f"{q} (the fleet's virtual clock, not a measured time); peak "
+            f"memory allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+            f"GB; launches {launches} (the formulas; {pd} prefill and {bd} "
+            f"decode graph replays)")
+        check_workspace_report(ws.report())
+        log(f"fleet: pool {json.dumps(stats)}")
+
+        # every request served alone through the live path, same params
+        live = Engine(params, channel=LiveChannel(
+            ST.make_prefill_step(cfg, cache_len),
+            ST.make_fused_decode_step(cfg, k=block_k)), **stream_kwargs(
+                cfg, n_slots=slots, cache_len=cache_len, block_k=block_k,
+                eos_id=2, device="cuda"))
+        rids = {a.gid: live.submit(list(a.prompt), a.max_new)
+                for a in arrivals}
+        t0 = time.perf_counter()
+        solo = live.run()
+        torch.cuda.synchronize()
+        log(f"fleet: the same {len(rids)} requests live in "
+            f"{time.perf_counter() - t0:.2f} s")
+        assert {g: solo[r] for g, r in rids.items()} == outs, \
+            "fleet: tokens differ from live"
+        log("fleet: every request's tokens equal the live path's")
+        del pool, ws, wl, live, clients
+    torch.cuda.empty_cache()
+
+
+def _fleet_multitenant():
+    """Part 2: qwen2.5-3b and xlstm-350m at full width through one
+    Scheduler (serve --streams' path), against each served alone:
+    BENCH_multitenant.json's two flags; launches equal the formulas."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch.serve import serve_multi
+
+    block_k, max_new, requests = 8, 16, 4
+    K.reset_launches()
+    torch.cuda.synchronize()
+    outs, sched, wls, dt = serve_multi(
+        ["qwen2.5-3b", "xlstm-350m"], requests=requests, max_new=max_new,
+        prompt_lens=(16, 65), n_slots=4, cache_len=128, block_k=block_k,
+        device="cuda")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    want = dict.fromkeys(launches, 0)
+    rows = {}
+    for i, (name, wl) in enumerate(wls.items()):
+        cfg, ex = wl.cfg, sched.streams[name]
+        L = cfg.num_layers
+        pd, bd = ex.stats["prefill_dispatches"], ex.stats["blocks_dispatched"]
+        want["rmsnorm"] += (2 * L + 1) * (pd + block_k * bd)
+        if cfg.family == "ssm":
+            want["mlstm_chunk_scan"] += (L - len(cfg.xlstm.slstm_at)) * pd
+        else:
+            want["flash_attention"] += L * pd
+            want["decode_attention"] += L * block_k * bd
+        eng = wl.engine(seed=i)
+        rids = {rid: eng.submit(req.prompt, req.max_new)
+                for rid, req in ex.requests.items()}
+        t0 = time.perf_counter()
+        solo = eng.run()
+        torch.cuda.synchronize()
+        solo_dt = time.perf_counter() - t0
+        solo = {rid: solo[r] for rid, r in rids.items()}
+        toks = sum(len(v) for v in outs[name].values())
+        rows[name] = {
+            "bit_exact_vs_solo": solo == outs[name],
+            "syncs_per_token": (
+                ex.stats["host_syncs"] / toks, eng.stats["host_syncs"]
+                / sum(len(v) for v in solo.values()))}
+        log(f"fleet: multi-tenant {name}: {len(ex.requests)} requests of "
+            f"{sorted(len(r.prompt) for r in ex.requests.values())} tokens, "
+            f"{toks} served; stats {dict(ex.stats)}; alone {solo_dt:.2f} s, "
+            f"{dict(eng.stats)}")
+    flags = {"bit_exact_vs_solo": all(r["bit_exact_vs_solo"]
+                                      for r in rows.values()),
+             "frontier_only_syncs": all(
+                 m <= s for m, s in (r["syncs_per_token"]
+                                     for r in rows.values()))}
+    ntok = sum(len(v) for per in outs.values() for v in per.values())
+    log(f"fleet: multi-tenant serve {ntok} tokens in {dt:.3f} s "
+        f"({ntok / dt:.1f} tok/s); frontier {dict(sched.frontier.stats)}; "
+        f"launches {launches}; flags {flags}")
+    assert all(flags.values()), (flags, rows)
+    assert launches == want, (launches, want)
+    del outs, sched, wls
+    torch.cuda.empty_cache()
+
+
+def _digest(outputs):
+    import hashlib
+    blob = json.dumps({str(g): list(t) for g, t in sorted(outputs.items())},
+                      sort_keys=True).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def fleet_bench_scenario(device="cuda", seed=0):
+    """BENCH_fleet.json's scenario through the port's ``Workspace``: a
+    cold replica that records on miss, then one warm 3-replica fleet per
+    placement policy over 2 regions on the same arrivals, and every
+    arrival served alone; returns the bench's result dict (the
+    reference's keys and flags)."""
+    from repro_torch.api import Workspace
+    from repro_torch.fleet import OpenLoopTraffic, TenantMix
+
+    horizon_s, tick_s, n_slots = 1.5, 0.02, FLEET_BENCH_SHAPES["batch"]
+    t_wall = time.time()
+    ws = Workspace(registry=":memory:", key=b"fleet-bench", net="wifi",
+                   device=device)
+    wls = [ws.workload(a, **FLEET_BENCH_SHAPES) for a in FLEET_BENCH_ARCHS]
+    tenants = [wl.cfg.name for wl in wls]
+    traffic = OpenLoopTraffic(
+        [TenantMix(wl.cfg.name, rate, prompt_len=FLEET_BENCH_SHAPES["seq"],
+                   max_new=(4, 12), vocab=min(wl.cfg.vocab_size, 256))
+         for wl, rate in zip(wls, (10.0, 6.0))], seed=seed,
+        burst_every_s=1.0, burst_len_s=0.25, burst_x=4.0)
+    arrivals = traffic.generate(horizon_s)
+    cold, _ = ws.fleet(wls, replicas=1, policy="round_robin",
+                       record_on_miss=True, name="cold", tick_s=tick_s,
+                       seed=seed)
+    cold_boot_s = cold.replicas[0].boot_virtual_s
+    rows, digests, warm_boots = [], {}, []
+    for policy in FLEET_BENCH_POLICIES:
+        pool, _ = ws.fleet(wls, replicas=3, policy=policy, regions=2,
+                           name=policy, tick_s=tick_s,
+                           pending_limit=2 * n_slots, queue_limit=512,
+                           seed=seed)
+        warm_boots.extend(r.boot_virtual_s for r in pool.replicas)
+        t0 = time.time()
+        outputs = pool.run(list(arrivals))
+        wall = time.time() - t0
+        digests[policy] = _digest(outputs)
+        per_tenant = {t: {
+            "served": sum(1 for a in arrivals
+                          if a.tenant == t and a.gid in outputs),
+            "latency_quantiles": ws.metrics.quantiles(
+                "fleet_request_latency_s", pool=policy, tenant=t)
+            or {"p50": 0.0, "p99": 0.0, "p999": 0.0}} for t in tenants}
+        rows.append({"policy": policy, "per_tenant": per_tenant,
+                     "pool": pool.stats(), "outputs_digest": digests[policy],
+                     "wall_s": round(wall, 3)})
+        del pool
+    solo = {}
+    for i, wl in enumerate(wls):
+        eng = wl.engine(seed=seed + i)
+        for a in arrivals:
+            if a.tenant == wl.cfg.name:
+                rid = eng.submit(list(a.prompt), a.max_new)
+                solo[a.gid] = list(eng.run()[rid])
+    solo_digest = _digest(solo)
+    warm_boot_s = max(warm_boots)
+    reduction = 100.0 * (1.0 - warm_boot_s / cold_boot_s) \
+        if cold_boot_s > 0 else 0.0
+    return {
+        "tenants": tenants,
+        "shapes": {"cache_len": FLEET_BENCH_SHAPES["cache_len"],
+                   "block_k": FLEET_BENCH_SHAPES["block_k"],
+                   "n_slots": n_slots, "seq": FLEET_BENCH_SHAPES["seq"]},
+        "traffic": {"seed": seed, "horizon_s": horizon_s,
+                    "burst_every_s": 1.0, "burst_len_s": 0.25,
+                    "burst_x": 4.0, "arrivals": len(arrivals),
+                    "rates_rps": [m.rate_rps for m in traffic.mixes]},
+        "policies": rows,
+        "solo_digest": solo_digest,
+        "registry_boot": {
+            "cold_boot_virtual_s": round(cold_boot_s, 4),
+            "warm_boot_virtual_s": round(warm_boot_s, 4),
+            "reduction_pct": round(reduction, 2)},
+        "bit_exact_vs_solo": all(d == solo_digest for d in digests.values()),
+        "warm_boot_cheaper_than_cold": warm_boot_s < cold_boot_s,
+        "warm_boot_reduction_ge_80pct": reduction >= 80.0,
+        "wall_s": round(time.time() - t_wall, 1),
+    }
+
+
+def fleet_bench_deterministic(result):
+    """What BENCH_fleet.json fixes through the traffic and the tick
+    clock alone: arrivals, and per policy the served counts, ticks and
+    the balancer's counts."""
+    return {"arrivals": result["traffic"]["arrivals"], "policies": {
+        row["policy"]: {
+            "served": {t: v["served"] for t, v in row["per_tenant"].items()},
+            "ticks": row["pool"]["ticks"],
+            "balancer": row["pool"]["balancer"],
+            "replicas_served": [r["served"] for r in row["pool"]["replicas"]]}
+        for row in result["policies"]}}
+
+
+def fanout_bench_campaign(device="cuda"):
+    """BENCH_fanout.json's campaign through ``launch/fanout.py``'s code
+    path (``run_campaign``): cody-mnist's 5 variants at 24 jobs over
+    wifi, serially with a cold speculator, then over 1, 2, 4 and 8
+    devices with the shared history, every rung on the same exports;
+    returns the bench's summary (its keys and flags)."""
+    from repro_torch.launch.fanout import run_campaign
+
+    artifacts = {}
+    kw = dict(nets=("wifi",), seqs=FANOUT_SEQS, kinds=("prefill", "decode"),
+              key=b"fanout-bench-key", jobs=FANOUT_JOBS, smoke=True,
+              device=device, artifacts=artifacts, **FANOUT_SHAPES)
+    serial = run_campaign("cody-mnist", devices=1, share_history=False,
+                          name="fanout-d1-cold", **kw)
+    s_stats = serial.stats()
+    serial_s = s_stats["sum_record_virtual_s"]
+
+    def strip_cost(m):
+        return {k: v for k, v in m.items()
+                if k not in ("record_virtual_s", "record_session")}
+    ladder, bit_exact = [], True
+    for devices in FANOUT_LADDER:
+        c = run_campaign("cody-mnist", devices=devices, share_history=True,
+                         name=f"fanout-d{devices}", **kw)
+        for key, rec in c.recordings.items():
+            base = serial.recordings[key]
+            bit_exact &= (rec.payload == base.payload
+                          and rec.trees == base.trees
+                          and strip_cost(rec.manifest)
+                          == strip_cost(base.manifest))
+        st = c.stats()
+        ladder.append({"devices": devices,
+                       "virtual_time_s": st["virtual_time_s"],
+                       "recorded": st["recorded"],
+                       "publishes": st["publishes"],
+                       "spec_hit_rate": st["speculation"]["hit_rate"],
+                       "blocking_rts": sum(d["blocking_round_trips"]
+                                           for d in st["per_device"]),
+                       "campaign": st})
+    times = [r["virtual_time_s"] for r in ladder]
+    by_dev = {r["devices"]: r for r in ladder}
+    reduction4 = 1.0 - by_dev[4]["virtual_time_s"] / serial_s
+    cold_hit = s_stats["speculation"]["hit_rate"]
+    shared_hit = by_dev[4]["spec_hit_rate"]
+    return {
+        "net": "wifi", "variants": len(FANOUT_SEQS) + 1, "jobs": FANOUT_JOBS,
+        "serial": {"sessions": s_stats["recorded"],
+                   "virtual_time_s": round(serial_s, 6),
+                   "blocking_rts": sum(d["blocking_round_trips"]
+                                       for d in s_stats["per_device"]),
+                   "campaign": s_stats},
+        "device_ladder": ladder,
+        "reduction_at_4_devices_pct": round(100.0 * reduction4, 2),
+        "monotone_virtual_time": all(a > b for a, b in zip(times,
+                                                           times[1:])),
+        "fanout_reduction_ge_70pct": reduction4 >= 0.70,
+        "bit_exact_vs_serial": bit_exact,
+        "shared_spec_hit_ge_cold": shared_hit >= cold_hit,
+    }
+
+
+def fanout_bench_deterministic(result):
+    """What the pinned job count fixes: per rung (and the serial run)
+    the blocking round trips, speculation predicts and hits, ticks and
+    the virtual seconds."""
+    def fields(c):
+        return {"blocking_rts": sum(d["blocking_round_trips"]
+                                    for d in c["per_device"]),
+                "predicts": c["speculation"]["predicts"],
+                "hits": c["speculation"]["hits"], "ticks": c["ticks"],
+                "virtual_time_s": c["virtual_time_s"],
+                "sum_record_virtual_s": c["sum_record_virtual_s"]}
+    return {"serial": fields(result["serial"]["campaign"]),
+            "ladder": {r["devices"]: fields(r["campaign"])
+                       for r in result["device_ladder"]}}
+
+
+def phase_fleet(state):
+    """Fleet-scale replay serving: (1) a 2-replica qwen2.5-3b fleet at
+    full width booted from a file-backed registry over 2 regional read-
+    replicas (each replica its own client and wifi span: fetch, verify,
+    load, warm, both programs captured), serving ~30 open-loop arrivals
+    with live's tokens and launches equal to the formulas; (2) qwen2.5-3b
+    and xlstm-350m at full width through one Scheduler (serve --streams)
+    with BENCH_multitenant.json's flags; (3) BENCH_fleet.json's scenario
+    at its shapes, its flags and its deterministic fields; (4)
+    BENCH_fanout.json's campaign through launch/fanout.py's code path,
+    its flags and the fields its pinned job count fixes."""
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.obs.schema import check_bench_file
+
+    cfg = get_config("qwen2.5-3b")
+    shapes = dict(cache_len=1024, block_k=8, batch=4, prefill_batch=1,
+                  seq=128)
+    log(f"fleet: {cfg.name} at full width on {_card(state)}")
+    params = state.get("params", {}).get(cfg.name)
+    params = params if params is not None else _init_params(cfg)
+    _fleet_registry(state, cfg, params, shapes)
+    _fleet_multitenant()
+
+    t0 = time.perf_counter()
+    result = fleet_bench_scenario()
+    ref = json.loads((ROOT / "BENCH_fleet.json").read_text())
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d, "BENCH_fleet.json")
+        path.write_text(json.dumps(result, indent=2))
+        log(f"fleet: BENCH_fleet scenario: {check_bench_file(str(path))}")
+    got, want = (fleet_bench_deterministic(r) for r in (result, ref))
+    flags = {k: result[k] for k in ("bit_exact_vs_solo",
+                                    "warm_boot_cheaper_than_cold",
+                                    "warm_boot_reduction_ge_80pct")}
+    for row, rrow in zip(result["policies"], ref["policies"]):
+        log(f"fleet: BENCH_fleet {row['policy']}: latency quantiles "
+            f"{ {t: v['latency_quantiles'] for t, v in row['per_tenant'].items()} } "
+            f"(virtual clock; the file's "
+            f"{ {t: v['latency_quantiles'] for t, v in rrow['per_tenant'].items()} }), "
+            f"wall {row['wall_s']} s")
+    log(f"fleet: BENCH_fleet registry boot {result['registry_boot']} "
+        f"(link model output; the file's {ref['registry_boot']}); flags "
+        f"{flags}; deterministic fields {got}; in "
+        f"{time.perf_counter() - t0:.1f} s")
+    assert all(flags.values()), flags
+    assert got == want, (got, want)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    result = fanout_bench_campaign()
+    ref = json.loads((ROOT / "BENCH_fanout.json").read_text())
+    flags = {k: result[k] for k in ("monotone_virtual_time",
+                                    "fanout_reduction_ge_70pct",
+                                    "bit_exact_vs_serial",
+                                    "shared_spec_hit_ge_cold")}
+    got, want = (fanout_bench_deterministic(r) for r in (result, ref))
+    log(f"fleet: BENCH_fanout campaign: flags {flags}; reduction at 4 "
+        f"devices {result['reduction_at_4_devices_pct']}% (emulated); "
+        f"fields {got}; in {time.perf_counter() - t0:.1f} s")
+    assert all(flags.values()), flags
+    assert got == want, (got, want)
+    log(f"fleet: all figures of this phase on {_card(state)}")
 
 
 SESSION_KEY = b"chip-smoke-session-key"

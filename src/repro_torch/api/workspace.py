@@ -9,9 +9,9 @@ signing key schedule, the default record/replay pass stacks, and the
 device the port runs on (CUDA unless the caller asks for the CPU).
 ``workload()`` binds a model/shape tuple to it; ``scheduler()`` serves
 several workloads concurrently; ``campaign()`` fans records out across
-devices; ``report()`` aggregates link, registry, session and attestation
-accounting.  ``fleet()`` needs the port of ``repro/fleet`` (ROADMAP
-Queue 1, item 10) and raises until then.
+devices; ``fleet()`` builds a pool of replicas, each booted through its
+own registry client and link span; ``report()`` aggregates link,
+registry, session, fleet and attestation accounting.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from repro_torch.attest import EpochKey, KeySchedule
 from repro_torch.configs import get_config, smoke_shrink
 from repro_torch.core.attest import RotatedKeyError
 from repro_torch.core.netem import PROFILES, NetProfile, NetworkEmulator
+from repro_torch.fleet.pool import Replica, ReplicaPool
 from repro_torch.obs.metrics import Metrics
 from repro_torch.obs.trace import NULL, Tracer
 from repro_torch.record import (CloudDryrun, DeviceSlot, RecordCampaign,
@@ -99,6 +100,7 @@ class Workspace:
         self.replay_passes = replay_passes
         self.workloads = []
         self.schedulers = []
+        self.fleets = []
         self.campaigns = []
         self.store_cache_bytes = store_cache_bytes
         self.metrics = Metrics()
@@ -321,12 +323,71 @@ class Workspace:
             out[wl.cfg.name] = wl
         return sched, out
 
-    def fleet(self, streams, **kw):
-        """Fleet-scale serving (``repro/api/workspace.py:fleet``) needs
-        ``fleet/pool.py``, which the port has not reached yet."""
-        raise NotImplementedError(
-            "Workspace.fleet needs repro_torch.fleet (ROADMAP Queue 1, "
-            "item 10: fleet/{pool,balancer,traffic}.py)")
+    def fleet(self, streams, *, replicas: int = 2,
+              policy: str = "round_robin", name: Optional[str] = None,
+              tick_s: float = 0.02, regions: int = 1,
+              record_on_miss: bool = False, pending_limit: int = 8,
+              queue_limit: Optional[int] = None, autoscale: bool = False,
+              queue_high: int = 8, sustain_ticks: int = 5,
+              idle_ticks: int = 50, boot_ticks: int = 10,
+              min_replicas: int = 1, max_replicas: int = 8,
+              seed: int = 0, smoke: bool = True, n_slots: int = 4,
+              cache_len: int = 128, block_k: int = 8, eos_id: int = 2,
+              speculate: bool = True, pipeline_depth: int = 4,
+              validate_every: int = 1, max_ticks: int = 500_000):
+        """Fleet-scale serving: a ``ReplicaPool`` whose replicas each boot
+        warm from the registry on their OWN netem billing span and their
+        own ``RegistryClient`` (no stats aliasing between replicas).  With
+        ``regions > 1`` replica ``idx`` reads through read-replica
+        ``"r{idx % regions}"`` so a popular key fans out CDN-style.
+        ``streams`` entries are arch names or prepared ``Workload``s, as
+        in ``scheduler()``.  Every replica serves tenant ``i`` on
+        ``wl.params(seed + i)``, memoized per workload, so the replicas
+        of one tenant share one copy of its weights on the device (each
+        replica's ``Replayer`` captures its own graphs over them).
+        Returns ``(pool, {name: workload})``."""
+        workloads = {}
+        for i, s in enumerate(streams):
+            wl = s if isinstance(s, Workload) else self.workload(
+                s, smoke=smoke, batch=n_slots, cache_len=cache_len,
+                block_k=block_k, eos_id=eos_id)
+            workloads[wl.cfg.name] = (i, wl)
+        pool_name = name if name is not None else f"fleet{len(self.fleets)}"
+
+        def factory(idx: int) -> Replica:
+            netem = self.fresh_netem()
+            client = None
+            if self.has_registry:
+                region = f"r{idx % regions}" if regions > 1 else None
+                client = self.new_client(netem=netem, region=region)
+            boot_mark = netem.virtual_time_s if netem is not None else 0.0
+            sched = Scheduler(netem=netem, tracer=self.tracer,
+                              metrics=self.metrics)
+            for tenant, (i, wl) in workloads.items():
+                ch = wl.channel(record_on_miss=record_on_miss,
+                                client=client) if self.has_registry \
+                    else wl.channel()
+                sched.add_stream(
+                    tenant, ch, channel_params(ch, wl.params(seed + i)),
+                    **wl.stream_kwargs(speculate=speculate,
+                                       pipeline_depth=pipeline_depth))
+            boot_s = (netem.virtual_time_s - boot_mark) \
+                if netem is not None else 0.0
+            return Replica(f"{pool_name}-{idx}", sched, netem=netem,
+                           boot_virtual_s=boot_s, region=idx % regions,
+                           pending_limit=pending_limit,
+                           validate_every=validate_every)
+
+        pool = ReplicaPool(
+            factory, replicas=replicas, policy=policy, name=pool_name,
+            tick_s=tick_s, queue_limit=queue_limit, autoscale=autoscale,
+            queue_high=queue_high, sustain_ticks=sustain_ticks,
+            idle_ticks=idle_ticks, boot_ticks=boot_ticks,
+            min_replicas=min_replicas, max_replicas=max_replicas,
+            metrics=self.metrics, labels={"pool": pool_name},
+            max_ticks=max_ticks)
+        self.fleets.append(pool)
+        return pool, {n: wl for n, (_i, wl) in workloads.items()}
 
     # ----------------------------------------------------------- reporting --
     def report(self) -> dict:
@@ -335,8 +396,7 @@ class Workspace:
         this workspace's workloads, the metrics registry snapshot, each
         scheduler's public stats, campaigns, the store and attestation.
         The shape is pinned by ``repro_torch.obs.schema.
-        check_workspace_report``; ``fleet`` stays an empty list until
-        the port has ``Workspace.fleet``."""
+        check_workspace_report``."""
         return {
             "net": self.netem.snapshot() if self.netem is not None else None,
             "registry_client": dict(self._client.stats)
@@ -352,7 +412,7 @@ class Workspace:
             "replayer_stats": self._replayer_stats(),
             "metrics": self.metrics.snapshot(),
             "schedulers": [s.stats() for s in self.schedulers],
-            "fleet": [],
+            "fleet": [p.stats() for p in self.fleets],
             "campaigns": [c.stats() for c in self.campaigns],
             "registry_store": self._registry_store_stats(),
             "attest": self._attest_stats(),

@@ -25,8 +25,12 @@ type it was made on:
 
 ``--batch`` is the decode batch, the serving slots of ``serve --slots``;
 prefill is recorded at batch 1, as the engine admits one request per
-prefill.  The ``--devices`` fan-out comes with the port's ``fanout``
-launcher.
+prefill.  ``--devices N`` (N > 1) fans the kinds out across N emulated
+device slots (``Workspace.campaign``) instead of recording them one
+after another; each finished kind publishes through the campaign's
+multi-variant lease (flat files only with ``--no-registry``), and the
+campaign's makespan is printed beside the summed record time (emulated
+seconds, the link model's output).
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ from repro_torch.api import (KINDS, Workspace, format_session_report,
 from repro_torch.configs import get_config, smoke_shrink
 from repro_torch.core.netem import PROFILES
 
-__all__ = ["record_kinds", "main"]
+__all__ = ["record_kinds", "record_campaign", "main"]
 
 
 def record_kinds(cfg, kinds=KINDS, *, out: str, key: bytes, cache_len: int,
@@ -63,6 +67,37 @@ def record_kinds(cfg, kinds=KINDS, *, out: str, key: bytes, cache_len: int,
         rec.save(path, key)
         done[kind] = (path, rec)
     return done
+
+
+def record_campaign(cfg, kinds=KINDS, *, out: str, key: bytes,
+                    registry, cache_len: int, block_k: int, batch: int,
+                    seq: int, eos_id: int = 2, devices: int = 2,
+                    device="cuda", net: str = "local", passes="all",
+                    jobs=None, name: str):
+    """Record ``kinds`` across ``devices`` slots of one campaign named
+    ``name`` over ``PROFILES[net]`` (each slot its own emulator),
+    publishing into the registry at ``registry`` when one is given; each
+    finished kind is signed and saved into ``out``.  Returns ``({kind:
+    (path, Recording)}, campaign)``; a kind already published or leased
+    elsewhere is skipped."""
+    ws = Workspace(registry=registry, key=key, net=net, record_passes=passes,
+                   device=device)
+    wl = ws.workload(cfg, cache_len=cache_len, block_k=block_k, batch=batch,
+                     prefill_batch=1, seq=seq, eos_id=eos_id)
+    os.makedirs(out, exist_ok=True)
+    campaign = ws.campaign([(wl, k) for k in kinds], devices=devices,
+                           jobs=jobs, name=name)
+    recs = campaign.run()
+    done = {}
+    for kind in kinds:
+        rec = recs.get(wl.key(kind))
+        if rec is None:
+            print(f"skipped {kind}: already published / leased")
+            continue
+        path = os.path.join(out, recording_name(cfg.name, kind))
+        rec.save(path, key)
+        done[kind] = (path, rec)
+    return done, campaign
 
 
 def main(argv=None):
@@ -95,12 +130,35 @@ def main(argv=None):
     ap.add_argument("--jobs", type=int, default=None,
                     help="pin the session's GPU job count (default: from "
                          "the program's size)")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="> 1 fans the kinds out across a device pool "
+                         "(campaign API) instead of recording serially")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_shrink(cfg)
     kinds = [k.strip() for k in args.kinds.split(",") if k.strip()]
+    if args.devices > 1:
+        registry = None if args.no_registry else (
+            args.registry or os.path.join(args.out, "registry"))
+        done, campaign = record_campaign(
+            cfg, kinds, out=args.out, key=args.key.encode(),
+            registry=registry, cache_len=args.cache_len,
+            block_k=args.block_k, batch=args.batch, seq=args.seq,
+            devices=args.devices, device=args.device, net=args.net,
+            passes=args.passes, jobs=args.jobs, name=f"record-{args.arch}")
+        for kind, (path, rec) in done.items():
+            print(f"recorded {kind}: {path} ({len(rec.payload)/1e6:.2f} MB "
+                  f"program)")
+            print("  " + format_session_report(
+                rec.manifest["record_session"]))
+        s = campaign.stats()
+        print(f"campaign[{s['devices']} devices]: "
+              f"{s['virtual_time_s']:.2f}s virtual makespan vs "
+              f"{s['sum_record_virtual_s']:.2f}s summed (emulated), "
+              f"{s['publishes']} published")
+        return done
     done = record_kinds(cfg, kinds, out=args.out, key=args.key.encode(),
                         cache_len=args.cache_len, block_k=args.block_k,
                         batch=args.batch, seq=args.seq, device=args.device,

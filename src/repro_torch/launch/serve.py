@@ -1,8 +1,8 @@
-"""Serving launcher: one stream behind the ``Engine`` facade, a thin shim
-over ``repro_torch.api``.
+"""Serving launcher: one stream behind the ``Engine`` facade, or several
+through one ``Scheduler``, a thin shim over ``repro_torch.api``.
 
-Counterpart of the single-stream paths of ``repro/launch/serve.py``:
-live steps; with ``--from-recordings``, the signed recordings of
+Counterpart of ``repro/launch/serve.py``: live steps; with
+``--from-recordings``, the signed recordings of
 ``repro_torch.launch.record`` in a flat directory; with
 ``--from-registry``, recordings fetched from the content-addressed
 registry (chunked, resumable, billed to the ``--net`` emulated link,
@@ -21,10 +21,14 @@ on the CUDA device unless asked for the CPU:
     python -m repro_torch.launch.serve --arch cody-mnist --smoke \\
         --device cpu --cache-len 32 --from-registry recs/registry \\
         --net wifi --key secret
+    python -m repro_torch.launch.serve --streams qwen2.5-3b,xlstm-350m \\
+        --smoke --device cpu --requests 4
 
-Passing both ``--from-recordings`` and ``--from-registry`` is refused:
-recordings come from exactly one source.  Multi-stream serving comes
-with a later slice of the port.
+``--streams`` serves the listed archs CONCURRENTLY through one
+``Scheduler`` (multi-tenant: one live channel, params, slots and caches
+per stream, stream ``i`` on seed ``i``'s weights).  Passing both
+``--from-recordings`` and ``--from-registry`` is refused: recordings
+come from exactly one source.
 """
 from __future__ import annotations
 
@@ -40,7 +44,8 @@ from repro_torch.core.channel import ReplayChannel
 from repro_torch.core.netem import PROFILES, NetworkEmulator
 from repro_torch.serving.engine import Engine
 
-__all__ = ["REC_SEQ", "stream_kwargs", "build_engine", "main"]
+__all__ = ["REC_SEQ", "stream_kwargs", "build_engine", "build_scheduler",
+           "serve_multi", "main"]
 
 # registry prefill recordings are fetched at this prompt length; a
 # published prefill of another length substitutes for it (the engine
@@ -72,9 +77,67 @@ def build_engine(cfg, *, n_slots: int, cache_len: int, block_k: int,
                      pipeline_depth=pipeline_depth)
 
 
+def build_scheduler(archs, *, n_slots: int, cache_len: int, block_k: int,
+                    eos_id: int = 2, netem=None, speculate: bool = True,
+                    pipeline_depth: int = 4, smoke: bool = False,
+                    max_live_slots=None, stall_limit=None, seed: int = 0,
+                    device="cuda"):
+    """Multi-workload path: one Scheduler on ``device``, one stream per
+    arch, each with its own live channel, params (seeded ``seed + i``),
+    slots and caches.  Returns ``(scheduler, {name: workload})``: a
+    workload's ``engine(seed=seed + i)`` serves its stream alone on the
+    same weights."""
+    ws = Workspace(net=netem, device=resolve_device(device))
+    return ws.scheduler(archs, n_slots=n_slots, cache_len=cache_len,
+                        block_k=block_k, eos_id=eos_id, smoke=smoke,
+                        speculate=speculate, pipeline_depth=pipeline_depth,
+                        max_live_slots=max_live_slots,
+                        stall_limit=stall_limit, seed=seed)
+
+
+def serve_multi(archs, *, requests: int, max_new: int,
+                prompt_lens=(4, 16), **kw):
+    """Submit ``requests`` prompts a stream (lengths drawn from
+    ``[lo, hi)`` of ``prompt_lens``, tokens from seed 0 as the reference
+    draws them) to ``build_scheduler(archs, **kw)`` and serve them all.
+    Returns ``(outputs by stream, scheduler, workloads, wall seconds)``."""
+    sched, wls = build_scheduler(archs, **kw)
+    rng = np.random.default_rng(0)
+    for name, wl in wls.items():
+        for _ in range(requests):
+            plen = int(rng.integers(*prompt_lens))
+            sched.submit(name, [int(t) for t in rng.integers(
+                3, wl.cfg.vocab_size, plen)], max_new)
+    t0 = time.time()
+    outs = sched.run()
+    return outs, sched, wls, time.time() - t0
+
+
+def _serve_multi(args, netem):
+    archs = [a.strip() for a in args.streams.split(",") if a.strip()]
+    outs, sched, wls, dt = serve_multi(
+        archs, requests=args.requests, max_new=args.max_new,
+        n_slots=args.slots, cache_len=args.cache_len, block_k=args.block_k,
+        netem=netem, speculate=not args.no_speculate,
+        pipeline_depth=args.pipeline_depth, smoke=args.smoke,
+        device=args.device)
+    toks = sum(len(v) for per in outs.values() for v in per.values())
+    print(f"served {len(wls)} streams x {args.requests} requests, "
+          f"{toks} tokens in {dt:.2f}s ({toks/dt:.0f} tok/s) on "
+          f"{resolve_device(args.device)}")
+    for name, ex in sched.streams.items():
+        print(f"  [{name}] stats: {dict(ex.stats)}")
+    print("frontier:", dict(sched.frontier.stats))
+    print("speculator:", dict(sched.spec.stats))
+    return outs, sched
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--streams", default="",
+                    help="comma-separated archs to serve CONCURRENTLY "
+                         "through one Scheduler (multi-tenant mode)")
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced same-family config")
     ap.add_argument("--device", default="cuda")
@@ -102,6 +165,12 @@ def main(argv=None):
     netem = None
     if args.net != "none":
         netem = NetworkEmulator(PROFILES[args.net])
+
+    if args.streams:
+        if args.from_recordings or args.from_registry:
+            raise ValueError("--streams serves live steps; recordings "
+                             "serve one stream (--arch)")
+        return _serve_multi(args, netem)
 
     cfg = get_config(args.arch)
     if args.smoke:

@@ -154,6 +154,31 @@ class StreamExecutor:
         self.pending.append(rid)
         return rid
 
+    def adopt(self, req: Request) -> int:
+        """Take over a request released by another executor (migration).
+        The request keeps its generated tail; admission re-prefills
+        ``prefix()`` and deterministic decode resumes it bit-exactly, the
+        same mechanism preemption already relies on.  Returns the rid it
+        was assigned HERE (rids are executor-local)."""
+        rid = self._rid
+        self._rid += 1
+        req.rid = rid
+        self.requests[rid] = req
+        self.pending.append(rid)
+        return rid
+
+    def release_pending(self) -> List[Request]:
+        """Remove and return every queued (non-active) request, in queue
+        order, for adoption by another executor.  Callers preempt first so
+        active requests land back in ``pending`` and are included."""
+        released = []
+        while self.pending:
+            rid = self.pending.popleft()
+            released.append(self.requests.pop(rid))
+        if released:
+            self.stats["released_requests"] += len(released)
+        return released
+
     def has_work(self) -> bool:
         return bool(self.pending) or not all(self.slots.done)
 

@@ -7,7 +7,8 @@ record-on-miss records once through the service's session; the report
 has the reference's keys and passes both packages' schema checks; a
 campaign publishes through the variant lease as the reference's does;
 the launchers (``record --registry``, ``serve --from-registry``,
-``attest``) and the ported examples run."""
+``attest``) and the ported examples run; ``Workspace.fleet`` builds a
+pool that serves."""
 import json
 import os
 import tempfile
@@ -32,6 +33,7 @@ from repro_torch.attest import KeySchedule, verify_quote  # noqa: E402
 from repro_torch.configs import get_config, smoke_shrink  # noqa: E402
 from repro_torch.core.channel import ReplayChannel  # noqa: E402
 from repro_torch.core.recorder import mesh_descriptor  # noqa: E402
+from repro_torch.fleet import Arrival  # noqa: E402
 from repro_torch.launch import record as record_cli  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.convert import params_from_jax  # noqa: E402
@@ -146,10 +148,20 @@ def test_channel_sources_are_exclusive_and_fleet_waits():
         wl.channel(recordings_dir="somewhere")
     with pytest.raises(ValueError, match="requires the signing key"):
         Workspace(registry=":memory:", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ws.fleet(["cody-mnist"])
     with pytest.raises(ValueError, match="unknown net profile"):
         Workspace(net="dialup", device="cpu")
+    # the fleet builds and serves (live replicas: no registry)
+    live = Workspace(device="cpu")
+    pool, wls = live.fleet(["cody-mnist"], replicas=2, n_slots=2,
+                           cache_len=32, block_k=4, name="api")
+    name = wls["cody-mnist-smoke"].cfg.name
+    arrivals = [Arrival(g, 0.01 * g, name, (3 + g, 4, 5), 4)
+                for g in range(3)]
+    outs = pool.run(arrivals)
+    assert sorted(outs) == [0, 1, 2] and not pool.failed
+    assert all(len(t) == 4 or t[-1] == 2 for t in outs.values())
+    assert live.report()["fleet"] == [pool.stats()]
+    assert pool.stats()["served"] == 3
 
 
 # -------------------------------------------------------- attestation ----

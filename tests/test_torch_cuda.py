@@ -718,3 +718,62 @@ def test_a_tampered_registry_chunk_is_refused_before_load(cuda, tmp_path,
     tee = Workspace(registry=str(root), key=KEY, net="wifi", device=cuda)
     with pytest.raises(TamperedRecordingError):
         tee.workload(cfg, **REG_SHAPES).engine()
+
+
+def _pool_stats_sans_boot(pool):
+    """Pool stats less every key naming ``boot`` (a registry replica's
+    boot bills its fetched bytes, and an export on the card is not the
+    CPU's byte for byte)."""
+    def strip(obj):
+        if isinstance(obj, dict):
+            return {k: strip(v) for k, v in obj.items() if "boot" not in k}
+        if isinstance(obj, list):
+            return [strip(v) for v in obj]
+        return obj
+    return strip(pool.stats())
+
+
+@pytest.mark.parametrize("source", ["live", "registry"])
+def test_smoke_fleet_on_card_matches_cpu(cuda, source, tmp_path):
+    """A 2-replica qwen2.5-3b smoke fleet on the card (live steps, or
+    booted from a registry: each replica its own client and Replayer,
+    both programs captured as CUDA graphs over the shared params) serves
+    open-loop traffic with the tokens and pool stats of the same fleet on
+    the CPU with the same weights."""
+    from repro_torch.fleet import OpenLoopTraffic, TenantMix
+    cfg = smoke_shrink(get_config("qwen2.5-3b"), dtype="float32")
+    spaces = {}
+    for dev in (cuda, torch.device("cpu")):
+        if source == "registry":     # each device replays its own export
+            root = str(tmp_path / dev.type)
+            _published(cfg, root, dev)
+            spaces[dev.type] = Workspace(registry=root, key=KEY, net="wifi",
+                                         device=dev)
+        else:
+            spaces[dev.type] = Workspace(net="wifi", device=dev)
+    cpu = spaces["cpu"].workload(cfg, **REG_SHAPES)
+    wl = spaces["cuda"].workload(cfg, **REG_SHAPES)
+    wl._params[0] = copy.deepcopy(cpu.params(0)).to(cuda)
+    arrivals = OpenLoopTraffic(
+        [TenantMix(cfg.name, 10.0, prompt_len=REG_SHAPES["seq"],
+                   max_new=(4, 12), vocab=cfg.vocab_size)], seed=3,
+        burst_every_s=1.0, burst_len_s=0.25, burst_x=4.0).generate(1.0)
+    got = []
+    for w in (wl, cpu):
+        pool, _ = w.ws.fleet([w], replicas=2, policy="least_loaded",
+                             name="card")
+        got.append((pool, pool.run(arrivals)))
+    (pool, outs), (cpool, couts) = got
+    assert len(outs) == len(arrivals) and not pool.failed
+    assert outs == couts
+    assert _pool_stats_sans_boot(pool) == _pool_stats_sans_boot(cpool)
+    assert all(r.served > 0 for r in pool.replicas)
+    if source == "registry":
+        for r in pool.replicas:
+            ex = r.scheduler.streams[cfg.name]
+            rp = ex.channel.replayer
+            assert rp.stats["captures"] == 2
+            assert rp.stats["graph_replays"] == \
+                ex.stats["prefill_dispatches"] + ex.stats["blocks_dispatched"]
+        assert len({id(r.scheduler.streams[cfg.name].channel.replayer)
+                    for r in pool.replicas}) == 2

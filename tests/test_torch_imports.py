@@ -43,7 +43,11 @@ def test_import_loads_no_jax():
             "repro_torch.registry.replica", "repro_torch.api.workspace",
             "repro_torch.obs.schema", "repro_torch.launch.attest",
             "repro_torch.examples.quickstart",
-            "repro_torch.examples.secure_inference"} <= set(mods)
+            "repro_torch.examples.secure_inference",
+            "repro_torch.fleet", "repro_torch.fleet.traffic",
+            "repro_torch.fleet.balancer", "repro_torch.fleet.pool",
+            "repro_torch.launch.fleet", "repro_torch.launch.fanout",
+            "repro_torch.launch.trace"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -64,7 +68,9 @@ def test_import_loads_no_jax():
      "repro_torch.core.replay_passes"),
     ("repro_torch.core.netem",), ("repro_torch.record.fanout",),
     ("repro_torch.attest",), ("repro_torch.registry",),
-    ("repro_torch.api",)],
+    ("repro_torch.api",), ("repro_torch.fleet",),
+    ("repro_torch.launch.fleet", "repro_torch.launch.fanout",
+     "repro_torch.launch.trace")],
     ids=lambda m: m[0].removeprefix("repro_torch."))
 def test_recording_session_modules_load_no_jax_or_msgpack(mods):
     """The CODY session's modules alone: metastate sync frames through
