@@ -17,7 +17,10 @@ Phases, each of which raises (exit code != 0) when it fails:
            operations at the H100's peak rates), at the shapes qwen2.5-3b,
            zamba2-1.2b, xlstm-350m and deepseek-v2-lite-16b give it (and
            one mixtral-8x22b expert product; decode attention also at
-           starcoder2-7b's group of 9 and mixtral-8x22b's of 6); the
+           starcoder2-7b's group of 9 and mixtral-8x22b's of 6; both
+           attention kernels at the shapes whisper-large-v3 and
+           phi-3-vision-4.2b give them: hd 96, 1,500 encoder frames,
+           cross-attention with Sq != Sk, a 1,500-slot cross cache); the
            attention kernels over every head-dim pair, group size, ragged
            length and split boundary they take; moe_gmm at every row tile's edges (R = 1,
            8, 9, 64, 65) and at a D off the ring's step; rmsnorm on both
@@ -31,7 +34,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            entering state, a scan's bf16 splits cut to their first part,
            cum not rebased across caller chunks, the scale taken from
            hd_v, a decode group's last head dropped (G = 9 and 6), the
-           last D tile left out of an expert product, an expert
+           last D tile left out of an expert product, the ragged last
+           split of a 1,500-slot cache dropped, an expert
            reading its neighbour's weights, a stale tile in moe_gmm's
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
@@ -115,7 +119,29 @@ Phases, each of which raises (exit code != 0) when it fails:
            over wifi) equal to ``BENCH_replay.json``'s; the session-made
            recording verified and replayed on the card, bit-identical to
            live execution, with 2 L + 1 rmsnorm and L flash launches.
-           Emulated seconds are the link model's output, not measured.
+           Emulated seconds are the link model's output, not measured;
+  families the audio and vlm families: whisper-large-v3 (2 + 2 layers)
+           and phi-3-vision-4.2b (2 layers) in fp32 at full width on the
+           card against the CPU (prefill with frames [2, 1500, 1280] or
+           576 image embeds, caches, a decode step, a fused block), then
+           each at full width and depth in bf16 from seed 0: whisper's
+           batch of 2 prefilled at prompts of 16 and 48 decoder tokens
+           (cache 256), phi-3-vision's 4 requests of 576 + 128 rows
+           prefilled one at a time (cache 1024); 32 tokens decoded in
+           fused blocks of 8 equal to a step-by-step decode_step loop's;
+           launches equal to the formulas (whisper: no rmsnorm); one
+           prefill and one decode block timed (wall, device busy, idle
+           share); the prefill step recorded, signed, verified, loaded
+           and replayed under its CUDA graph with live's tokens;
+  native   BENCH_replay.json's native rows: the six archs of the
+           reference's replay_native.main (qwen2.5-3b, starcoder2-7b,
+           mixtral-8x22b, xlstm-350m, zamba2-1.2b, whisper-large-v3) at
+           its shapes (smoke configs, tokens [1, 32] of ones, frames of
+           ones, cache 64): the live prefill step against its recording
+           replayed on the warmed fast path (a CUDA graph), timed
+           interleaved, best of 7 x 30 calls; every row must hold
+           replay_not_slower_than_native at the bench's 5%.  Nothing is
+           written to BENCH_replay.json.
 
 The line before the last is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -137,10 +163,11 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
-          "replay", "registry", "fleet", "session")
+          "replay", "registry", "fleet", "session", "families", "native")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -340,10 +367,11 @@ def phase_kernels(state):
         log(f"kernels: {kernel:16s} {case:38s} err {err:.3g}  kernel "
             f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
             f"bound {b_ms:.4f} ms ({b_by})")
+        row = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if main:
-            rows[kernel] = dict(case=case, max_abs_err=err, ms=ms,
-                                plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=b_ms, bound_by=b_by)
+            rows[kernel] = row
+        return row
 
     # rmsnorm [4*512, 2048], the prefill rows of 4 requests of 512 tokens
     R, D = 4 * 512, 2048
@@ -365,98 +393,7 @@ def phase_kernels(state):
                2 * R * D * esz + 4 * D, 4 * R * D, "float32")
     _rmsnorm_kernels(randn, record, tols)
 
-    # flash attention: q [1,S,16,128] vs k/v [1,S,2,128]
-    H, Hkv, hd = 16, 2, 128
-    for S, window in ((37, 0), (512, 0), (512, 128)):
-        for dname, dt in dts.items():
-            esz = torch.finfo(dt).bits // 8
-
-            def make(dt=dt, S=S):
-                return (randn(1, S, H, hd, dt=dt), randn(1, S, Hkv, hd, dt=dt),
-                        randn(1, S, Hkv, hd, dt=dt))
-            args_list = cold_copies(make, (2 * S * H + 2 * S * Hkv) * hd * esz)
-            q, k, v = args_list[0]
-            run = lambda q, k, v, w=window: K.flash_attention(
-                q, k, v, causal=True, window=w)
-            plain = lambda q, k, v, w=window: K.flash_attention_plain(
-                q, k, v, causal=True, window=w)
-            err = _check(f"flash S={S} window={window} {dname}", run(q, k, v),
-                         plain(q, k, v), tols[dname])
-            if window:
-                _reject(f"flash S={S} window {window}+1 {dname}",
-                        K.flash_attention(q, k, v, causal=True,
-                                          window=window + 1),
-                        plain(q, k, v), tols[dname])
-            i = torch.arange(S)
-            vis = i[:, None] >= i[None, :]
-            if window:
-                vis &= i[:, None] - i[None, :] < window
-                mask = vis.to(dev)
-                lib = lambda q, k, v, m=mask: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=m, enable_gqa=True)
-            else:
-                lib = lambda q, k, v: F.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    is_causal=True, enable_gqa=True)
-            pairs = int(vis.sum())
-            record("flash_attention",
-                   f"S={S} causal window={window} {dname}",
-                   (S, window, dname) == (512, 0, "bfloat16"), err, args_list,
-                   run, plain, lib, (2 * S * H + 2 * S * Hkv) * hd * esz,
-                   4 * hd * H * pairs, dname)
-
-    # q/k/v of the same shapes, bidirectional: every block walks all 8 K
-    # tiles, so against the causal case it shows what the longest query
-    # tile's walk costs
-    def make(S=512):
-        return (randn(1, S, H, hd, dt=torch.bfloat16),
-                randn(1, S, Hkv, hd, dt=torch.bfloat16),
-                randn(1, S, Hkv, hd, dt=torch.bfloat16))
-    args_list = cold_copies(make, (2 * 512 * H + 2 * 512 * Hkv) * hd * 2)
-    run = lambda q, k, v: K.flash_attention(q, k, v, causal=False)
-    plain = lambda q, k, v: K.flash_attention_plain(q, k, v, causal=False)
-    err = _check("flash S=512 bidirectional bfloat16", run(*args_list[0]),
-                 plain(*args_list[0]), tols["bfloat16"])
-    lib = lambda q, k, v: F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        enable_gqa=True)
-    record("flash_attention", "S=512 bidirectional bfloat16", False, err,
-           args_list, run, plain, lib, (2 * 512 * H + 2 * 512 * Hkv) * hd * 2,
-           4 * hd * H * 512 * 512, "bfloat16")
-
-    # decode attention: q [4,16,128] vs caches [4,1024,2,128]
-    B, W = 4, 1024
-    lens_host = torch.randint(1, W + 1, (B,), generator=torch.Generator()
-                              .manual_seed(0), dtype=torch.int32)
-    lens = lens_host.to(dev)
-    for dname, dt in dts.items():
-        esz = torch.finfo(dt).bits // 8
-
-        def make(dt=dt):
-            return (randn(B, H, hd, dt=dt), randn(B, W, Hkv, hd, dt=dt),
-                    randn(B, W, Hkv, hd, dt=dt), lens.clone())
-        args_list = cold_copies(make, 2 * B * W * Hkv * hd * esz)
-        q, kc, vc, ln = args_list[0]
-        err = _check(f"decode {dname}", K.decode_attention(q, kc, vc, ln),
-                     K.decode_attention_plain(q, kc, vc, ln), tols[dname])
-        if dname == "float32":
-            _reject(f"decode lengths-1 {dname}",
-                    K.decode_attention(q, kc, vc, (ln - 1).clamp_min(1)),
-                    K.decode_attention_plain(q, kc, vc, ln), tols[dname])
-        valid = (torch.arange(W, device=dev)[None] < lens[:, None])
-
-        def lib(q, kc, vc, ln, m=valid[:, None, None, :]):
-            return F.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=m, enable_gqa=True)
-        n_valid = int(lens_host.sum())
-        record("decode_attention",
-               f"B={B} W={W} lengths={lens_host.tolist()} {dname}",
-               dname == "bfloat16", err, args_list, K.decode_attention,
-               K.decode_attention_plain, lib,
-               (2 * B * H * hd + 2 * n_valid * Hkv * hd) * esz + 4 * B,
-               4 * hd * H * n_valid, dname)
+    _attention_rows(randn, record, tols, state)
 
     # the other head dims and group sizes the kernels take (smoke widths)
     for (Bx, Sq, Sk, Hx, Hk, hdx, causal, win) in (
@@ -496,76 +433,211 @@ def phase_kernels(state):
                K.rmsnorm, K.rmsnorm_plain, lib, 2 * 300 * D * 2 + 4 * D,
                4 * 300 * D, "float32")
 
-    # zamba2's shared attention: 32 query and 32 KV heads of 64 (G = 1)
-    Hz, hdz, Sz = 32, 64, 300
-    for dname, dt in dts.items():
-        esz = torch.finfo(dt).bits // 8
-
-        def make(dt=dt):
-            return tuple(randn(1, Sz, Hz, hdz, dt=dt) for _ in range(3))
-        args_list = cold_copies(make, 4 * Sz * Hz * hdz * esz)
-        q, k, v = args_list[0]
-        run = lambda q, k, v: K.flash_attention(q, k, v, causal=True)
-        plain = lambda q, k, v: K.flash_attention_plain(q, k, v, causal=True)
-        err = _check(f"flash zamba2 S={Sz} {dname}", run(q, k, v),
-                     plain(q, k, v), tols[dname])
-        lib = lambda q, k, v: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True)
-        record("flash_attention", f"zamba2 S={Sz} H=32 G=1 hd=64 {dname}",
-               False, err, args_list, run, plain, lib,
-               4 * Sz * Hz * hdz * esz, 4 * hdz * Hz * Sz * (Sz + 1) // 2,
-               dname)
-
-        def make(dt=dt):
-            return (randn(B, Hz, hdz, dt=dt), randn(B, W, Hz, hdz, dt=dt),
-                    randn(B, W, Hz, hdz, dt=dt), lens.clone())
-        args_list = cold_copies(make, 2 * B * W * Hz * hdz * esz)
-        q, kc, vc, ln = args_list[0]
-        err = _check(f"decode zamba2 {dname}", K.decode_attention(q, kc, vc, ln),
-                     K.decode_attention_plain(q, kc, vc, ln), tols[dname])
-
-        def lib(q, kc, vc, ln, m=valid[:, None, None, :]):
-            return F.scaled_dot_product_attention(
-                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                attn_mask=m)
-        record("decode_attention",
-               f"zamba2 B={B} W={W} H=32 G=1 hd=64 {dname}", False, err,
-               args_list, K.decode_attention, K.decode_attention_plain, lib,
-               (2 * B * Hz * hdz + 2 * n_valid * Hz * hdz) * esz + 4 * B,
-               4 * hdz * Hz * n_valid, dname)
-
-    # the groups that do not divide the block: starcoder2-7b's 36 query
-    # heads over 4 KV heads (G = 9) and mixtral-8x22b's 48 over 8 (G = 6)
-    for arch, Hg, Hkg in (("starcoder2-7b", 36, 4), ("mixtral-8x22b", 48, 8)):
-        for dname, dt in dts.items():
-            esz = torch.finfo(dt).bits // 8
-
-            def make(dt=dt, Hg=Hg, Hkg=Hkg):
-                return (randn(B, Hg, hd, dt=dt), randn(B, W, Hkg, hd, dt=dt),
-                        randn(B, W, Hkg, hd, dt=dt), lens.clone())
-            args_list = cold_copies(make, 2 * B * W * Hkg * hd * esz)
-            q, kc, vc, ln = args_list[0]
-            G = Hg // Hkg
-            err = _check(f"decode {arch} G={G} {dname}",
-                         K.decode_attention(q, kc, vc, ln),
-                         K.decode_attention_plain(q, kc, vc, ln), tols[dname])
-
-            def lib(q, kc, vc, ln, m=valid[:, None, None, :]):
-                return F.scaled_dot_product_attention(
-                    q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
-                    attn_mask=m, enable_gqa=True)
-            record("decode_attention",
-                   f"{arch} B={B} W={W} H={Hg} G={G} hd={hd} {dname}", False,
-                   err, args_list, K.decode_attention,
-                   K.decode_attention_plain, lib,
-                   (2 * B * Hg * hd + 2 * n_valid * Hkg * hd) * esz + 4 * B,
-                   4 * hd * Hg * n_valid, dname)
-
     _attention_sweep(randn, tols, dev)
     _scan_kernels(randn, record, _scan_times(randn, state))
     _moe_kernels(randn, record, tols)
     torch.cuda.synchronize()
+
+
+class FlashRow(NamedTuple):
+    """One shape the flash kernel is checked, faulted and timed at."""
+    label: str
+    B: int
+    Sq: int
+    Sk: int
+    H: int
+    Hkv: int
+    hd: int
+    causal: bool = True
+    window: int = 0
+    role: str = ""       # "main": the kernel's row of the kernels line;
+    #                      "families": a sub-row, launched in phase families
+    faults: tuple = ()   # planted, must fail: "window+1", "short_tiles"
+
+    @property
+    def key(self):
+        return attention_key("flash_attention",
+                             (self.B, self.Sq, self.H, self.hd),
+                             (self.B, self.Sk, self.Hkv, self.hd))
+
+
+class DecodeRow(NamedTuple):
+    """One shape the decode kernel is checked, faulted and timed at."""
+    label: str
+    B: int
+    H: int
+    Hkv: int
+    W: int
+    hd: int
+    length: int = 0      # every row's length; 0: drawn (RANDOM_LENGTHS)
+    role: str = ""
+    faults: tuple = ()   # "lengths-1", "drop_head", "ragged_split"
+
+    @property
+    def key(self):
+        return attention_key("decode_attention", (self.B, self.H, self.hd),
+                             (self.B, self.W, self.Hkv, self.hd))
+
+
+FLASH_ROWS = (
+    FlashRow("qwen2.5-3b S=37", 1, 37, 37, 16, 2, 128),
+    FlashRow("qwen2.5-3b S=512", 1, 512, 512, 16, 2, 128, role="main"),
+    FlashRow("qwen2.5-3b S=512", 1, 512, 512, 16, 2, 128, window=128,
+             faults=("window+1",)),
+    # every query tile walks all 8 K tiles: against the causal case it
+    # shows what the longest query tile's walk costs
+    FlashRow("qwen2.5-3b S=512", 1, 512, 512, 16, 2, 128, causal=False),
+    FlashRow("zamba2 shared attention", 1, 300, 300, 32, 32, 64),
+    FlashRow("phi-3 prefill, 576 image + 128 text rows", 1, 704, 704, 32, 32,
+             96, role="families", faults=("short_tiles",)),
+    FlashRow("whisper encoder", 2, 1500, 1500, 20, 20, 64, causal=False,
+             role="families"),
+    FlashRow("whisper cross", 2, 48, 1500, 20, 20, 64, causal=False,
+             role="families"))
+DECODE_ROWS = (
+    DecodeRow("qwen2.5-3b", 4, 16, 2, 1024, 128, role="main",
+              faults=("lengths-1",)),
+    DecodeRow("zamba2 shared attention", 4, 32, 32, 1024, 64),
+    # the groups that do not divide the block
+    DecodeRow("starcoder2-7b", 4, 36, 4, 1024, 128),
+    DecodeRow("mixtral-8x22b", 4, 48, 8, 1024, 128),
+    DecodeRow("phi-3 decode", 4, 32, 32, 1024, 96, length=720,
+              role="families", faults=("drop_head", "ragged_split")),
+    DecodeRow("whisper cross decode", 2, 20, 20, 1500, 64, length=1500,
+              role="families", faults=("drop_head", "ragged_split")))
+# (W, B) of the rows whose lengths are drawn, from 1 to W (seed 0)
+RANDOM_LENGTHS = (1024, 4)
+
+
+def attention_key(kernel, q_shape, k_shape):
+    """The key launches are counted under by shape: the kernel's name and
+    its wrapper's ``by_shape`` key."""
+    return kernel, (tuple(q_shape), tuple(k_shape))
+
+
+def _attention_rows(randn, record, tols, state):
+    """Both attention kernels at FLASH_ROWS and DECODE_ROWS, each against
+    its plain version, timed beside it, SDPA and its bound, in bf16 and
+    fp32, with each row's planted faults; the rows of role "families" go
+    to ``state["family_kernel_rows"]`` under their ``attention_key``."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _build
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda")
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    family = state["family_kernel_rows"] = {}
+    for r in FLASH_ROWS:
+        off = r.Sk - r.Sq
+        i, j = torch.arange(r.Sq)[:, None] + off, torch.arange(r.Sk)[None]
+        vis = (i >= j) if r.causal else torch.ones(r.Sq, r.Sk, dtype=bool)
+        if r.window:
+            vis &= i - j < r.window
+        pairs = r.B * int(vis.sum())
+        mask = vis.to(dev)
+        kind = f"causal window {r.window}" if r.window else \
+            "causal" if r.causal else "bidirectional"
+        run = lambda q, k, v, r=r: K.flash_attention(
+            q, k, v, causal=r.causal, window=r.window)
+        plain = lambda q, k, v, r=r: K.flash_attention_plain(
+            q, k, v, causal=r.causal, window=r.window)
+        if r.causal and not r.window and not off:
+            lib = lambda q, k, v, r=r: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=r.H != r.Hkv)
+        else:
+            lib = lambda q, k, v, r=r, m=None if vis.all() else mask: \
+                F.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=m, enable_gqa=r.H != r.Hkv)
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+            nbytes = (2 * r.Sq * r.H + 2 * r.Sk * r.Hkv) * r.B * r.hd * esz
+
+            def make(r=r, dt=dt):
+                return (randn(r.B, r.Sq, r.H, r.hd, dt=dt),
+                        randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt),
+                        randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt))
+            args_list = cold_copies(make, nbytes)
+            q, k, v = args_list[0]
+            case = (f"{r.label}: q {list(q.shape)} k {list(k.shape)} "
+                    f"{kind} {dname}")
+            want = plain(q, k, v)
+            err = _check(f"flash {case}", run(q, k, v), want, tols[dname])
+            if "window+1" in r.faults:
+                _reject(f"flash {case}, window + 1", K.flash_attention(
+                    q, k, v, causal=True, window=r.window + 1), want,
+                    tols[dname])
+            if "short_tiles" in r.faults:
+                _reject(f"flash {case}, causal tile skip one tile short",
+                        FA._launch(q, k, v, True, 0, r.hd ** -0.5, off,
+                                   short_tiles=1), want, tols[dname])
+            row = record("flash_attention", case,
+                         r.role == "main" and dname == "bfloat16", err,
+                         args_list, run, plain, lib, nbytes,
+                         4 * r.hd * r.H * pairs, dname)
+            if r.role == "families" and dname == "bfloat16":
+                family[r.key] = row
+            del args_list, q, k, v, want
+
+    W0, B0 = RANDOM_LENGTHS
+    lens0 = torch.randint(1, W0 + 1, (B0,), generator=torch.Generator()
+                          .manual_seed(0), dtype=torch.int32)
+    for r in DECODE_ROWS:
+        lens = torch.full((r.B,), r.length, dtype=torch.int32) if r.length \
+            else lens0
+        assert r.length or (r.W, r.B) == RANDOM_LENGTHS, r
+        n_valid = int(lens.sum())
+        lens = lens.to(dev)
+        valid = torch.arange(r.W, device=dev)[None] < lens[:, None]
+
+        def lib(q, kc, vc, ln, m=valid[:, None, None, :], r=r):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=m, enable_gqa=r.H != r.Hkv)
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+            nbytes = (2 * r.B * r.H * r.hd + 2 * n_valid * r.Hkv * r.hd) \
+                * esz + 4 * r.B
+
+            def make(r=r, dt=dt, lens=lens):
+                return (randn(r.B, r.H, r.hd, dt=dt),
+                        randn(r.B, r.W, r.Hkv, r.hd, dt=dt),
+                        randn(r.B, r.W, r.Hkv, r.hd, dt=dt), lens.clone())
+            args_list = cold_copies(make, 2 * r.B * r.W * r.Hkv * r.hd * esz)
+            q, kc, vc, ln = args_list[0]
+            case = (f"{r.label}: q {list(q.shape)} caches {list(kc.shape)} "
+                    f"G={r.H // r.Hkv} lengths {lens.tolist()} {dname}")
+            want = K.decode_attention_plain(q, kc, vc, ln)
+            err = _check(f"decode {case}", K.decode_attention(q, kc, vc, ln),
+                         want, tols[dname])
+            if "lengths-1" in r.faults and dname == "float32":
+                _reject(f"decode {case}, lengths - 1", K.decode_attention(
+                    q, kc, vc, (ln - 1).clamp_min(1)), want, tols[dname])
+            if "drop_head" in r.faults:
+                _reject(f"decode {case}, the group's last head dropped",
+                        DA._launch(q, kc, vc, ln, r.hd ** -0.5,
+                                   fault=DA.FAULT_DROP_LAST_HEAD),
+                        want, tols[dname])
+            plan = DA.plan_splits(r.B, r.Hkv, r.W, _build.sm_count(dev))
+            if "ragged_split" in r.faults and dname == "float32" and \
+                    r.W % plan.chunk and r.length == r.W:
+                _reject(f"decode {case}, the ragged last split of {plan} "
+                        f"dropped", DA._launch(
+                            q, kc, vc, ln, r.hd ** -0.5,
+                            DA.SplitPlan(plan.splits - 1, plan.chunk)),
+                        want, tols[dname])
+            row = record("decode_attention", case,
+                         r.role == "main" and dname == "bfloat16", err,
+                         args_list, K.decode_attention,
+                         K.decode_attention_plain, lib, nbytes,
+                         4 * r.hd * r.H * n_valid, dname)
+            if r.role == "families" and dname == "bfloat16":
+                family[r.key] = row
+            del args_list, q, kc, vc, ln, want
 
 
 def _rmsnorm_kernels(randn, record, tols):
@@ -1058,10 +1130,12 @@ def _routes_recorded(store):
         MOE.route = route
 
 
-def _parity(cfg, toks, lens=None, cache_len=128, k=8):
+def _parity(cfg, toks, lens=None, cache_len=128, k=8, extra=None):
     """``cfg`` at full width, fp32: prefill (batched with ``lens``, else
     per request), its caches, one decode step and one fused block on the
-    card (kernels) against the same weights on the CPU (plain versions)."""
+    card (kernels) against the same weights on the CPU (plain versions).
+    ``extra`` holds the batch's other inputs (numpy: whisper's frames,
+    phi-3-vision's image embeds, whose rows count in the positions)."""
     import torch
     from repro_torch.models import model as M
     from repro_torch.serving.cache import cache_leaves
@@ -1071,20 +1145,24 @@ def _parity(cfg, toks, lens=None, cache_len=128, k=8):
     gpu_params = copy.deepcopy(cpu_params).to("cuda")
     fused = ST.make_fused_decode_step(cfg, k=k)
     res, routes = {}, {}
+    extra = extra or {}
+    n_img = extra["image_embeds"].shape[1] if "image_embeds" in extra else 0
     for dev, params in (("cuda", gpu_params), ("cpu", cpu_params)):
         t = torch.as_tensor(toks, device=dev)
+        batch = {"tokens": t, **{name: torch.as_tensor(a, device=dev)
+                                 for name, a in extra.items()}}
         with _routes_recorded(routes.setdefault(dev, [])):
             if lens is None:
                 out, caches = ST.make_prefill_step(cfg, cache_len)(
-                    params, {"tokens": t})
-                pos = torch.full((t.shape[0],), t.shape[1],
+                    params, batch)
+                pos = torch.full((t.shape[0],), t.shape[1] + n_img,
                                  dtype=torch.int32, device=dev)
             else:
                 pos = torch.as_tensor(lens, dtype=torch.int32, device=dev)
                 out, caches = ST.make_batched_prefill_step(cfg, cache_len)(
                     params, t, pos)
         prefilled = [c.to("cpu", copy=True) for c in cache_leaves(caches)]
-        logits, _ = M.forward(params, cfg, {"tokens": t})
+        logits, _ = M.forward(params, cfg, batch)
         step_logits, _ = M.decode_step(params, cfg, out["next_tokens"],
                                        pos.clone(), copy.deepcopy(caches))
         blk, caches = fused(params, out["next_tokens"], pos, caches)
@@ -1371,15 +1449,50 @@ def _custom_kernel_ms(prof):
     return out
 
 
-def _profile(cfg, params, eng=None, label=""):
-    """Where one fused decode block's time goes at full width: host clock
-    around a synchronous block, and torch.profiler's device kernels for
-    the same block (busy = union of kernel intervals).  ``eng`` is the
-    live engine unless given (it must serve 4 slots, cache 1024, block_k
-    8, no speculation); returns (wall ms, device busy ms)."""
-    import numpy as np
+def _timed(label, fn):
+    """Wall ms of one synchronised ``fn()`` (best of three, after one to
+    warm) and torch.profiler's device busy ms (the union of the CUDA
+    kernels' intervals) for one more call, logged under ``label`` with
+    each custom kernel's device ms and wrapper launches in that call:
+    (wall ms, busy ms, the profile)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch import kernels as K
+    fn()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    launches = K.launch_counts()
+    busy, n_kern = _device_busy(prof)
+    wall = min(walls)
+    log(f"{label}: {wall:.2f} ms wall (best of "
+        f"{[round(w, 2) for w in walls]}); device busy {busy:.2f} ms over "
+        f"{n_kern} kernels; device idle share {1 - busy / wall:.3f}")
+    for name, ms, n in _custom_kernel_ms(prof):
+        if n:
+            log(f"{label}: {name} {ms:.4f} ms of device time over "
+                f"{launches[name]} wrapper launches ({n} CUDA kernels, "
+                f"{ms * 1e3 / n:.2f} us each; {ms / busy:.4f} of device "
+                f"busy)")
+    return wall, busy, prof
+
+
+def _profile(cfg, params, eng=None, label=""):
+    """Where one fused decode block's time goes at full width
+    (``_timed``), with the profile's top ops by device and host time.
+    ``eng`` is the live engine unless given (it must serve 4 slots, cache
+    1024, block_k 8, no speculation); returns (wall ms, device busy ms)."""
+    import numpy as np
+    import torch
     from repro_torch.launch.serve import build_engine
 
     if eng is None:
@@ -1395,28 +1508,8 @@ def _profile(cfg, params, eng=None, label=""):
     torch.cuda.synchronize()
     log(f"profile {name}: prefill 4x128 + first block: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms wall")
-    eng.step_block()                   # warm
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng.step_block()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = min(walls)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng.step_block()
-        torch.cuda.synchronize()
-    busy, n_kern = _device_busy(prof)
-    log(f"profile {name}: one 8-step decode block, 4 slots: {wall:.2f} "
-        f"ms wall (best of {walls}); device busy {busy:.2f} ms over "
-        f"{n_kern} kernels ({n_kern / 8:.0f} per step); device idle "
-        f"share {1 - busy / wall:.3f}")
-    for kname, ms, n in _custom_kernel_ms(prof):
-        log(f"profile {name}: {kname} {ms:.4f} ms of device time per "
-            f"block over {n} CUDA kernels ({ms * 1e3 / max(n, 1):.2f} us "
-            f"each; {ms / busy:.4f} of device busy)")
+    wall, busy, prof = _timed(
+        f"profile {name}: one 8-step decode block, 4 slots", eng.step_block)
     by_dev = prof.key_averages().table(sort_by="self_device_time_total",
                                        row_limit=8, max_name_column_width=40)
     by_cpu = prof.key_averages().table(sort_by="self_cpu_time_total",
@@ -1433,45 +1526,18 @@ PREFILL_TOKENS = 300
 
 def _prefill_profile(cfg, params, S=PREFILL_TOKENS):
     """Where one request's prefill of S tokens spends its time at full
-    width (the prefill step the Engine runs for a recurrent model): host
-    clock around a synchronous prefill (best of three), torch.profiler's
-    device kernels for one more (busy = union of kernel intervals), each
-    custom kernel's device ms, and the wrappers' launch counts."""
+    width (the prefill step the Engine runs for a recurrent model), as
+    ``_timed`` measures it."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch import kernels as K
     from repro_torch.training import steps as ST
 
     step = ST.make_prefill_step(cfg, 1024)
     rng = np.random.default_rng(0)
     toks = torch.as_tensor(rng.integers(3, cfg.vocab_size, (1, S))
                            .astype("int32"), device="cuda")
-    step(params, {"tokens": toks})      # warm
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(params, {"tokens": toks})
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    K.reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(params, {"tokens": toks})
-        torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in K.KERNELS}
-    busy, n_kern = _device_busy(prof)
-    wall = min(walls)
-    log(f"prefill {cfg.name}: one request of {S} tokens: {wall:.2f} ms wall "
-        f"(best of {[round(w, 2) for w in walls]}); device busy {busy:.2f} "
-        f"ms over {n_kern} kernels; device idle share {1 - busy / wall:.3f}")
-    for name, ms, n in _custom_kernel_ms(prof):
-        if n:
-            log(f"prefill {cfg.name}: {name} {ms:.4f} ms of device time over "
-                f"{launches[name]} launches ({n} CUDA kernels; "
-                f"{ms / busy:.4f} of device busy)")
+    _timed(f"prefill {cfg.name}: one request of {S} tokens",
+           lambda: step(params, {"tokens": toks}))
 
 
 def _scan_times(randn, state):
@@ -2792,6 +2858,375 @@ def phase_session(state):
         f"{ {k: replayed[k] for k in formula} } (2 L + 1 and L)")
 
 
+FAMILY_KEY = b"chip-smoke-families-key"
+# the families' serving shapes: batch rows, prompt lengths (decoder
+# tokens; phi-3-vision's follow its 576 image rows), cache, block, tokens
+FAMILY_RUNS = {
+    "whisper-large-v3": dict(batch=2, prompts=(16, 48), cache_len=1536,
+                             block_k=8, max_new=32),
+    "phi-3-vision-4.2b": dict(batch=4, prompts=(128,), cache_len=1024,
+                              block_k=8, max_new=32),
+}
+
+
+def _family_extra(cfg, B, rng):
+    """The batch's other inputs, numpy fp32 from ``rng``: whisper's
+    encoder frames [B, 1500, D] or phi-3-vision's image embeds
+    [B, 576, D]."""
+    import numpy as np
+    if cfg.family == "audio":
+        shape, name = (B, cfg.encdec.encoder_seq, cfg.d_model), "frames"
+    else:
+        shape, name = (B, cfg.vlm.num_image_tokens, cfg.d_model), \
+            "image_embeds"
+    return {name: rng.standard_normal(shape).astype(np.float32)}
+
+
+def _family_launches(cfg, prefills, steps):
+    """The kernel launches of ``prefills`` prefills and ``steps`` decode
+    steps of an audio or vlm model: whisper's encoder (bidirectional),
+    decoder and cross-attention flash per prefill, the decoder's self- and
+    cross-attention decode per step, no rmsnorm (layernorm stays plain);
+    phi-3-vision the dense model's."""
+    L = cfg.num_layers
+    if cfg.family == "audio":
+        return {"flash_attention": (cfg.encdec.num_encoder_layers + 2 * L)
+                * prefills, "decode_attention": 2 * L * steps,
+                "rmsnorm": 0, "moe_gmm": 0, "mamba_chunk_scan": 0,
+                "mlstm_chunk_scan": 0}
+    return {"flash_attention": L * prefills, "decode_attention": L * steps,
+            "rmsnorm": (2 * L + 1) * (prefills + steps), "moe_gmm": 0,
+            "mamba_chunk_scan": 0, "mlstm_chunk_scan": 0}
+
+
+def _family_decode(cfg, params, fused, out, caches, pos0, max_new, block_k):
+    """The fused decode's tokens [B, max_new] from ``out``'s first token,
+    and a step-by-step ``decode_step`` loop's on a copy of the caches
+    (rows freeze at EOS as the fused step freezes them)."""
+    import torch
+    from repro_torch.models import model as M
+    step_caches = copy.deepcopy(caches)
+    tok, B = out["next_tokens"], out["next_tokens"].shape[0]
+    pos = torch.full((B,), pos0, dtype=torch.int32, device="cuda")
+    blocks = []
+    for _ in range(max_new // block_k):
+        o, caches = fused(params, tok, pos, caches)
+        blocks.append(o["tokens"])
+        tok, pos = o["tokens"][:, -1], o["pos"]
+    tok = out["next_tokens"]
+    pos = torch.full((B,), pos0, dtype=torch.int32, device="cuda")
+    done = torch.zeros(B, dtype=torch.bool, device="cuda")
+    steps = []
+    for _ in range(max_new):
+        logits, step_caches = M.decode_step(params, cfg, tok, pos,
+                                            step_caches)
+        nxt = torch.where(done, tok, logits.argmax(-1).to(torch.int32))
+        done = done | (nxt == 2)
+        pos = torch.where(done, pos, pos + 1)
+        tok = nxt
+        steps.append(nxt)
+    return torch.cat(blocks, 1), torch.stack(steps, 1), caches
+
+
+def _prefill_rows(cfg, prefill, params, batch):
+    """The batch's rows prefilled one at a time, as a server admits
+    requests, and their outputs and caches stacked into one batch (each
+    cache leaf along its ``batch`` axis of ``model.cache_axes``)."""
+    import torch
+    from repro_torch.models import model as M
+    parts = [prefill(params, {n: t[i:i + 1] for n, t in batch.items()})
+             for i in range(batch["tokens"].shape[0])]
+    out = {k: torch.cat([o[k] for o, _ in parts]) for k in parts[0][0]}
+
+    def cat(ax, leaves):
+        if isinstance(ax, dict):
+            return {k: cat(ax[k], [t[k] for t in leaves]) for k in ax}
+        return torch.cat(leaves, ax.index("batch"))
+    caches = [cat(ax, [c[i] for _, c in parts])
+              for i, ax in enumerate(M.cache_axes(cfg))]
+    return out, caches
+
+
+def _family_shape_launches(cfg, S, B, steps):
+    """{attention_key: launches} that one prompt-length run of
+    ``_family_serve`` must make: whisper's encoder, decoder and cross
+    flash per layer of one batched prefill and its self- and
+    cross-attention decode per layer and step; phi-3-vision's flash per
+    layer of each request's prefill and its decode per layer and step."""
+    L, hd = cfg.num_layers, cfg.hd()
+    H, Hkv, cache = cfg.num_heads, cfg.num_kv_heads, FAMILY_RUNS[cfg.name]
+    W = cache["cache_len"]
+    if cfg.family == "audio":
+        E = cfg.encdec.encoder_seq
+        q, qe, qd = (B, S, H, hd), (B, E, H, hd), (B, H, hd)
+        return {
+            attention_key("flash_attention", qe, qe):
+                cfg.encdec.num_encoder_layers,
+            attention_key("flash_attention", q, (B, S, Hkv, hd)): L,
+            attention_key("flash_attention", q, (B, E, Hkv, hd)): L,
+            attention_key("decode_attention", qd, (B, W, Hkv, hd)): L * steps,
+            attention_key("decode_attention", qd, (B, E, Hkv, hd)):
+                L * steps}
+    S += cfg.vlm.num_image_tokens
+    return {
+        attention_key("flash_attention", (1, S, H, hd), (1, S, Hkv, hd)):
+            L * B,
+        attention_key("decode_attention", (B, H, hd), (B, W, Hkv, hd)):
+            L * steps}
+
+
+def _family_serve(state, arch):
+    """One model of the family at full width and depth (bf16, weights
+    from seed 0): per prompt length, prefill the batch, decode max_new
+    tokens in fused blocks and step by step (equal tokens), launches
+    equal to the formulas; one prefill and one decode block timed;
+    record -> sign -> replay of the prefill step (warmed: captured as a
+    CUDA graph) with live's outputs.  Its weights are freed after."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.recorder import record
+    from repro_torch.core.replay import Replayer
+    from repro_torch.models import layers as Lyr
+    from repro_torch.training import steps as ST
+
+    run = FAMILY_RUNS[arch]
+    cfg = get_config(arch)
+    B, cache_len, block_k, max_new = (run["batch"], run["cache_len"],
+                                      run["block_k"], run["max_new"])
+    params = _init_params(cfg)
+    prefill = ST.make_prefill_step(cfg, cache_len)
+    fused = ST.make_fused_decode_step(cfg, k=block_k)
+    rng = np.random.default_rng(5)
+    extra = _family_extra(cfg, B, rng)
+    n_img = cfg.vlm.num_image_tokens if cfg.family == "vlm" else 0
+    batches = {}
+    for S in run["prompts"]:
+        toks = rng.integers(3, cfg.vocab_size, (B, S)).astype("int32")
+        batch = {"tokens": torch.as_tensor(toks, device="cuda"),
+                 **{n: torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+                    for n, a in extra.items()}}
+        batches[S] = batch
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        # whisper prefills its batch in one call, phi-3-vision one request
+        # at a time
+        out, caches = prefill(params, batch) if cfg.family == "audio" \
+            else _prefill_rows(cfg, prefill, params, batch)
+        fused_toks, step_toks, caches = _family_decode(
+            cfg, params, fused, out, caches, S + n_img, max_new, block_k)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = K.launch_counts()
+        # the step loop's launches: max_new more decode steps
+        prefills = 1 if cfg.family == "audio" else B
+        want = _family_launches(cfg, prefills, 2 * max_new)
+        assert launches == want, (arch, S, launches, want)
+        assert torch.equal(fused_toks, step_toks), \
+            f"families {arch}: fused and step-by-step tokens differ " \
+            f"({fused_toks.tolist()} vs {step_toks.tolist()})"
+        # each attention launch by its shapes, against the shapes the
+        # model gives the kernels (the table rows among them)
+        by_shape = {attention_key(k.__name__, *key): n
+                    for k in (K.flash_attention, K.decode_attention)
+                    for key, n in k.by_shape.items()}
+        assert by_shape == _family_shape_launches(cfg, S, B, 2 * max_new), \
+            (arch, S, by_shape)
+        log(f"families: {arch} batch {B} prompt {S} (+{n_img} image rows): "
+            f"prefill, {max_new} tokens in fused blocks of {block_k} and "
+            f"step by step in {dt:.2f} s; tokens equal "
+            f"{fused_toks[:, :8].tolist()}...; launches equal {want}; "
+            f"attention launches by (q, k) shape {list(by_shape.values())} "
+            f"at {[key for _, key in by_shape]}")
+        shapes = state.setdefault("family_shape_launches", {})
+        for key, n in by_shape.items():
+            shapes[key] = shapes.get(key, 0) + n
+    S = run["prompts"][-1]
+    batch = batches[S]
+
+    # one prefill (phi-3-vision: one request, 576 + 128 rows) and one
+    # fused decode block of the batch
+    one = {n: t[:1] for n, t in batch.items()} if cfg.family == "vlm" \
+        else batch
+    rows = one["tokens"].shape[0]
+    _timed(f"families: {arch} one prefill of {rows} x {S + n_img} tokens",
+           lambda: prefill(params, one))
+    out, caches = prefill(params, batch)    # (the batch in one call here)
+    pos = torch.full((B,), S + n_img, dtype=torch.int32, device="cuda")
+    _timed(f"families: {arch} one decode block of {block_k} steps, {B} "
+           f"rows, cache {cache_len}",
+           lambda: fused(params, out["next_tokens"], pos, caches))
+
+    # record -> sign -> replay of the prefill step at full width
+    tree = Lyr.to_tree(params)
+    want, _ = prefill(params, batch)
+    t0 = time.perf_counter()
+    rec = record(f"{arch}:prefill", prefill, (tree, batch))
+    blob = rec.sign_with(FAMILY_KEY).to_bytes()
+    t_rec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rp = Replayer(key=FAMILY_KEY, device="cuda")
+    name = rp.load(blob)
+    t_load = time.perf_counter() - t0
+    rp.warm(name)
+    got, _ = rp.execute(name, tree, batch)
+    torch.cuda.synchronize()
+    assert rp.stats["captures"] == 1, rp.stats
+    assert torch.equal(got["next_tokens"], want["next_tokens"]), \
+        f"families {arch}: replayed prefill tokens differ from live"
+    err = (got["last_logits"].float() - want["last_logits"].float()) \
+        .abs().max().item()
+    per_replay = rp.captured_launches(name)
+    assert per_replay == {k: n for k, n in _family_launches(cfg, 1, 0)
+                          .items() if n}, per_replay
+    # the batch was built tokens first; its leaves are recorded sorted
+    shapes = [i["shape"] for i in rec.manifest["inputs"][-len(batch):]]
+    assert shapes == [list(batch[n].shape) for n in sorted(batch)], shapes
+    log(f"families: {arch}: prefill recorded and signed in {t_rec:.2f} s "
+        f"({len(rec.payload) / 1e6:.2f} MB, {len(rec.manifest['inputs'])} "
+        f"inputs, the batch's last in JAX's order: {shapes}), verified and "
+        f"loaded in {t_load:.2f} s; the replay under its CUDA graph gives "
+        f"live's next tokens {got['next_tokens'].tolist()}, last logits "
+        f"max |err| {err:.3g}; one replay launches {per_replay}")
+    del params, tree, rp, caches, out
+    torch.cuda.empty_cache()
+
+
+def phase_families(state):
+    """The audio and vlm families: whisper-large-v3 and phi-3-vision-4.2b
+    in fp32 at 2 layers (whisper: 2 + 2) on the card against the CPU,
+    then each at full width and depth in bf16 (``_family_serve``)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+
+    rng = np.random.default_rng(6)
+    cfg = get_config("whisper-large-v3")
+    cfg = dataclasses.replace(
+        cfg, num_layers=2, dtype="float32",
+        encdec=dataclasses.replace(cfg.encdec, num_encoder_layers=2))
+    toks = rng.integers(3, cfg.vocab_size, (2, 48)).astype("int32")
+    _parity(cfg, toks, cache_len=1536, extra=_family_extra(cfg, 2, rng))
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=2,
+                              dtype="float32")
+    toks = rng.integers(3, cfg.vocab_size, (2, 128)).astype("int32")
+    _parity(cfg, toks, cache_len=1024, extra=_family_extra(cfg, 2, rng))
+    for arch in FAMILY_RUNS:
+        _family_serve(state, arch)
+    shapes = state["family_shape_launches"]
+    idle = [r.label for r in FLASH_ROWS + DECODE_ROWS
+            if r.role == "families" and not shapes.get(r.key)]
+    assert not idle, f"families: no launch at the kernel rows {idle}"
+
+
+# BENCH_replay.json's native rows: the six archs of the reference's
+# benchmarks/replay_native.py main() at its shapes, and its tolerance
+NATIVE_ARCHS = ("qwen2.5-3b", "starcoder2-7b", "mixtral-8x22b", "xlstm-350m",
+                "zamba2-1.2b", "whisper-large-v3")
+NATIVE_KEY = b"replay-bench-key"
+STEADY_TOL = 1.05
+
+
+def _steady_pair(fn_a, fn_b, iters=30, repeats=7):
+    """Best of ``repeats`` block-averaged seconds per call of two
+    callables, interleaved a/b per round, each block of ``iters`` calls
+    ended by a synchronise (the reference's ``_steady_pair``)."""
+    import torch
+    best_a = best_b = float("inf")
+    for _ in range(repeats):
+        for fn, which in ((fn_a, "a"), (fn_b, "b")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / iters
+            if which == "a":
+                best_a = min(best_a, dt)
+            else:
+                best_b = min(best_b, dt)
+    return best_a, best_b
+
+
+def _native_row(arch):
+    """The reference bench's ``bench_arch`` on the card: the smoke
+    config's prefill step (tokens [1, 32] of ones, frames of ones,
+    cache 64), native = the live step (eager PyTorch with the port's
+    kernels; its launch is the first call, there is no compile), replay =
+    record -> sign -> load -> warm -> execute (its launch ends with the
+    first replay, the CUDA graph's capture)."""
+    import torch
+    from repro_torch.configs import get_config, smoke_shrink
+    from repro_torch.core.recorder import record
+    from repro_torch.core.replay import Replayer
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as ST
+
+    cfg = smoke_shrink(get_config(arch))
+    params = M.init_params(cfg, seed=0, device="cuda")
+    tree = Lyr.to_tree(params)
+    batch = {"tokens": torch.ones((1, 32), dtype=torch.int32, device="cuda")}
+    if cfg.family == "audio":
+        batch["frames"] = torch.ones((1, cfg.encdec.encoder_seq, cfg.d_model),
+                                     dtype=torch.bfloat16, device="cuda")
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.ones(
+            (1, cfg.vlm.num_image_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device="cuda")
+    fn = ST.make_prefill_step(cfg, cache_len=64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    live, _ = fn(params, batch)
+    torch.cuda.synchronize()
+    native_launch = time.perf_counter() - t0
+    rec = record(f"{arch}:prefill", fn, (tree, batch))
+    blob = rec.sign_with(NATIVE_KEY).to_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rp = Replayer(key=NATIVE_KEY, device="cuda")
+    name = rp.load(blob)
+    rp.warm(name)
+    out, _ = rp.execute(name, tree, batch)
+    torch.cuda.synchronize()
+    replay_launch = time.perf_counter() - t0
+    assert torch.equal(out["next_tokens"], live["next_tokens"]), arch
+    native_steady, replay_steady = _steady_pair(
+        lambda: fn(params, batch), lambda: rp.execute(name, tree, batch))
+    return {"arch": arch,
+            "native_launch_ms": round(native_launch * 1e3, 1),
+            "replay_launch_ms": round(replay_launch * 1e3, 1),
+            "launch_speedup": round(native_launch / replay_launch, 2),
+            "native_steady_ms": round(native_steady * 1e3, 3),
+            "replay_steady_ms": round(replay_steady * 1e3, 3),
+            "steady_ratio": round(replay_steady / native_steady, 3),
+            "fast_hits": rp.stats["fast_hits"],
+            "slow_validations": rp.stats["slow_validations"],
+            "replay_not_slower_than_native":
+                replay_steady <= native_steady * STEADY_TOL}
+
+
+def phase_native(state):
+    """BENCH_replay.json's native rows on the card, the six archs of the
+    reference's ``replay_native.main(quick=False)``; every row must hold
+    ``replay_not_slower_than_native`` at the bench's 5%.  Nothing is
+    written: the committed BENCH_replay.json stays as it is."""
+    import torch
+    rows = []
+    for arch in NATIVE_ARCHS:
+        row = _native_row(arch)
+        log(f"native: {json.dumps(row)}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    slow = [r["arch"] for r in rows if not r["replay_not_slower_than_native"]]
+    log(f"native: replay_not_slower_than_native {not slow} over "
+        f"{len(rows)} archs (tolerance {STEADY_TOL}); launch_speedup "
+        f"{[r['launch_speedup'] for r in rows]} (printed, not gated); on "
+        f"{_card(state)}")
+    assert not slow, f"native: replay slower than native for {slow}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2839,6 +3274,19 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "case": row["case"]})
+        # the attention kernels at the audio and vlm families' shapes,
+        # with their launches at those shapes in phase families
+        shapes = state.get("family_shape_launches", {})
+        for (kernel, shape), row in state["family_kernel_rows"].items():
+            if (kernel, shape) not in shapes:
+                continue
+            mod = sys.modules[f"repro_torch.kernels.{kernel}"]
+            summary.append({
+                "name": kernel, "route": "cuda", "source": mod.SOURCE,
+                "replaces": mod.REPLACES, "launches": shapes[kernel, shape],
+                **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "case")}})
         print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

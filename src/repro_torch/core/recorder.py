@@ -74,6 +74,19 @@ def dtype_name(x) -> str:
     return str(getattr(x, "dtype", "")).removeprefix("torch.")
 
 
+def jax_arg_order(args) -> tuple:
+    """``args`` with every flat dict argument after the first (a batch of
+    tensors; the first is the params) in sorted key order.  JAX flattens
+    a dict by sorted keys, so a batch's leaves come in the reference's
+    order (``frames`` and ``image_embeds`` before ``tokens``) whatever
+    order the caller built it in."""
+    args = tuple(args)
+    return args[:1] + tuple(
+        dict(sorted(a.items())) if isinstance(a, dict) and all(
+            isinstance(v, torch.Tensor) for v in a.values()) else a
+        for a in args[1:])
+
+
 def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
@@ -102,8 +115,10 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
                      static_meta: Optional[dict] = None) -> Recording:
     """Export and serialize ``fn`` into a signable Recording.  ``args``
     are real tensors (a pytree) on the recording device; every tensor
-    ``fn`` reads must come through them."""
+    ``fn`` reads must come through them.  A batch's leaves are recorded
+    in JAX's order (``jax_arg_order``)."""
     t0 = time.time()
+    args = jax_arg_order(args)
     flat = pytree.tree_leaves(tuple(args))
     devices = {x.device for x in flat if isinstance(x, torch.Tensor)}
     if len(devices) != 1:
@@ -171,4 +186,5 @@ def record(name: str, fn, args: Sequence[Any], *, donate_argnums=(),
 
 
 __all__ = ["compile_artifact", "record", "topology_fingerprint",
-           "mesh_descriptor", "recorded_static", "dtype_name"]
+           "mesh_descriptor", "recorded_static", "dtype_name",
+           "jax_arg_order"]

@@ -53,7 +53,8 @@ from repro_torch import resolve_device
 from repro_torch.core.attest import (TamperedRecordingError,
                                      TopologyMismatchError,
                                      UnverifiedRecordingError, fingerprint)
-from repro_torch.core.recorder import dtype_name, topology_fingerprint
+from repro_torch.core.recorder import (dtype_name, jax_arg_order,
+                                       topology_fingerprint)
 from repro_torch.core.recording import Recording
 
 
@@ -262,7 +263,9 @@ class Replayer:
     def execute(self, name: str, *args) -> Any:
         """Run the recorded program on new inputs.  The signature lookup
         doubles as the shape/dtype validation; once a sole-variant name
-        has validated one call, later calls take the pinned fast path."""
+        has validated one call, later calls take the pinned fast path.
+        A batch dict is taken in any key order (``jax_arg_order``)."""
+        args = jax_arg_order(args)
         v = self._fast.get(name)
         if v is not None:
             self.stats["fast_hits"] += 1

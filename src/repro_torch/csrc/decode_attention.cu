@@ -3,6 +3,7 @@
 //
 //   q [B, H, hd]; k, v caches [B, W, Hkv, hd]; lengths [B] int32;
 //   out [B, H, hd], all contiguous.  Slots >= lengths[b] are masked.
+//   hd is 16, 32, 64, 96 (phi-3-vision) or 128.
 //
 // Replaces repro/kernels/decode_attention.py:decode_attention (Pallas).  On
 // the TPU one grid row per (b, kv head) walked W in order, carrying (m, l,
@@ -85,6 +86,7 @@ struct DecodeTiles {
   // holds, and the rows of a tile each head takes in one pass
   static constexpr int TPD = pow2_at_most(kThreads / (G * TR));
   static constexpr int DPT = HD / TPD;
+  static_assert(DPT * TPD == HD, "a head's dims split evenly (hd 96: 8 x 12)");
   static constexpr int RP = kThreads / (TPD * G);
   static constexpr int PASSES = (TR + RP - 1) / RP;
   // every thread holds a (head, row) lane on every pass (powers of two)
@@ -168,7 +170,10 @@ __global__ void __launch_bounds__(kThreads)
   // head sg over rows pidx / G + k * RP of the tile (lanes past RP * G
   // idle); this thread holds dims [part * DPT, (part + 1) * DPT) of the
   // head's q
-  constexpr int TPD = L::TPD, DPT = L::DPT, CH = DPT < 8 ? DPT : 8;
+  // CH: the elements of one load, the largest of 8, 4, 2, 1 that divides
+  // DPT (12 at hd 96 and G = 1: 8-byte loads in bf16)
+  constexpr int TPD = L::TPD, DPT = L::DPT;
+  constexpr int CH = DPT % 8 == 0 ? 8 : DPT % 4 == 0 ? 4 : DPT % 2 == 0 ? 2 : 1;
   constexpr int RP = L::RP;
   const int pidx = tid / TPD, part = tid % TPD, sg = pidx % G;
   const bool scores = L::kFullPasses || pidx < RP * G;
@@ -384,6 +389,7 @@ int launch_hd(int hd, int G, const void* q, const void* k, const void* v,
     REPRO_DECODE_HD(16)
     REPRO_DECODE_HD(32)
     REPRO_DECODE_HD(64)
+    REPRO_DECODE_HD(96)
     REPRO_DECODE_HD(128)
 #undef REPRO_DECODE_HD
     default:

@@ -4,7 +4,9 @@
 //   q [B, Sq, H, hd]; k [B, Sk, Hkv, hd]; v [B, Sk, Hkv, hd_v];
 //   out [B, Sq, H, hd_v], all contiguous.  Query i sits at position
 //   i + q_offset, key j at j.  Query head h reads KV head h / (H / Hkv).
-//   hd_v = hd except for MLA's prefill (hd 192 = 128 + 64 rope, hd_v 128).
+//   hd_v = hd except for MLA's prefill (hd 192 = 128 + 64 rope, hd_v 128);
+//   hd is 16, 32, 64, 96 (phi-3-vision: 6 k-steps, 192-byte rows in 12
+//   cp.async chunks, padded to 208 bytes) or 128.
 //
 // Replaces repro/kernels/flash_attention.py:flash_attention (Pallas).  On
 // the TPU the K blocks were a sequential grid axis carrying (m, l, acc) in
@@ -554,6 +556,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   REPRO_FLASH_CASE(16, 16)
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(96, 96)
   REPRO_FLASH_CASE(128, 128)
   REPRO_FLASH_CASE(192, 128)
 #undef REPRO_FLASH_CASE

@@ -4,7 +4,9 @@
 ``mamba_chunk_scan``, ``mlstm_chunk_scan`` and ``moe_gmm`` are
 ``torch.library`` custom ops: a CUDA tensor launches the kernel built from
 ``csrc/`` (``_build``), a CPU tensor takes the plain PyTorch version.
-Each wrapper counts its kernel launches in ``.launches``.
+Each wrapper counts its kernel launches in ``.launches``; the two
+attention wrappers count them by their inputs' shapes in ``.by_shape``
+as well.
 """
 import torch
 
@@ -32,6 +34,8 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in (flash_attention, decode_attention):
+        k.by_shape.clear()
 
 
 def launch_counts() -> dict:

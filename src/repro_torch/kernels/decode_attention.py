@@ -29,6 +29,7 @@ sliding-window ring cache and int8 caches with per-(token, head) scales.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import NamedTuple, Optional
 
 import torch
@@ -237,6 +238,8 @@ def _decode_cuda(q, k_cache, v_cache, lengths, scale):
     out = _launch(q, k_cache, v_cache, lengths, scale)
     if q.numel():
         decode_attention.launches += 1
+        decode_attention.by_shape[(tuple(q.shape),
+                                   tuple(k_cache.shape))] += 1
     return out
 
 
@@ -250,3 +253,4 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 
 decode_attention.launches = 0    # kernel launches (CUDA path only)
+decode_attention.by_shape = Counter()   # ... by (q.shape, k_cache.shape)

@@ -30,6 +30,7 @@ meet the fp32 limit; fp32 is the parity path and is not served.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -38,7 +39,7 @@ from repro_torch.kernels import _build
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 REPLACES = "src/repro/kernels/flash_attention.py:80"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 96, 128)   # 96: phi-3-vision
 # the (hd, hd_v) pairs the kernel is built for
 HEAD_DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 NEG_INF = -1e30
@@ -147,6 +148,7 @@ def _flash_cuda(q, k, v, causal, window, scale, q_offset):
     out = _launch(q, k, v, causal, window, scale, q_offset)
     if q.numel():
         flash_attention.launches += 1
+        flash_attention.by_shape[(tuple(q.shape), tuple(k.shape))] += 1
     return out
 
 
@@ -162,3 +164,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0    # kernel launches (CUDA path only)
+flash_attention.by_shape = Counter()   # ... by (q.shape, k.shape)

@@ -217,11 +217,22 @@ def gqa_qkv(p, x, cfg, pos):
     return q, k, v
 
 
-def gqa_attention(p, x, cfg, *, causal=True):
-    """Full-sequence (prefill) GQA self-attention -> (out, (k, v))."""
+def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None):
+    """Full-sequence (prefill) GQA self-attention, or cross-attention over
+    the given ``cross_kv = (k, v)`` -> (out, (k, v)).  Under ``cross_kv``
+    the query takes ``bq`` but no rope, K and V are used as they are
+    (the caller projected them, with no ``bk``/``bv``, as the reference
+    does) and attention is bidirectional."""
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None]
-    q, k, v = gqa_qkv(p, x, cfg, pos)
+    if cross_kv is not None:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        if "bq" in p:
+            q = q + p["bq"]
+        k, v = cross_kv
+        causal = False
+    else:
+        q, k, v = gqa_qkv(p, x, cfg, pos)
     o = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 

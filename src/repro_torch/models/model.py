@@ -1,6 +1,7 @@
 """Stage-structured model: the dense, moe (GQA + MoE, mixtral), MLA
-(deepseek: ``mla_dense``, ``mla_moe``), hybrid (zamba2) and ssm (xLSTM)
-stages.
+(deepseek: ``mla_dense``, ``mla_moe``), hybrid (zamba2), ssm (xLSTM),
+audio (whisper: ``enc``, ``dec``) and vlm (phi-3-vision: the dense stage
+behind an image prefix) stages.
 
 Counterpart of ``repro/models/model.py``.  A model is a list of stages;
 where the reference scans each stage over params stacked on a leading
@@ -12,9 +13,13 @@ reference's layout leaf for leaf: one dict per stage with a leading layer
 axis for the in-group blocks (``[n_groups, 6, B, ...]``).  Decode updates
 the caches in place.
 
-The audio and vlm families raise ``NotImplementedError`` (ROADMAP
-Queue 1, item 11).  Int8 serving weights (the reference's
-``_maybe_dequant``) wait for ``serving/quant.py`` (Queue 1, item 12).
+The audio family runs its encoder over precomputed frames ``[B, enc_S,
+D]`` (the conv frontend is a stub in the reference too) and caches each
+decoder block's cross-attention K/V (``xk``, ``xv``) at prefill; the vlm
+family puts ``image_embeds @ img_proj`` before the text, so its decode
+positions count the image prefix.  Int8 serving weights (the reference's
+``_maybe_dequant``) wait for ``serving/quant.py`` (ROADMAP Queue 1,
+item 12).
 """
 from __future__ import annotations
 
@@ -56,18 +61,9 @@ def build_stages(cfg: ModelConfig) -> List[StageDef]:
     return [StageDef("dense", cfg.num_layers)]
 
 
-PORTED_FAMILIES = ("dense", "moe", "hybrid", "ssm")
 MLA_KINDS = ("mla_dense", "mla_moe")    # deepseek: MLA attention
 MOE_KINDS = ("moe", "mla_moe")          # routed experts in place of the MLP
 XLSTM_ORDER = (0, 1, 2, None, 3, 4)   # None: the sLSTM (in-group index 3)
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"repro_torch ports the {', '.join(PORTED_FAMILIES)} families; "
-            f"'{cfg.name}' is family '{cfg.family}' (ROADMAP Queue 1, "
-            f"item 11)")
 
 
 def _block_schema(cfg: ModelConfig, kind: str):
@@ -87,7 +83,11 @@ def _block_schema(cfg: ModelConfig, kind: str):
         return {"m": [{"ln1": nrm(), "cell": XL.mlstm_schema(cfg)}
                       for _ in range(5)],
                 "s": {"ln1": nrm(), "cell": XL.slstm_schema(cfg)}}
-    assert kind == "dense", kind
+    if kind == "dec":
+        return {"ln1": nrm(), "attn": L.gqa_schema(cfg),
+                "lnx": nrm(), "xattn": L.gqa_schema(cfg),
+                "ln2": nrm(), "mlp": L.mlp_schema(cfg)}
+    assert kind in ("dense", "enc"), kind
     s = {"ln1": nrm(), "attn": L.gqa_schema(cfg)}
     if not cfg.parallel_block:
         s["ln2"] = nrm()
@@ -99,7 +99,6 @@ def model_schema(cfg: ModelConfig):
     """The reference's schema with each stage as a list of per-block
     schemas instead of one stacked schema (and lists for the blocks stacked
     inside a group)."""
-    _require_ported(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     s: Dict[str, Any] = {
         "embed": ParamSpec((V, D), ("vocab", "fsdp"), D ** -0.5),
@@ -114,6 +113,12 @@ def model_schema(cfg: ModelConfig):
                        "attn": L.gqa_schema(cfg),
                        "ln2": L.norm_schema(D, cfg.norm),
                        "mlp": L.mlp_schema(cfg)}
+    if cfg.family == "audio":
+        s["enc_pos"] = ParamSpec((cfg.encdec.encoder_seq, D),
+                                 ("seq", "fsdp"), 0.02)
+        s["dec_pos"] = ParamSpec((cfg.max_seq, D), ("seq", "fsdp"), 0.02)
+    if cfg.family == "vlm":
+        s["img_proj"] = ParamSpec((D, D), ("fsdp", None), D ** -0.5)
     return s
 
 
@@ -134,8 +139,32 @@ def _tree_stack(trees: list):
     return torch.stack(trees)
 
 
-def _block_forward(kind, p, h, cfg, shared=None):
-    """Full-sequence forward for one block -> (h, aux_loss, cache_out)."""
+def _cross_attention(p, h, enc_out, cfg):
+    """A ``dec`` block's cross-attention over the encoder's output ->
+    (out, (xk, xv)).  The reference projects the encoder's K/V with no
+    bk/bv (ROADMAP Queue 3)."""
+    hx = L.apply_norm(p["lnx"], h, cfg.norm)
+    xk = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wk"])
+    xv = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wv"])
+    return L.gqa_attention(p["xattn"], hx, cfg, cross_kv=(xk, xv))
+
+
+def _cross_decode(p, h, cache, cfg):
+    """A ``dec`` block's cross-attention at decode, over every encoder
+    frame of its cache; the reference's query takes no bq here, though
+    its prefill adds it (ROADMAP Queue 3)."""
+    hx = L.apply_norm(p["lnx"], h, cfg.norm)
+    q = torch.einsum("bsd,dhk->bshk", hx, p["xattn"]["wq"])
+    xk = cache["xk"]
+    pos = torch.full((h.shape[0],), xk.shape[1] - 1, dtype=torch.int32,
+                     device=h.device)
+    o = L.decode_attention(q, xk, cache["xv"], pos)
+    return torch.einsum("bshk,hkd->bsd", o, p["xattn"]["wo"])
+
+
+def _block_forward(kind, p, h, cfg, shared=None, enc_out=None):
+    """Full-sequence forward for one block -> (h, aux_loss, cache_out).
+    A ``dec`` block cross-attends to ``enc_out``."""
     if kind == "zamba_group":
         states = []
         for pm in p["mambas"]:
@@ -169,11 +198,16 @@ def _block_forward(kind, p, h, cfg, shared=None):
         a, (c_kv, k_rope) = L.mla_attention(p["attn"], hn, cfg)
         cache_out = {"c": c_kv, "kr": k_rope}
     else:
-        a, (k, v) = L.gqa_attention(p["attn"], hn, cfg)
+        a, (k, v) = L.gqa_attention(p["attn"], hn, cfg,
+                                    causal=kind != "enc")
         cache_out = {"k": k, "v": v}
     if cfg.parallel_block:
         return h + a + L.apply_mlp(p["mlp"], hn, cfg), 0.0, cache_out
     h = h + a
+    if kind == "dec":
+        a, (xk, xv) = _cross_attention(p, h, enc_out, cfg)
+        h = h + a
+        cache_out.update(xk=xk, xv=xv)
     hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
     aux = 0.0
     if kind in MOE_KINDS:
@@ -186,24 +220,40 @@ def _block_forward(kind, p, h, cfg, shared=None):
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             collect_cache: bool = False):
     """Full-sequence forward -> (logits [B,S,V], aux_loss[, kv_stacks]).
-    With ``collect_cache`` each stage's K/V or final recurrent states
-    (with a leading layer axis when the stage has several blocks) are
-    returned for ``assemble_caches``."""
-    _require_ported(cfg)
+
+    batch: tokens [B,S]; audio adds frames [B,enc_S,D]; vlm adds image
+    embeds [B,n_img,D] put before the text (their rows are dropped before
+    the head).  With ``collect_cache`` each stage's K/V or final
+    recurrent states (with a leading layer axis when the stage has
+    several blocks) are returned for ``assemble_caches``."""
     h = F.embedding(batch["tokens"], params["embed"])
+    n_img = 0
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        img = batch["image_embeds"].to(h.dtype) @ params["img_proj"]
+        h = torch.cat([img, h], 1)
+        n_img = img.shape[1]
+    enc_out = None
+    if cfg.family == "audio":
+        h_dec = h + params["dec_pos"][:h.shape[1]].to(h.dtype)
+        enc_out = batch["frames"].to(h.dtype) + params["enc_pos"].to(h.dtype)
+        h = enc_out                 # the first stage is the encoder
     shared = params["shared"] if "shared" in params else None
     kv_stacks = []
     aux_total = 0.0
     for st, blocks in zip(build_stages(cfg), params["stages"]):
+        if st.kind == "dec":        # the encoder's output feeds cross-attn
+            enc_out, h = h, h_dec
         outs = []
         for p in blocks:
-            h, aux, out = _block_forward(st.kind, p, h, cfg, shared)
+            h, aux, out = _block_forward(st.kind, p, h, cfg, shared, enc_out)
             aux_total = aux_total + aux
             if collect_cache:
                 outs.append(out)
         if collect_cache:
             kv_stacks.append(outs[0] if len(outs) == 1 else _tree_stack(outs))
     h = L.apply_norm(params["final_norm"], h, cfg.norm)
+    if n_img:
+        h = h[:, n_img:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, head) * cfg.logit_scale
     if collect_cache:
@@ -217,9 +267,12 @@ def _stack_state(state, n: int):
     return state if n == 1 else _tree_stack([state] * n)
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
-    """Cache per stage (leading layer axis when the stage has n > 1)."""
-    _require_ported(cfg)
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_S: int = 0,
+               device="cuda"):
+    """Cache per stage (leading layer axis when the stage has n > 1).  A
+    ``dec`` stage adds its cross-attention K/V over ``enc_S`` encoder
+    frames, stacked on the layer axis even when n == 1, as the
+    reference's are."""
     device = resolve_device(device)
     dt = L.torch_dtype(cfg.dtype)
     Hkv, hd = cfg.num_kv_heads, cfg.hd()
@@ -256,6 +309,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
                 "kr": torch.zeros(pre + (batch, cache_len,
                                          m.qk_rope_head_dim),
                                   dtype=dt, device=device)})
+        elif st.kind == "dec":
+            c = kv(st.n)
+            xshape = (st.n, batch, enc_S, Hkv, hd)
+            c["xk"] = torch.zeros(xshape, dtype=dt, device=device)
+            c["xv"] = torch.zeros(xshape, dtype=dt, device=device)
+            caches.append(c)
         else:
             caches.append(kv(st.n))
     return caches
@@ -263,7 +322,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device="cuda"):
 
 def cache_axes(cfg: ModelConfig):
     """Logical axes mirroring ``init_cache`` (the reference's names)."""
-    _require_ported(cfg)
     kv = ("batch", "kv_seq", "kv_heads", "head_dim")
     names = ("k", "k_s", "v", "v_s") if cfg.kv_quant else ("k", "v")
     kv_entry = lambda pre: {name: pre + kv for name in names}
@@ -287,6 +345,8 @@ def cache_axes(cfg: ModelConfig):
         elif s.kind in MLA_KINDS:
             axes.append({"c": pre + ("batch", "kv_seq", "kv_lora"),
                          "kr": pre + ("batch", "kv_seq", None)})
+        elif s.kind == "dec":
+            axes.append(dict(kv_entry(pre), xk=pre + kv, xv=pre + kv))
         else:
             axes.append(kv_entry(pre))
     return axes
@@ -345,6 +405,8 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
     if cfg.parallel_block:
         return h + a + L.apply_mlp(p["mlp"], hn, cfg)
     h = h + a
+    if kind == "dec":
+        h = h + _cross_decode(p, h, cache, cfg)
     hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
     if kind in MOE_KINDS:
         return h + MOE.apply_moe(p["moe"], hn2, cfg)[0]
@@ -354,10 +416,13 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
 def decode_step(params, cfg: ModelConfig, tokens, pos, caches):
     """tokens [B], pos [B] -> (logits [B,V], caches).  The caches are
     updated in place and returned."""
-    _require_ported(cfg)
     h = F.embedding(tokens[:, None], params["embed"])
+    if cfg.family == "audio":
+        h = h + params["dec_pos"][pos.long()][:, None].to(h.dtype)
     shared = params["shared"] if "shared" in params else None
     for st, blocks, cache in zip(build_stages(cfg), params["stages"], caches):
+        if st.kind == "enc":        # the encoder does not run at decode
+            continue
         for i, p in enumerate(blocks):
             layer = cache if st.n == 1 else _index(cache, i)
             h = _block_decode(st.kind, p, h, layer, pos, cfg, shared)
@@ -374,6 +439,9 @@ def _pad_kv(kv, cache_len, window):
         tail = kv[..., S - window:, :, :]
         return torch.roll(tail, S % window, dims=-3)
     W = min(cache_len, window) if window else cache_len
+    if W < S:   # F.pad would crop; the reference's jnp.pad raises
+        raise ValueError(f"a cache of {W} slots is shorter than the {S} "
+                         f"positions it must hold")
     return F.pad(kv, (0, 0, 0, 0, 0, W - S))
 
 
@@ -381,7 +449,6 @@ def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
                     seq_len: int):
     """Turn ``forward(collect_cache=True)`` outputs into decode caches:
     K/V padded to the cache length, recurrent states as they are."""
-    _require_ported(cfg)
     W = cfg.sliding_window
 
     def kv_assemble(k, v):
@@ -405,6 +472,9 @@ def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
         elif st.kind in MLA_KINDS:   # [.., S, R] -> [.., W, R]
             caches.append({name: F.pad(t, (0, 0, 0, cache_len - t.shape[-2]))
                            for name, t in kvs.items()})
+        elif st.kind == "dec":
+            caches.append(dict(kv_assemble(kvs["k"], kvs["v"]),
+                               xk=kvs["xk"], xv=kvs["xv"]))
         else:
             caches.append(kv_assemble(kvs["k"], kvs["v"]))
     return caches
@@ -415,6 +485,8 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int):
     (logits [B,S,V], caches)."""
     logits, _aux, kv_stacks = forward(params, cfg, batch, collect_cache=True)
     S = batch["tokens"].shape[1]
+    if cfg.family == "vlm" and "image_embeds" in batch:
+        S += batch["image_embeds"].shape[1]   # the image prefix is cached
     caches = assemble_caches(cfg, kv_stacks, max(cache_len, S), S)
     return logits, caches
 

@@ -70,7 +70,7 @@ def _close(a, b, tol):
 def test_kernels_match_plain(cuda, dt, B, Sq, Sk, H, Hkv, hd, causal,
                              window):
     rn = _randn(cuda, 0)
-    before = [f.launches for f in K.KERNELS]
+    K.reset_launches()
     x, s = rn(B, Sq, H * hd, dt=dt), rn(H * hd) * 0.1 + 1.0
     _close(K.rmsnorm(x, s), K.rmsnorm_plain(x, s), TOL[dt])
     q, k, v = rn(B, Sq, H, hd, dt=dt), rn(B, Sk, Hkv, hd, dt=dt), \
@@ -83,8 +83,9 @@ def test_kernels_match_plain(cuda, dt, B, Sq, Sk, H, Hkv, hd, causal,
     _close(K.decode_attention(qd, k, v, lens),
            K.decode_attention_plain(qd, k, v, lens), TOL[dt])
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(K.KERNELS, before)] == \
-        [1, 1, 1, 0, 0, 0]
+    assert [f.launches for f in K.KERNELS] == [1, 1, 1, 0, 0, 0]
+    assert K.flash_attention.by_shape == {(q.shape, k.shape): 1}
+    assert K.decode_attention.by_shape == {(qd.shape, k.shape): 1}
 
 
 def _agree(a, b, tol):
@@ -557,20 +558,62 @@ def test_tolerance_rejects_the_redesigns_planted_faults(cuda, dt):
                           want, TOL[dt])
 
 
+# the shapes the audio and vlm families give the attention kernels:
+# phi-3-vision's head dim 96 (G = 1) and whisper's 1,500 encoder frames
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv", [(36, 4), (48, 8)])
-def test_decode_groups_of_9_and_6_match_plain(cuda, dt, H, Hkv):
+@pytest.mark.parametrize("B,Sq,Sk,H,hd,causal", [
+    (1, 704, 704, 4, 96, True),          # phi-3 prefill: 576 image + 128
+    (2, 1500, 1500, 4, 64, False),       # whisper encoder, bidirectional
+    (2, 48, 1500, 20, 64, False),        # whisper cross-attention
+    (1, 100, 100, 2, 96, False)])
+def test_flash_at_the_families_shapes_matches_plain(cuda, dt, B, Sq, Sk, H,
+                                                    hd, causal):
+    """... and, not causal, q_offset does not matter (the cross-attention
+    takes the default Sk - Sq, the reference's chunked_attention 0)."""
+    rn = _randn(cuda, 15)
+    q, k, v = rn(B, Sq, H, hd, dt=dt), rn(B, Sk, H, hd, dt=dt), \
+        rn(B, Sk, H, hd, dt=dt)
+    got = K.flash_attention(q, k, v, causal=causal)
+    _close(got, K.flash_attention_plain(q, k, v, causal=causal), TOL[dt])
+    if not causal:
+        assert torch.equal(got, K.flash_attention(q, k, v, causal=False,
+                                                  q_offset=0))
+    if causal:   # planted: the causal tile skip one tile short
+        assert not _agree(FA._launch(q, k, v, True, 0, hd ** -0.5, 0,
+                                     short_tiles=1),
+                          K.flash_attention_plain(q, k, v), TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,W,hd,lens", [
+    (4, 36, 4, 1024, 128, [1, 300, 777, 1024]),   # starcoder2-7b: G = 9
+    (4, 48, 8, 1024, 128, [1, 300, 777, 1024]),   # mixtral-8x22b: G = 6
+    (4, 32, 32, 1024, 96, [1, 577, 704, 1024]),   # phi-3: 576 image + text
+    (2, 20, 20, 1500, 64, [1500, 1500]),          # whisper's cross cache
+    (2, 20, 20, 1500, 64, [1409, 1499])])         # ... its ragged last split
+def test_decode_groups_of_9_and_6_match_plain(cuda, dt, B, H, Hkv, W, hd,
+                                              lens):
     """starcoder2-7b's group of 9 and mixtral-8x22b's of 6 at hd 128, which
-    do not divide the kernel's block; the last head dropped (what the
-    truncating DV of the kernel before them left unwritten) fails."""
+    do not divide the kernel's block, and the families' G = 1 at hd 96
+    and over W = 1,500, which is no multiple of the split (its last chunk
+    is ragged).  The last head dropped (what the truncating DV of the
+    kernel before them left unwritten) fails, and in fp32 so does the
+    last split's partial dropped where that split is ragged."""
     rn = _randn(cuda, 14)
-    lens = torch.tensor([1, 300, 777, 1024], dtype=torch.int32, device=cuda)
-    q, kc, vc = rn(4, H, 128, dt=dt), rn(4, 1024, Hkv, 128, dt=dt), \
-        rn(4, 1024, Hkv, 128, dt=dt)
-    want = K.decode_attention_plain(q, kc, vc, lens)
-    assert _agree(K.decode_attention(q, kc, vc, lens), want, TOL[dt])
-    assert not _agree(DA._launch(q, kc, vc, lens, 128 ** -0.5,
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q, kc, vc = rn(B, H, hd, dt=dt), rn(B, W, Hkv, hd, dt=dt), \
+        rn(B, W, Hkv, hd, dt=dt)
+    want = K.decode_attention_plain(q, kc, vc, ln)
+    got = K.decode_attention(q, kc, vc, ln)
+    _close(got, want, TOL[dt])
+    assert torch.equal(got, K.decode_attention(q, kc, vc, ln))
+    assert not _agree(DA._launch(q, kc, vc, ln, hd ** -0.5,
                                  fault=DA.FAULT_DROP_LAST_HEAD), want, TOL[dt])
+    plan = DA.plan_splits(B, Hkv, W, _build.sm_count(cuda))
+    if dt == torch.float32 and W % plan.chunk and max(lens) == W:
+        short = DA.SplitPlan(plan.splits - 1, plan.chunk)
+        assert not _agree(DA._launch(q, kc, vc, ln, hd ** -0.5, short),
+                          want, TOL[dt])
 
 
 KEY = b"card-replay-key"

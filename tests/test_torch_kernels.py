@@ -85,6 +85,60 @@ def test_flash_plain_vs_model_chunked_attention(dt, window):
     _close(K.flash_attention_plain(qt, kt, vt, window=window), want, tol)
 
 
+@pytest.mark.parametrize("Sq,Sk", [(48, 200), (200, 48), (1, 1500)])
+def test_flash_plain_cross_attention_ignores_q_offset(Sq, Sk):
+    """Not causal and with no window, the query's offset masks nothing:
+    whisper's cross-attention takes the port's default q_offset (Sk - Sq)
+    where the reference's chunked_attention takes 0."""
+    rng = np.random.default_rng(7)
+    qj, qt = _pair(rng, (2, Sq, 4, 16), "float32")
+    kj, kt = _pair(rng, (2, Sk, 4, 16), "float32")
+    vj, vt = _pair(rng, (2, Sk, 4, 16), "float32")
+    got = K.flash_attention_plain(qt, kt, vt, causal=False)
+    assert torch.equal(got, K.flash_attention_plain(qt, kt, vt, causal=False,
+                                                    q_offset=0))
+    assert torch.equal(got, K.flash_attention(qt, kt, vt, causal=False,
+                                              q_offset=0))
+    _close(got, JL.chunked_attention(qj, kj, vj, causal=False), 1e-5)
+    _close(got, ref.flash_attention(qj, kj, vj, causal=False), 1e-5)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_plain_at_whisper_frames(causal):
+    """Sq = Sk = 1,500 (whisper's encoder frames: no multiple of the
+    kernel's 64-key tile, and more than the reference's 1,024-row query
+    chunk, so its scan pads the last chunk)."""
+    rng = np.random.default_rng(8)
+    qj, qt = _pair(rng, (1, 1500, 2, 16), "float32")
+    kj, kt = _pair(rng, (1, 1500, 2, 16), "float32")
+    vj, vt = _pair(rng, (1, 1500, 2, 16), "float32")
+    got = K.flash_attention_plain(qt, kt, vt, causal=causal)
+    _close(got, JL.chunked_attention(qj, kj, vj, causal=causal), 1e-5)
+    _close(got, ref.flash_attention(qj, kj, vj, causal=causal), 1e-5)
+
+
+@pytest.mark.parametrize("lens", [[1500, 1500], [1409, 1]])
+def test_decode_plain_over_whisper_cross_cache(lens):
+    """W = 1,500 (whisper's cross cache, G = 1): the plain version, the
+    kernel's split algorithm over its plan (the last chunk ragged) and the
+    reference's ref and layers.decode_attention agree."""
+    from repro_torch.kernels.decode_attention import (decode_attention_split,
+                                                      plan_splits)
+    rng = np.random.default_rng(9)
+    qj, qt = _pair(rng, (2, 4, 64), "float32")
+    kj, kt = _pair(rng, (2, 1500, 4, 64), "float32")
+    vj, vt = _pair(rng, (2, 1500, 4, 64), "float32")
+    ln = np.array(lens, np.int32)
+    got = K.decode_attention_plain(qt, kt, vt, torch.from_numpy(ln))
+    plan = plan_splits(2, 20, 1500, 132)    # whisper's 20 heads, an H100
+    assert plan.splits * plan.chunk > 1500 > (plan.splits - 1) * plan.chunk
+    _close(decode_attention_split(qt, kt, vt, torch.from_numpy(ln), plan),
+           got, 1e-5)
+    _close(got, ref.decode_attention(qj, kj, vj, jnp.asarray(ln)), 1e-5)
+    want = JL.decode_attention(qj[:, None], kj, vj, jnp.asarray(ln - 1))
+    _close(got, np.asarray(want)[:, 0], 1e-5)
+
+
 @pytest.mark.parametrize("B,H,Hkv,hd,W,dt", [
     (2, 8, 2, 64, 256, "bfloat16"),
     (3, 4, 4, 128, 512, "float32"),
@@ -145,8 +199,11 @@ def test_rmsnorm_plain_vs_ref_and_pallas(shape, dt):
 
 def test_custom_ops_take_the_plain_version_on_cpu():
     """On a CPU tensor each registered op returns exactly the plain
-    result and launches nothing."""
+    result and launches nothing (the attention wrappers' per-shape counts,
+    emptied by ``reset_launches``, stay empty)."""
     rng = np.random.default_rng(6)
+    K.flash_attention.by_shape[((1, 2, 3, 4), (1, 2, 3, 4))] += 1
+    K.decode_attention.by_shape[((1, 3, 4), (1, 2, 3, 4))] += 2
     K.reset_launches()
     x = torch.from_numpy(rng.standard_normal((5, 64)).astype(np.float32))
     s = torch.from_numpy(rng.standard_normal(64).astype(np.float32))
@@ -173,6 +230,8 @@ def test_custom_ops_take_the_plain_version_on_cpu():
     we = torch.from_numpy(rng.standard_normal((3, 16, 8)).astype(np.float32))
     assert torch.equal(K.moe_gmm(xe, we), K.moe_gmm_plain(xe, we))
     assert [f.launches for f in K.KERNELS] == [0] * 6
+    assert not K.flash_attention.by_shape
+    assert not K.decode_attention.by_shape
 
 
 def test_ops_are_registered_with_fake_impls():

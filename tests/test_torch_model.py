@@ -177,10 +177,21 @@ def test_dense_variants_prefill_and_decode(arch, over, plen):
         _close(a.float(), np.asarray(b, np.float32))
 
 
-def test_other_families_raise():
-    for name in ("whisper-large-v3", "phi-3-vision-4.2b"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            TM.model_schema(smoke_shrink(get_config(name)))
+@pytest.mark.parametrize("name", sorted(ARCHS) + ["cody-mnist"])
+def test_every_family_builds_a_schema(name):
+    """Every config's schema, at full size and at smoke size, holds the
+    reference's elements (the port keeps a stage's blocks apart where the
+    reference stacks them)."""
+    from repro.models.layers import ParamSpec as JaxSpec
+    from repro_torch.models.layers import ParamSpec
+    numel = lambda tree, cls: sum(int(np.prod(sp.shape)) for sp in
+                                  jax.tree.leaves(tree, is_leaf=lambda x:
+                                                  isinstance(x, cls)))
+    for shrink, jshrink in ((lambda c: c, lambda c: c),
+                            (smoke_shrink, jax_smoke_shrink)):
+        cfg, jcfg = shrink(get_config(name)), jshrink(jax_get_config(name))
+        assert numel(TM.model_schema(cfg), ParamSpec) == \
+            numel(JM.model_schema(jcfg), JaxSpec) > 0
 
 
 def test_init_params_is_seeded_and_scaled():
