@@ -39,7 +39,23 @@ Phases, each of which raises (exit code != 0) when it fails:
            reading its neighbour's weights, a stale tile in moe_gmm's
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
-           be rejected;
+           be rejected; the two backward kernels (rmsnorm's at the train
+           step's [1024, 2048], flash's at its q [8,128,16,128] and at
+           phi-3-vision's and whisper's shapes) against their plain
+           versions in both dtypes, timed beside the library's backward,
+           with their planted faults (a row's sums over its first warp's
+           share; launch A one K tile short);
+  train    training through the backward kernels: (a) qwen2.5-3b cut to 2
+           layers at full width, one fp32 train step on the card against
+           the CPU (loss, grad norm, every master leaf); (c) the same
+           model, 3 steps + an async checkpoint + 3 steps against the
+           checkpoint restored and stepped 3 times (atol 1e-5); (b) one
+           fp32 forward + backward of qwen2.5-3b at full width and depth,
+           then launch/train.py's ``train`` in bf16 for 6 steps at its
+           default batch 8 and seq 128 (finite losses, every master leaf
+           moved, step 1 against the fp32 pass, launches 73 + 73 rmsnorm
+           and 36 + 36 flash a step), ms per step, tokens/s, peak memory
+           and one more step profiled;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -64,7 +80,9 @@ Phases, each of which raises (exit code != 0) when it fails:
            deepseek-v2-lite-16b (or those of --profile-archs) spends its
            time: wall time, device busy time under torch.profiler, idle
            share, and each custom kernel's device time and launches;
-  replay   record -> sign -> replay of qwen2.5-3b at full width: prefill
+  replay   record -> sign -> replay of qwen2.5-3b at full width, cut to
+           ``REPLAY_LAYERS`` layers (as in phases registry and fleet):
+           prefill
            and the fused decode block recorded (``torch.export``, params as
            inputs) through a wifi ``RecordingSession`` with all passes and
            signed by the record launcher's code (each session report
@@ -77,7 +95,7 @@ Phases, each of which raises (exit code != 0) when it fails:
            launches; the two billing logs equal), and one decode block
            profiled under the graph beside live;
   registry record -> publish -> fetch -> verify -> replay of qwen2.5-3b at
-           full width: phase replay's recordings (recorded here when
+           full width and phase replay's depth: phase replay's recordings (recorded here when
            that phase did not run) published through a cloud
            ``Workspace`` into a file-backed registry, a fresh TEE
            ``Workspace`` booting ``wl.engine()`` from it over emulated
@@ -93,7 +111,7 @@ Phases, each of which raises (exit code != 0) when it fails:
            cellular, with its three acceptance flags; and both ported
            examples (``repro_torch.examples``) run on the card;
   fleet    fleet-scale replay serving: a 2-replica qwen2.5-3b fleet at
-           full width booted from a file-backed registry (phase
+           full width and phase replay's depth booted from a file-backed registry (phase
            replay's recordings, recorded here when it did not run)
            through two regional read-replicas, each replica with its own
            client and wifi span (fetch, HMAC and proof verified, load,
@@ -124,9 +142,10 @@ Phases, each of which raises (exit code != 0) when it fails:
            and phi-3-vision-4.2b (2 layers) in fp32 at full width on the
            card against the CPU (prefill with frames [2, 1500, 1280] or
            576 image embeds, caches, a decode step, a fused block), then
-           each at full width and depth in bf16 from seed 0: whisper's
-           batch of 2 prefilled at prompts of 16 and 48 decoder tokens
-           (cache 256), phi-3-vision's 4 requests of 576 + 128 rows
+           each at full width and ``FAMILY_LAYERS`` layers (whisper: as
+           many encoder layers) in bf16 from seed 0: whisper's batch of
+           2 prefilled at prompts of 16 and 48 decoder tokens (cache
+           1,536), phi-3-vision's 4 requests of 576 + 128 rows
            prefilled one at a time (cache 1024); 32 tokens decoded in
            fused blocks of 8 equal to a step-by-step decode_step loop's;
            launches equal to the formulas (whisper: no rmsnorm); one
@@ -143,7 +162,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            replay_not_slower_than_native at the bench's 5%.  Nothing is
            written to BENCH_replay.json.
 
-The line before the last is a JSON summary of the kernels; the last line
+The line before the last is a JSON summary of the kernels (the backward
+kernels with their launches in phase train); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/repro_torch`` beside it, the script exits non-zero
 before printing either.
@@ -166,8 +186,9 @@ from pathlib import Path
 from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("gpu", "build", "kernels", "parity", "serve", "prefill", "profile",
-          "replay", "registry", "fleet", "session", "families", "native")
+PHASES = ("gpu", "build", "kernels", "train", "parity", "serve", "prefill",
+          "profile", "replay", "registry", "fleet", "session", "families",
+          "native")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -357,10 +378,14 @@ def phase_kernels(state):
     rows = state["kernel_rows"] = {}
 
     def record(kernel, case, main, err, args_list, run, plain, library,
-               nbytes, ops, dname, ms=None):
+               nbytes, ops, dname, ms=None, library_minus=None):
+        """... ``library_minus``: a call whose time the library's
+        includes and the kernel's does not (a backward's forward)."""
         ms = device_ms(run, args_list) if ms is None else ms
         plain_ms = device_ms(plain, args_list)
         lib_ms = device_ms(library, args_list) if library else None
+        if library_minus is not None:
+            lib_ms -= device_ms(library_minus, args_list)
         b_ms, b_by = bound(nbytes, ops, dname)
         lib_txt = "none (no single PyTorch call computes this)" \
             if lib_ms is None else f"{lib_ms:.4f} ms"
@@ -392,6 +417,7 @@ def phase_kernels(state):
                args_list, K.rmsnorm, K.rmsnorm_plain, lib,
                2 * R * D * esz + 4 * D, 4 * R * D, "float32")
     _rmsnorm_kernels(randn, record, tols)
+    _backward_kernels(randn, record, tols)
 
     _attention_rows(randn, record, tols, state)
 
@@ -680,6 +706,124 @@ def _rmsnorm_kernels(randn, record, tols):
                K.rmsnorm, K.rmsnorm_plain, lib, 2 * R * D * esz + 4 * D,
                4 * R * D, "float32")
         del args_list, x, sc
+
+
+BWD_RMSNORM_ROWS = ((8 * 128, 2048),)   # qwen2.5-3b's train step rows
+BWD_FLASH_ROWS = (
+    FlashRow("qwen2.5-3b train step", 8, 128, 128, 16, 2, 128, role="main",
+             faults=("short_tiles",)),
+    FlashRow("phi-3, 576 image + 128 text rows", 1, 704, 704, 32, 32, 96),
+    FlashRow("whisper encoder", 2, 1500, 1500, 20, 20, 64, causal=False))
+
+
+def _backward_kernels(randn, record, tols):
+    """The two backward kernels against their plain versions in bf16 and
+    fp32, timed beside the plain version, the library's backward (its
+    forward + backward through autograd less its forward) and the bound:
+    rmsnorm's at BWD_RMSNORM_ROWS (bytes: x, g read, dx written; ~12
+    flops an element), flash's at BWD_FLASH_ROWS (five products over the
+    visible pairs, 2.5 times the forward's); with the planted faults (a
+    row's sums over its first warp's share; launch A one K tile short)."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    FA = importlib.import_module("repro_torch.kernels.flash_attention")
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def leaves_of(*ts):
+        return [t.detach().requires_grad_() for t in ts]
+
+    for R, D in BWD_RMSNORM_ROWS:
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+
+            def make(R=R, D=D, dt=dt):
+                return (randn(R, D, dt=dt),
+                        randn(D, dt=torch.float32) * 0.1 + 1.0,
+                        randn(R, D, dt=dt))
+            args_list = cold_copies(make, 2 * R * D * esz)
+            x, sc, g = args_list[0]
+            want = K.rmsnorm_backward_plain(x, sc, g)
+            got = K.rmsnorm_backward(x, sc, g)
+            case = f"[{R},{D}] {dname}"
+            err = max(_check(f"rmsnorm_backward {case} {name}", a, b,
+                             tols[dname])
+                      for name, a, b in zip(("dx", "dscale"), got, want))
+            _reject(f"rmsnorm_backward {case}, a row's sums over its first "
+                    f"warp's share", RN._launch_backward(
+                        x, sc, g, 1e-5, fault=RN.FAULT_FIRST_WARP_ONLY)[0],
+                    want[0], tols[dname])
+            weights = {sc.data_ptr(): sc.to(dt) for _, sc, _ in args_list}
+
+            def lib_fwd(x, sc, g, w=weights, D=D):
+                xr, wr = leaves_of(x, w[sc.data_ptr()])
+                return F.rms_norm(xr, (D,), wr, 1e-5), (xr, wr)
+
+            def lib(x, sc, g):
+                y, ins = lib_fwd(x, sc, g)
+                return torch.autograd.grad(y, ins, g)
+            record("rmsnorm_backward", case, dname == "bfloat16", err,
+                   args_list, K.rmsnorm_backward, K.rmsnorm_backward_plain,
+                   lib, 3 * R * D * esz + 8 * D, 12 * R * D, "float32",
+                   library_minus=lib_fwd)
+            del args_list, x, sc, g, want, got
+
+    for r in BWD_FLASH_ROWS:
+        off = r.Sk - r.Sq
+        i, j = torch.arange(r.Sq)[:, None] + off, torch.arange(r.Sk)[None]
+        vis = (i >= j) if r.causal else torch.ones(r.Sq, r.Sk, dtype=bool)
+        if r.window:
+            vis &= i - j < r.window
+        pairs = r.B * int(vis.sum())
+        kw = dict(causal=r.causal, window=r.window)
+        kind = "causal" if r.causal else "bidirectional"
+        run = lambda q, k, v, o, do, kw=kw: K.flash_attention_backward(
+            q, k, v, o, do, **kw)
+        plain = lambda q, k, v, o, do, kw=kw: \
+            K.flash_attention_backward_plain(q, k, v, o, do, **kw)
+
+        def lib_fwd(q, k, v, o, do, r=r):
+            qr, kr, vr = leaves_of(q, k, v)
+            y = F.scaled_dot_product_attention(
+                qr.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+                is_causal=r.causal, enable_gqa=r.H != r.Hkv)
+            return y, (qr, kr, vr)
+
+        def lib(q, k, v, o, do, lib_fwd=lib_fwd):
+            y, ins = lib_fwd(q, k, v, o, do)
+            return torch.autograd.grad(y, ins, do.transpose(1, 2))
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+            nbytes = 4 * (r.Sq * r.H + r.Sk * r.Hkv) * r.B * r.hd * esz
+
+            def make(r=r, dt=dt, kw=kw):
+                q, k, v = (randn(r.B, r.Sq, r.H, r.hd, dt=dt),
+                           randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt),
+                           randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt))
+                return (q, k, v, K.flash_attention(q, k, v, **kw),
+                        randn(r.B, r.Sq, r.H, r.hd, dt=dt))
+            args_list = cold_copies(make, nbytes)
+            q, k, v, o, do = args_list[0]
+            case = (f"{r.label}: q {list(q.shape)} k {list(k.shape)} "
+                    f"{kind} {dname}")
+            want = plain(q, k, v, o, do)
+            err = max(_check(f"flash_attention_backward {case} {name}", a,
+                             b, tols[dname])
+                      for name, a, b in zip(("dq", "dk", "dv"),
+                                            run(q, k, v, o, do), want))
+            if "short_tiles" in r.faults:
+                bad = FA._launch_backward(q, k, v, o, do, r.causal, r.window,
+                                          r.hd ** -0.5, off, short_tiles=1)
+                _reject(f"flash_attention_backward {case}, launch A one K "
+                        f"tile short", torch.cat([t.flatten() for t in bad]),
+                        torch.cat([t.flatten() for t in want]), tols[dname])
+            record("flash_attention_backward", case,
+                   r.role == "main" and dname == "bfloat16", err, args_list,
+                   run, plain, lib, nbytes, 10 * r.hd * r.H * pairs, dname,
+                   library_minus=lib_fwd)
+            del args_list, q, k, v, o, do, want
 
 
 def _sass_mma_counts(keys=("flash_attention", "moe_gmm", "mlstm_scan",
@@ -1593,6 +1737,23 @@ def phase_profile(state):
 
 
 REPLAY_KEY = b"chip-smoke-signing-key"
+# qwen2.5-3b's depth in phases replay, registry and fleet: exporting,
+# recording and loading its programs take host time in proportion to the
+# depth (36 layers: 75 s to record the decode block and 45-57 s for each
+# of its four loads, a third of the script)
+REPLAY_LAYERS = 4
+
+
+def _replay_model(state):
+    """qwen2.5-3b at full width cut to ``REPLAY_LAYERS`` layers, and its
+    weights from seed 0, drawn once for the three phases that share its
+    recordings and live tokens."""
+    if "replay_model" not in state:
+        from repro_torch.configs import get_config
+        cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                                  num_layers=REPLAY_LAYERS)
+        state["replay_model"] = cfg, _init_params(cfg)
+    return state["replay_model"]
 
 
 @contextlib.contextmanager
@@ -1696,21 +1857,20 @@ def _replay_prompts(cfg, seq=128, n=8):
 
 
 def phase_replay(state):
-    """Record -> sign -> replay at full width: qwen2.5-3b's prefill (batch
-    1, seq 128) and fused decode block (4 slots, cache 1024, block_k 8)
-    recorded with the record launcher's code through a wifi
-    ``RecordingSession`` with all passes, signed, saved, verified and
-    loaded; the session's host seconds naive and with all passes; the
-    tampered forms refused before load; 8 prompts of 128 tokens served
-    live, replayed eagerly and replayed through the decode block's CUDA
-    graph, then live and under the graph again, each dispatch billed to
-    a wifi emulator through a ``NetemBilledChannel``, with identical
+    """Record -> sign -> replay at full width (``REPLAY_LAYERS`` layers):
+    qwen2.5-3b's prefill (batch 1, seq 128) and fused decode block (4
+    slots, cache 1024, block_k 8) recorded with the record launcher's code
+    through a wifi ``RecordingSession`` with all passes, signed, saved,
+    verified and loaded; the session's host seconds naive and with all
+    passes; the tampered forms refused before load; 8 prompts of 128 tokens
+    served live, replayed eagerly and replayed through the decode block's
+    CUDA graph, then live and under the graph again, each dispatch billed
+    to a wifi emulator through a ``NetemBilledChannel``, with identical
     tokens and host syncs and identical billing logs; one decode block
     profiled under the graph beside live."""
     import tempfile
     import torch
     from repro_torch.api.workload import format_session_report, recording_name
-    from repro_torch.configs import get_config
     from repro_torch.core.channel import (LiveChannel, NetemBilledChannel,
                                           ReplayChannel)
     from repro_torch.core.netem import WIFI, NetworkEmulator
@@ -1725,11 +1885,9 @@ def phase_replay(state):
     from repro_torch.training import steps as ST
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("qwen2.5-3b")
+    cfg, params = _replay_model(state)
     L, block_k, seq, max_new = cfg.num_layers, 8, 128, 32
-    log(f"replay: {cfg.name} at full width on {_card(state)}")
-    params = state.get("params", {}).get(cfg.name)
-    params = params if params is not None else _init_params(cfg)
+    log(f"replay: {cfg.name} at full width, {L} layers, on {_card(state)}")
     kw = dict(n_slots=4, cache_len=1024, block_k=block_k, eos_id=2,
               speculate=True, pipeline_depth=4, device="cuda")
     with tempfile.TemporaryDirectory() as d:
@@ -2009,8 +2167,8 @@ def _run_examples(names):
 
 
 def phase_registry(state):
-    """record -> publish -> fetch -> verify -> replay at full width: phase
-    ``replay``'s qwen2.5-3b recordings (recorded here when that phase did
+    """record -> publish -> fetch -> verify -> replay at full width and
+    ``REPLAY_LAYERS`` layers: phase ``replay``'s qwen2.5-3b recordings (recorded here when that phase did
     not run) published through a cloud ``Workspace`` into a file-backed
     registry, a fresh TEE ``Workspace`` booting ``wl.engine()`` from it
     over emulated wifi (chunked fetch, HMAC and inclusion proof verified,
@@ -2039,13 +2197,11 @@ def phase_registry(state):
     from repro_torch.serving.engine import Engine
     from repro_torch.training import steps as ST
 
-    cfg = get_config("qwen2.5-3b")
+    cfg, params = _replay_model(state)
     L, block_k, seq, max_new = cfg.num_layers, 8, 128, 32
     shapes = dict(cache_len=1024, block_k=block_k, batch=4, prefill_batch=1,
                   seq=seq)
-    log(f"registry: {cfg.name} at full width on {_card(state)}")
-    params = state.get("params", {}).get(cfg.name)
-    params = params if params is not None else _init_params(cfg)
+    log(f"registry: {cfg.name} at full width, {L} layers, on {_card(state)}")
     prompts = _replay_prompts(cfg, seq)
     recs = state.get("replay_recs")
     if recs is None:
@@ -2229,9 +2385,9 @@ FANOUT_LADDER = (1, 2, 4, 8)
 
 
 def _fleet_registry(state, cfg, params, shapes):
-    """Part 1: a 2-replica qwen2.5-3b fleet at full width booted from a
-    file-backed registry over two regional read-replicas, serving
-    open-loop traffic with live's tokens and launches equal to the
+    """Part 1: a 2-replica qwen2.5-3b fleet at full width (``REPLAY_LAYERS``
+    layers) booted from a file-backed registry over two regional
+    read-replicas, serving open-loop traffic with live's tokens and launches equal to the
     formulas."""
     import tempfile
     import torch
@@ -2636,9 +2792,10 @@ def fanout_bench_deterministic(result):
 
 def phase_fleet(state):
     """Fleet-scale replay serving: (1) a 2-replica qwen2.5-3b fleet at
-    full width booted from a file-backed registry over 2 regional read-
-    replicas (each replica its own client and wifi span: fetch, verify,
-    load, warm, both programs captured), serving ~30 open-loop arrivals
+    full width (``REPLAY_LAYERS`` layers) booted from a file-backed
+    registry over 2 regional read-replicas (each replica its own client
+    and wifi span: fetch, verify, load, warm, both programs captured),
+    serving ~30 open-loop arrivals
     with live's tokens and launches equal to the formulas; (2) qwen2.5-3b
     and xlstm-350m at full width through one Scheduler (serve --streams)
     with BENCH_multitenant.json's flags; (3) BENCH_fleet.json's scenario
@@ -2647,15 +2804,13 @@ def phase_fleet(state):
     its flags and the fields its pinned job count fixes."""
     import tempfile
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.obs.schema import check_bench_file
 
-    cfg = get_config("qwen2.5-3b")
+    cfg, params = _replay_model(state)
     shapes = dict(cache_len=1024, block_k=8, batch=4, prefill_batch=1,
                   seq=128)
-    log(f"fleet: {cfg.name} at full width on {_card(state)}")
-    params = state.get("params", {}).get(cfg.name)
-    params = params if params is not None else _init_params(cfg)
+    log(f"fleet: {cfg.name} at full width, {cfg.num_layers} layers, on "
+        f"{_card(state)}")
     _fleet_registry(state, cfg, params, shapes)
     _fleet_multitenant()
 
@@ -2859,6 +3014,10 @@ def phase_session(state):
 
 
 FAMILY_KEY = b"chip-smoke-families-key"
+# the families' depth at full width in bf16 (whisper: as many encoder
+# layers): recording and loading the prefill and the step-by-step decode
+# loop take host time in proportion to it
+FAMILY_LAYERS = 4
 # the families' serving shapes: batch rows, prompt lengths (decoder
 # tokens; phi-3-vision's follow its 576 image rows), cache, block, tokens
 FAMILY_RUNS = {
@@ -2867,6 +3026,15 @@ FAMILY_RUNS = {
     "phi-3-vision-4.2b": dict(batch=4, prompts=(128,), cache_len=1024,
                               block_k=8, max_new=32),
 }
+
+
+def _cut_depth(cfg, layers, **kw):
+    """``cfg`` cut to ``layers`` layers (an encoder-decoder's encoder
+    too), other fields replaced by ``kw``."""
+    if cfg.family == "audio":
+        kw["encdec"] = dataclasses.replace(cfg.encdec,
+                                           num_encoder_layers=layers)
+    return dataclasses.replace(cfg, num_layers=layers, **kw)
 
 
 def _family_extra(cfg, B, rng):
@@ -2976,8 +3144,8 @@ def _family_shape_launches(cfg, S, B, steps):
 
 
 def _family_serve(state, arch):
-    """One model of the family at full width and depth (bf16, weights
-    from seed 0): per prompt length, prefill the batch, decode max_new
+    """One model of the family at full width and ``FAMILY_LAYERS`` layers
+    (bf16, weights from seed 0): per prompt length, prefill the batch, decode max_new
     tokens in fused blocks and step by step (equal tokens), launches
     equal to the formulas; one prefill and one decode block timed;
     record -> sign -> replay of the prefill step (warmed: captured as a
@@ -2992,7 +3160,7 @@ def _family_serve(state, arch):
     from repro_torch.training import steps as ST
 
     run = FAMILY_RUNS[arch]
-    cfg = get_config(arch)
+    cfg = _cut_depth(get_config(arch), FAMILY_LAYERS)
     B, cache_len, block_k, max_new = (run["batch"], run["cache_len"],
                                       run["block_k"], run["max_new"])
     params = _init_params(cfg)
@@ -3097,19 +3265,16 @@ def _family_serve(state, arch):
 def phase_families(state):
     """The audio and vlm families: whisper-large-v3 and phi-3-vision-4.2b
     in fp32 at 2 layers (whisper: 2 + 2) on the card against the CPU,
-    then each at full width and depth in bf16 (``_family_serve``)."""
+    then each at full width and ``FAMILY_LAYERS`` layers in bf16
+    (``_family_serve``)."""
     import numpy as np
     from repro_torch.configs import get_config
 
     rng = np.random.default_rng(6)
-    cfg = get_config("whisper-large-v3")
-    cfg = dataclasses.replace(
-        cfg, num_layers=2, dtype="float32",
-        encdec=dataclasses.replace(cfg.encdec, num_encoder_layers=2))
+    cfg = _cut_depth(get_config("whisper-large-v3"), 2, dtype="float32")
     toks = rng.integers(3, cfg.vocab_size, (2, 48)).astype("int32")
     _parity(cfg, toks, cache_len=1536, extra=_family_extra(cfg, 2, rng))
-    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"), num_layers=2,
-                              dtype="float32")
+    cfg = _cut_depth(get_config("phi-3-vision-4.2b"), 2, dtype="float32")
     toks = rng.integers(3, cfg.vocab_size, (2, 128)).astype("int32")
     _parity(cfg, toks, cache_len=1024, extra=_family_extra(cfg, 2, rng))
     for arch in FAMILY_RUNS:
@@ -3227,6 +3392,269 @@ def phase_native(state):
     assert not slow, f"native: replay slower than native for {slow}"
 
 
+TRAIN_ARCH = "qwen2.5-3b"
+TRAIN_SHAPES = dict(steps=6, batch=8, seq=128)   # launch/train.py's defaults
+TRAIN_SMALL = dict(num_layers=2, batch=2, seq=64)
+TRAIN_OPT = dict(warmup_steps=1, decay_steps=10)
+
+
+def _grads_resolved(state):
+    """Per master leaf, the elements whose first-step gradient (m / (1 -
+    b1)) is at least 1e-6: Adam's first step moves the others by lr * g /
+    (|g| + 1e-8), which rounding of g alone decides."""
+    import torch
+    return [m.abs() / (1 - 0.9) >= 1e-6
+            for m in torch.utils._pytree.tree_leaves(state["m"])]
+
+
+def _train_parity():
+    """(a) one fp32 train step of qwen2.5-3b cut to 2 layers at full width
+    on the card (both backward kernels) against the same step on the CPU
+    (plain versions), same params and batch."""
+    import dataclasses as dc
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    cfg = dc.replace(get_config(TRAIN_ARCH),
+                     num_layers=TRAIN_SMALL["num_layers"], dtype="float32")
+    tree = L.to_tree(M.init_params(cfg, 0, device="cuda"))
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_SMALL["batch"],
+                        TRAIN_SMALL["seq"]).next_batch()
+    step = ST.make_train_step(cfg, AdamWConfig(**TRAIN_OPT), remat="none")
+    got = {}
+    for dev in ("cpu", "cuda"):
+        state = init_opt_state(pytree.tree_map(lambda t: t.to(dev), tree))
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got[dev] = step(state, {k: torch.from_numpy(v).to(dev)
+                                for k, v in batch.items()})
+        torch.cuda.synchronize()
+        log(f"train: (a) fp32 step on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s; backward launches "
+            f"{K.launch_counts(K.BACKWARD_KERNELS)}")
+    (sc, mc), (sg, mg) = got["cpu"], got["cuda"]
+    L2 = TRAIN_SMALL["num_layers"]
+    assert K.launch_counts(K.BACKWARD_KERNELS) == {
+        "rmsnorm_backward": 2 * L2 + 1, "flash_attention_backward": L2}
+    rel = {k: abs(float(mc[k]) - float(mg[k])) / abs(float(mc[k]))
+           for k in ("loss", "grad_norm")}
+    lr = float(mc["lr"])
+    worst = worst_free = 0.0
+    for a, b, ok in zip(pytree.tree_leaves(sc["master"]),
+                        pytree.tree_leaves(sg["master"]),
+                        _grads_resolved(sc)):
+        d = (a - b.cpu()).abs()
+        ok = ok.cpu()
+        worst = max(worst, float(d[ok].max()) if ok.any() else 0.0)
+        worst_free = max(worst_free, float(d[~ok].max()) if (~ok).any()
+                         else 0.0)
+    log(f"train: (a) card vs CPU: loss {float(mg['loss'])!r} vs "
+        f"{float(mc['loss'])!r} (rel {rel['loss']:.3g}), grad_norm "
+        f"{float(mg['grad_norm'])!r} vs {float(mc['grad_norm'])!r} (rel "
+        f"{rel['grad_norm']:.3g}); master max |diff| {worst:.3g} where the "
+        f"gradient is resolved, {worst_free:.3g} elsewhere (lr {lr:.3g})")
+    # limits: 1e-4 relative for the two scalars and 1e-5 on the resolved
+    # master elements (fp32 sums in other orders on the two devices;
+    # measured: loss equal, masters 1.2e-7 apart); the rest within Adam's
+    # step bound
+    assert rel["loss"] <= 1e-4 and rel["grad_norm"] <= 1e-4, rel
+    assert worst <= 1e-5 and worst_free <= 2 * lr + 1e-5, (worst, worst_free)
+    return cfg, tree, sg
+
+
+def _train_resume(cfg, tree):
+    """(c) the same 2-layer fp32 model on the card: 3 steps, a checkpoint
+    (async, through the reference's layout), 3 more steps; the checkpoint
+    restored and stepped 3 times must equal the 6 at atol 1e-5."""
+    import tempfile
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.runtime import checkpoint as CK
+    from repro_torch.training import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    step = ST.make_train_step(cfg, AdamWConfig(warmup_steps=2, decay_steps=8),
+                              remat="none")
+    data = SyntheticLM(cfg.vocab_size, TRAIN_SMALL["batch"],
+                       TRAIN_SMALL["seq"])
+
+    def run(state, n):
+        for _ in range(n):
+            state, _ = step(state, {k: torch.from_numpy(v).cuda()
+                                    for k, v in data.next_batch().items()})
+        return state
+
+    with tempfile.TemporaryDirectory() as d:
+        store = CK.CheckpointStore(d)
+        t0 = time.perf_counter()
+        state = run(init_opt_state(tree), 3)
+        # stacked on the card, copied to the host once by async_save
+        store.async_save(CK.to_reference_layout(state, host=False), 3,
+                         extra_meta=data.meta())
+        state = run(state, 3)
+        store.wait()
+        t1 = time.perf_counter()
+        restored, manifest = store.restore(CK.to_reference_layout(
+            ST.abstract_train_state(cfg), host=False))
+        data.restore(manifest["extra"])
+        resumed = run(CK.from_reference_layout(cfg, restored, "cuda"), 3)
+        torch.cuda.synchronize()
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(pytree.tree_leaves(state),
+                                    pytree.tree_leaves(resumed)))
+        log(f"train: (c) 3 + checkpoint + 3 steps against 6: max |diff| "
+            f"{worst:.3g} over {len(pytree.tree_leaves(state))} leaves; "
+            f"{store.stats['bytes_written'] / 1e9:.2f} GB written; "
+            f"{t1 - t0:.1f} s for 6 steps and the save, "
+            f"{time.perf_counter() - t1:.1f} s to restore and step 3")
+        assert int(resumed["step"]) == 6 and worst <= 1e-5, worst
+
+
+def _train_profile(step, state, batch):
+    """One more train step under torch.profiler: (device busy ms, CUDA
+    kernels, {kind: device ms}) with the kernels sorted into the custom
+    forwards, the custom backwards, matrix products and the rest."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    busy, n_kern = _device_busy(prof)
+    kinds = {"custom backward": ("flash_bwd", "rmsnorm_bwd"),
+             "custom forward": ("flash_attention_mma", "rmsnorm_warp",
+                                "rmsnorm_block"),
+             "matrix products": ("nvjet", "gemm", "xmma", "cutlass")}
+    ms = dict.fromkeys(list(kinds) + ["other"], 0.0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name] = by_name.get(e.name, 0.0) + t
+        kind = next((k for k, keys in kinds.items()
+                     if any(x in e.name for x in keys)), "other")
+        ms[kind] += t
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return busy, n_kern, ms, top
+
+
+def _train_full(state):
+    """(b) qwen2.5-3b at full width and depth: one fp32 forward + backward
+    (no optimizer) from the weights of seed 0, freed; then
+    launch/train.py's ``train`` in bf16, which draws the same weights, for
+    6 steps at its default batch and seq; one more step profiled."""
+    import dataclasses as dc
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig, global_norm
+
+    cfg = get_config(TRAIN_ARCH)
+    steps, B, S = (TRAIN_SHAPES[k] for k in ("steps", "batch", "seq"))
+    data = SyntheticLM(cfg.vocab_size, B, S)
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.next_batch().items()}
+    params = L.to_tree(M.init_params(cfg, 0, device="cuda"))
+    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [p.detach().float().requires_grad_() for p in flat]
+    loss32, _ = ST.make_loss_fn(dc.replace(cfg, dtype="float32"), "none")(
+        pytree.tree_unflatten(leaves, spec), batch)
+    gnorm32 = float(global_norm(torch.autograd.grad(loss32, leaves)))
+    loss32 = float(loss32.detach())
+    log(f"train: (b) fp32 forward + backward at full depth: loss "
+        f"{loss32!r} grad_norm {gnorm32!r} in "
+        f"{time.perf_counter() - t0:.2f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    init = [p.to("cpu") for p in flat]    # to check that every leaf moves
+    del leaves, params, flat
+    torch.cuda.empty_cache()
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=steps, batch=B, seq=S, remat="none", log_every=1,
+                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = K.launch_counts(), K.launch_counts(K.BACKWARD_KERNELS)
+    L_ = cfg.num_layers
+    want = {"rmsnorm": (2 * L_ + 1) * steps,
+            "flash_attention": L_ * steps}
+    assert {k: fwd[k] for k in want} == want, fwd
+    assert bwd == {"rmsnorm_backward": want["rmsnorm"],
+                   "flash_attention_backward": want["flash_attention"]}, bwd
+    losses = [float(mt["loss"]) for mt in run.metrics]
+    gnorms = [float(mt["grad_norm"]) for mt in run.metrics]
+    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+    changed = [not torch.equal(a, b.cuda().float()) for a, b in zip(
+        pytree.tree_leaves(run.state["master"]), init)]
+    assert all(changed), f"{changed.count(False)} master leaves unchanged"
+    steady = run.step_ms[1:]
+    ms = sum(steady) / len(steady)
+    log(f"train: (b) {cfg.name} {n_params / 1e9:.3f} B params, bf16, "
+        f"batch {B} seq {S}: {steps} steps in {wall:.2f} s; step ms "
+        f"{[round(x, 1) for x in run.step_ms]} (steady {ms:.1f} ms/step, "
+        f"{B * S * 1000 / ms:.0f} training tokens/s); peak "
+        f"{peak:.2f} GB; every master leaf moved; launches per step: "
+        f"rmsnorm {fwd['rmsnorm'] // steps} + backward "
+        f"{bwd['rmsnorm_backward'] // steps}, flash_attention "
+        f"{fwd['flash_attention'] // steps} + backward "
+        f"{bwd['flash_attention_backward'] // steps}; on {_card(state)}")
+    d_loss = abs(losses[0] - loss32) / loss32
+    d_gn = abs(gnorms[0] - gnorm32) / gnorm32
+    log(f"train: (b) step 1 bf16 against the fp32 pass: loss {losses[0]!r} "
+        f"vs {loss32!r} (rel {d_loss:.3g}), grad_norm {gnorms[0]!r} vs "
+        f"{gnorm32!r} (rel {d_gn:.3g}); losses {losses}")
+    # measured: rel 1.6e-5 (loss) and 3.6e-5 (grad norm); the limits
+    # leave room for bf16 rounding that differs from run to run of data
+    assert d_loss <= 1e-3 and d_gn <= 1e-2, (d_loss, d_gn)
+    state["train_launches"] = bwd
+
+    step = ST.make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                               decay_steps=steps),
+                              remat="none")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, B, S).next_batch().items()}
+    busy, n_kern, kinds, top = _train_profile(step, run.state, batch)
+    log(f"train: (b) one more step profiled: device busy {busy:.2f} ms over "
+        f"{n_kern} kernels against {ms:.1f} ms wall (idle share "
+        f"{1 - busy / ms:.3f}); device ms by kind "
+        f"{ {k: round(v, 2) for k, v in kinds.items()} }; top kernels "
+        f"{[(n[:60], round(t, 2)) for n, t in top]}")
+    state["train"] = dict(ms=ms, peak_gb=peak, tok_s=B * S * 1000 / ms,
+                          busy_ms=busy)
+
+
+def phase_train(state):
+    import torch
+    cfg, tree, _ = _train_parity()
+    _train_resume(cfg, tree)
+    del tree
+    torch.cuda.empty_cache()
+    _train_full(state)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3274,6 +3702,18 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "case": row["case"]})
+        # the backward kernels at the train step's shapes, with their
+        # launches in phase train
+        for k in K.BACKWARD_KERNELS if "train" in phases else ():
+            mod = sys.modules[k.__module__]
+            row = state["kernel_rows"][k.__name__]
+            summary.append({
+                "name": k.__name__, "route": "cuda",
+                "source": mod.BACKWARD_SOURCE, "replaces": mod.REPLACES,
+                "launches": state["train_launches"][k.__name__],
+                **{key: row[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "case")}})
         # the attention kernels at the audio and vlm families' shapes,
         # with their launches at those shapes in phase families
         shapes = state.get("family_shape_launches", {})

@@ -6,22 +6,29 @@
 ``csrc/`` (``_build``), a CPU tensor takes the plain PyTorch version.
 Each wrapper counts its kernel launches in ``.launches``; the two
 attention wrappers count them by their inputs' shapes in ``.by_shape``
-as well.
+as well.  ``rmsnorm`` and ``flash_attention`` have a registered autograd
+whose backward is a kernel too (``rmsnorm_backward``,
+``flash_attention_backward``: two launches a run, counted once).
 """
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_backward, flash_attention_backward_plain,
+    flash_attention_plain)
 from repro_torch.kernels.mamba_scan import (mamba_chunk_scan,
                                             mamba_chunk_scan_plain)
 from repro_torch.kernels.mlstm import mlstm_chunk_scan, mlstm_chunk_scan_plain
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_plain
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
+                                         rmsnorm_backward_plain,
+                                         rmsnorm_plain)
 
 KERNELS = (rmsnorm, flash_attention, decode_attention, mamba_chunk_scan,
            mlstm_chunk_scan, moe_gmm)
+# the gradients of the two kernels a dense train step runs
+BACKWARD_KERNELS = (rmsnorm_backward, flash_attention_backward)
 
 # atol = rtol of a kernel against its plain version on the same inputs.
 # The largest differences measured on an H100 were 1.6e-6 in fp32 and one
@@ -32,15 +39,16 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def reset_launches() -> None:
-    for k in KERNELS:
+    for k in KERNELS + BACKWARD_KERNELS:
         k.launches = 0
     for k in (flash_attention, decode_attention):
         k.by_shape.clear()
 
 
-def launch_counts() -> dict:
-    """{kernel name: launches so far} of every wrapper."""
-    return {k.__name__: k.launches for k in KERNELS}
+def launch_counts(kernels=KERNELS) -> dict:
+    """{kernel name: launches so far} of every forward wrapper (or of
+    ``kernels``)."""
+    return {k.__name__: k.launches for k in kernels}
 
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
@@ -48,4 +56,7 @@ __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "decode_attention_plain", "mamba_chunk_scan",
            "mamba_chunk_scan_plain", "mlstm_chunk_scan",
            "mlstm_chunk_scan_plain", "moe_gmm", "moe_gmm_plain",
-           "KERNELS", "TOLERANCE", "reset_launches", "launch_counts"]
+           "rmsnorm_backward", "rmsnorm_backward_plain",
+           "flash_attention_backward", "flash_attention_backward_plain",
+           "KERNELS", "BACKWARD_KERNELS", "TOLERANCE", "reset_launches",
+           "launch_counts"]

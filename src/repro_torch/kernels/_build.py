@@ -175,6 +175,12 @@ def sm_count(device: torch.device) -> int:
 _sm_counts: dict = {}
 
 
+def plain_float(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the plain versions' arithmetic type: fp32, or fp64 for an
+    fp64 tensor (which ``torch.autograd.gradcheck`` takes)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def require(cond: bool, what: str) -> None:
     """Raise on an input a kernel does not take."""
     if not cond:

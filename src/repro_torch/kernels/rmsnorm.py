@@ -12,6 +12,16 @@ in fp32 and scales from the same registers, with the scale read as 16-byte
 vectors before the reduction; a row of at most 2 KB belongs to one warp
 (no barrier), a wider one to one block.  ``plan_rmsnorm`` chooses the path
 and the grid from the shapes and the SM count only.
+
+The gradient (``rmsnorm_backward``, ``csrc/rmsnorm_backward.cu``) is
+registered as the op's autograd: with r = rsqrt(mean(x^2) + eps) and g the
+output's gradient, ``dx = r (g scale) - x r^3 mean(x g scale)`` in x's
+dtype and ``dscale = sum over rows of g x r`` in fp32.  The TPU kernel has
+no backward (the reference differentiates ``apply_norm``); this one is the
+port's own, bound by bytes like the forward: a block walks rows
+grid-stride, a thread holds 8 columns, and each block's share of dscale
+stays in registers until a second launch sums the blocks' partials in a
+fixed order (no atomics, so two runs give the same bits).
 """
 from __future__ import annotations
 
@@ -22,13 +32,18 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
 REPLACES = "src/repro/kernels/rmsnorm.py:24"
+# the gradient of that kernel; the reference takes jax.grad of
+# repro/models/layers.py:apply_norm (:69) instead
+BACKWARD_SOURCE = "src/repro_torch/csrc/rmsnorm_backward.cu"
 
 WARP_ROW_BYTES = 2048   # the widest row one warp holds (4 vectors a lane)
 MAX_ROW_BYTES = 2 * 16 * 1024   # a block of 1,024 threads x 2 vectors
 FAULT_FIRST_WARP_ONLY = 1       # csrc: kFirstWarpOnly, for the checks only
+BACKWARD_MAX_D = 8 * 1024       # a thread per 8 columns, 1,024 threads
 
 
 class NormPlan(NamedTuple):
@@ -69,10 +84,24 @@ def plan_rmsnorm(rows: int, D: int, itemsize: int,
 
 def rmsnorm_plain(x: torch.Tensor, scale: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
-    """The same function in plain PyTorch (the CPU path and the oracle)."""
-    xf = x.float()
+    """The same function in plain PyTorch (the CPU path and the oracle),
+    in fp32 (fp64 for fp64 x, which gradcheck takes)."""
+    xf = plain_float(x)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_backward_plain(x: torch.Tensor, scale: torch.Tensor,
+                           g: torch.Tensor, eps: float = 1e-5):
+    """The gradient in plain PyTorch (the CPU path and the oracle):
+    (dx in x's dtype, dscale fp32 [D]) for the output's gradient g."""
+    D = x.shape[-1]
+    xf, gf = plain_float(x), plain_float(g)
+    gs = gf * scale
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    dx = r * gs - xf * (r * r * r) * (xf * gs).mean(-1, keepdim=True)
+    dscale = (gf * (xf * r)).reshape(-1, D).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 @torch.library.custom_op("repro_torch::rmsnorm", mutates_args=())
@@ -145,3 +174,106 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 
 rmsnorm.launches = 0    # kernel launches (CUDA path only)
+
+
+# ------------------------------------------------------------- backward --
+@torch.library.custom_op("repro_torch::rmsnorm_backward", mutates_args=())
+def _rmsnorm_bwd_op(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    raise NotImplementedError(
+        f"rmsnorm_backward: no implementation on {x.device}")
+
+
+@_rmsnorm_bwd_op.register_kernel("cpu")
+def _rmsnorm_bwd_cpu(x, scale, g, eps):
+    return rmsnorm_backward_plain(x, scale, g, eps)
+
+
+@_rmsnorm_bwd_op.register_fake
+def _rmsnorm_bwd_fake(x, scale, g, eps):
+    return torch.empty_like(x), torch.empty_like(scale)
+
+
+def plan_rmsnorm_backward(rows: int, D: int, sm_count: int):
+    """(threads, grid) of the backward's first launch, from shapes only:
+    a thread per 8 columns in whole warps, and at most two blocks per SM
+    walking the rows (the second launch sums ``grid`` partial rows)."""
+    return 32 * -(-D // 256), max(1, min(rows, 2 * sm_count))
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _launch_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float, fault: int = 0):
+    """One run of the backward (two launches) on CUDA tensors; ``fault``
+    plants a fault for the checks only."""
+    D = x.shape[-1]
+    _build.require(x.dtype in _build.DTYPE_CODES and g.dtype == x.dtype,
+                   f"rmsnorm_backward: dtypes {x.dtype}/{g.dtype}")
+    _build.require(g.shape == x.shape and x.is_contiguous()
+                   and g.is_contiguous() and g.device == x.device,
+                   "rmsnorm_backward: x and g must be contiguous, of one "
+                   "shape, on one device")
+    _build.require(0 < D <= BACKWARD_MAX_D and D % 8 == 0,
+                   f"rmsnorm_backward: D={D} is not a multiple of 8 in "
+                   f"(0, {BACKWARD_MAX_D}]")
+    _build.require(scale.dtype == torch.float32 and scale.shape == (D,)
+                   and scale.is_contiguous() and scale.device == x.device,
+                   "rmsnorm_backward: scale must be a contiguous fp32 [D] on "
+                   "x's device")
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (x, scale, g)),
+                   "rmsnorm_backward: x, scale and g must start on 16-byte "
+                   "boundaries")
+    dx = torch.empty_like(x)
+    dscale = torch.empty_like(scale)
+    rows = x.numel() // D
+    if rows == 0:
+        return dx, dscale.zero_()
+    threads, grid = plan_rmsnorm_backward(rows, D, _build.sm_count(x.device))
+    partial = torch.empty(grid, D, dtype=torch.float32, device=x.device)
+    fn = _build.entry("rmsnorm_backward_launch", _BWD_ARGTYPES)
+    _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
+                    dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
+                    rows, D, eps, _build.DTYPE_CODES[x.dtype], threads, grid,
+                    fault, _build.stream_handle(x)),
+                 "rmsnorm_backward")
+    return dx, dscale
+
+
+@_rmsnorm_bwd_op.register_kernel("cuda")
+def _rmsnorm_bwd_cuda(x, scale, g, eps):
+    if g.data_ptr() % 16:   # a view autograd handed over: an aligned copy
+        g = g.clone()
+    out = _launch_backward(x, scale, g, eps)
+    if x.numel():
+        rmsnorm_backward.launches += 1
+    return out
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                     eps: float = 1e-5):
+    """(dx, dscale) of ``rmsnorm(x, scale, eps)`` for the output's gradient
+    g.  CUDA tensors launch the kernel, CPU tensors take the plain
+    version."""
+    return _rmsnorm_bwd_op(x, scale, g.contiguous(), float(eps))
+
+
+rmsnorm_backward.launches = 0   # kernel runs (CUDA path only)
+
+
+def _setup_context(ctx, inputs, output):
+    x, scale, eps = inputs
+    ctx.save_for_backward(x, scale)
+    ctx.eps = eps
+
+
+def _backward(ctx, g):
+    x, scale = ctx.saved_tensors
+    dx, dscale = rmsnorm_backward(x, scale, g, ctx.eps)
+    return dx, dscale, None
+
+
+torch.library.register_autograd("repro_torch::rmsnorm", _backward,
+                                setup_context=_setup_context)

@@ -1,0 +1,136 @@
+"""End-to-end training launcher (runs on one device).
+
+Counterpart of ``repro/launch/train.py``, with the same flags and defaults
+(``--smoke`` is on unless the code is changed, as in the reference) and
+``--device``, which every launcher of the port takes:
+
+    python -m repro_torch.launch.train --arch qwen2.5-3b --device cpu \\
+        --steps 4
+    python -m repro_torch.launch.train --arch qwen2.5-3b --steps 50 \\
+        --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+
+Wires together: data pipeline -> train step (eager; the custom ops'
+backward kernels on the card) -> AdamW -> async checkpoints -> restore.
+``train`` is the same loop for a config the caller gives (full width and
+depth included).  A checkpoint holds the reference's layout and the data
+cursor of the last batch trained on, so ``--resume`` continues with the
+next batch; it restores onto the one device, which is what the
+reference's ``reshard_state`` does on a mesh of one (the elastic re-mesh
+waits for ROADMAP Queue 1, item 15).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Any, Dict, List
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, smoke_shrink
+from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.models import model as M
+from repro_torch.runtime.checkpoint import (CheckpointStore,
+                                            from_reference_layout,
+                                            to_reference_layout)
+from repro_torch.training import steps as ST
+from repro_torch.training.grad_compress import make_ef_int8_transform
+from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+
+@dataclasses.dataclass
+class TrainRun:
+    final_loss: float
+    state: Dict[str, Any]
+    metrics: List[Dict[str, torch.Tensor]]   # each step's, on the device
+    step_ms: List[float]    # the wall ms a step of each log line's span
+
+
+def train(cfg, *, steps: int = 50, batch: int = 8, seq: int = 128,
+          lr: float = 3e-4, remat: str = "none", grad_compress: bool = False,
+          ckpt_dir: str = "", ckpt_every: int = 20, resume: bool = False,
+          log_every: int = 10, device="cuda") -> TrainRun:
+    """Train ``cfg`` on ``SyntheticLM`` batches from AdamW's state over
+    weights drawn from seed 0 on ``device``, printing the reference's log
+    lines."""
+    device = resolve_device(device)
+    opt = AdamWConfig(lr=lr, warmup_steps=10, decay_steps=steps)
+    gt = make_ef_int8_transform() if grad_compress else None
+    train_step = ST.make_train_step(cfg, opt, remat=remat, grad_transform=gt)
+
+    store = CheckpointStore(ckpt_dir) if ckpt_dir else None
+    data = SyntheticLM(cfg.vocab_size, batch, seq)
+    start_step = 0
+    if store and resume and store.latest_step() is not None:
+        state_np, manifest = store.restore(
+            to_reference_layout(ST.abstract_train_state(cfg), host=False))
+        state = from_reference_layout(cfg, state_np, device)
+        data.restore(manifest["extra"])
+        start_step = manifest["step"]
+        print(f"resumed from step {start_step} on 1 devices")
+    else:   # the bf16 weights are dropped: each step casts the master
+        state = init_opt_state(M.init_params(cfg, 0, device=device))
+
+    loader = Prefetcher(data)
+    history: List[Dict[str, torch.Tensor]] = []
+    step_ms: List[float] = []
+    try:
+        t0 = time.time()
+        for step in range(start_step, steps):
+            b = {k: torch.from_numpy(v).to(device)
+                 for k, v in loader.next_batch().items()}
+            state, metrics = train_step(state, b)
+            history.append(metrics)
+            if (step + 1) % log_every == 0:
+                m = {k: float(v) for k, v in metrics.items()}
+                step_ms.append((time.time() - t0) / log_every * 1000)
+                print(f"step {step+1:5d} loss {m['loss']:.4f} "
+                      f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e} "
+                      f"({step_ms[-1]:.0f} ms/step)", flush=True)
+                t0 = time.time()
+            if store and (step + 1) % ckpt_every == 0:
+                store.async_save(to_reference_layout(state), step + 1,
+                                 extra_meta=loader.meta())
+        if store:
+            store.wait()
+            store.save(to_reference_layout(state), steps,
+                       extra_meta=loader.meta())
+    finally:
+        loader.close()
+    if not history:
+        raise ValueError(f"nothing to train: step {start_step} of {steps}")
+    final = float(history[-1]["loss"])
+    print(f"done: final loss {final:.4f}", flush=True)
+    return TrainRun(final, state, history, step_ms)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--remat", default="none")
+    ap.add_argument("--grad-compress", action="store_true")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = smoke_shrink(cfg)
+    return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                 lr=args.lr, remat=args.remat,
+                 grad_compress=args.grad_compress, ckpt_dir=args.ckpt_dir,
+                 ckpt_every=args.ckpt_every, resume=args.resume,
+                 log_every=args.log_every, device=args.device).final_loss
+
+
+if __name__ == "__main__":
+    main()

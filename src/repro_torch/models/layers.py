@@ -42,7 +42,8 @@ def torch_dtype(name: str) -> torch.dtype:
 class ParamTree(nn.Module):
     """A nested dict of parameters as a module (``p[name]``, ``name in p``);
     lists of blocks are ``nn.ModuleList``s.  Parameters do not require
-    grad: the port serves, it does not train yet."""
+    grad, so a served forward records nothing for a backward; training
+    differentiates its own fp32 master tree (``training/steps.py``)."""
 
     def __init__(self, entries: dict):
         super().__init__()

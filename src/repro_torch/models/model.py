@@ -28,6 +28,7 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
@@ -217,15 +218,55 @@ def _block_forward(kind, p, h, cfg, shared=None, enc_out=None):
     return h + m, aux, cache_out
 
 
+# aten's matrix products: what the reference's "dots" policy saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+REMAT = ("none", "full", "dots", "minimal")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    P = ckpt.CheckpointPolicy
+    return P.MUST_SAVE if op in _DOTS else P.PREFER_RECOMPUTE
+
+
+def _save_all(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE
+
+
+def _remat_block(remat: str):
+    """``_block_forward`` under the reference's ``_remat_policy``: each
+    block runs in ``torch.utils.checkpoint`` (non-reentrant).  "full"
+    saves nothing inside the block and recomputes it in the backward
+    (``nothing_saveable``); "dots" saves the matrix products' outputs and
+    recomputes the rest (``dots_with_no_batch_dims_saveable``); "minimal"
+    saves everything (``everything_saveable``); "none" runs plainly.  All
+    four give the same loss and gradients."""
+    if remat == "none":
+        return _block_forward
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    policy = {"full": None, "dots": _save_dots, "minimal": _save_all}[remat]
+    context_fn = ckpt.noop_context_fn if policy is None else \
+        (lambda: ckpt.create_selective_checkpoint_contexts(policy))
+
+    def block(*args):
+        return ckpt.checkpoint(_block_forward, *args, use_reentrant=False,
+                               context_fn=context_fn)
+    return block
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
-            collect_cache: bool = False):
+            collect_cache: bool = False, remat: str = "none"):
     """Full-sequence forward -> (logits [B,S,V], aux_loss[, kv_stacks]).
 
     batch: tokens [B,S]; audio adds frames [B,enc_S,D]; vlm adds image
     embeds [B,n_img,D] put before the text (their rows are dropped before
     the head).  With ``collect_cache`` each stage's K/V or final
     recurrent states (with a leading layer axis when the stage has
-    several blocks) are returned for ``assemble_caches``."""
+    several blocks) are returned for ``assemble_caches``.  ``remat``
+    (``REMAT``) checkpoints each block as the reference's ``jax.checkpoint``
+    of its scan body does (``_remat_block``)."""
+    block_forward = _remat_block(remat)
     h = F.embedding(batch["tokens"], params["embed"])
     n_img = 0
     if cfg.family == "vlm" and "image_embeds" in batch:
@@ -245,7 +286,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             enc_out, h = h, h_dec
         outs = []
         for p in blocks:
-            h, aux, out = _block_forward(st.kind, p, h, cfg, shared, enc_out)
+            h, aux, out = block_forward(st.kind, p, h, cfg, shared, enc_out)
             aux_total = aux_total + aux
             if collect_cache:
                 outs.append(out)

@@ -1,1 +1,2 @@
-"""Serving step functions (prefill, batched prefill, fused k-step decode)."""
+"""Step functions (train, prefill, batched prefill, decode, fused k-step
+decode), AdamW and int8 error-feedback gradient compression."""

@@ -820,3 +820,147 @@ def test_smoke_fleet_on_card_matches_cpu(cuda, source, tmp_path):
                 ex.stats["prefill_dispatches"] + ex.stats["blocks_dispatched"]
         assert len({id(r.scheduler.streams[cfg.name].channel.replayer)
                     for r in pool.replicas}) == 2
+
+
+# ---------------------------------------------------------- backwards ----
+RMS_BWD_CASES = [(4, 2048), (1024, 2048), (300, 96), (300, 3072), (16, 8192)]
+FLASH_BWD_CASES = [  # B, Sq, Sk, H, Hkv, hd, causal, window, q_offset
+    (2, 128, 128, 16, 2, 128, True, 0, None),
+    (1, 70, 90, 4, 1, 96, True, 24, None),
+    (2, 40, 40, 4, 4, 64, False, 0, None)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D", RMS_BWD_CASES)
+def test_rmsnorm_backward_matches_plain(cuda, dt, rows, D):
+    """Both gradients against the plain backward; one counted run (two
+    launches); identical bits on a second run (no atomics)."""
+    rn = _randn(cuda, 11)
+    x, s, g = rn(rows, D, dt=dt), rn(D) * 0.1 + 1.0, rn(rows, D, dt=dt)
+    before = K.rmsnorm_backward.launches
+    dx, ds = K.rmsnorm_backward(x, s, g)
+    torch.cuda.synchronize()
+    assert K.rmsnorm_backward.launches == before + 1
+    wdx, wds = K.rmsnorm_backward_plain(x, s, g)
+    assert dx.dtype == dt and ds.dtype == torch.float32
+    _close(dx, wdx, TOL[dt])
+    # dscale sums `rows` terms of x's rounding: relative, by the sum's size
+    _close(ds / rows ** 0.5, wds / rows ** 0.5, TOL[dt])
+    dx2, ds2 = K.rmsnorm_backward(x, s, g)
+    assert torch.equal(dx, dx2) and torch.equal(ds, ds2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_backward_matches_plain(cuda, dt, case):
+    B, Sq, Sk, H, Hkv, hd, causal, window, q_offset = case
+    rn = _randn(cuda, 12)
+    q, k, v = rn(B, Sq, H, hd, dt=dt), rn(B, Sk, Hkv, hd, dt=dt), \
+        rn(B, Sk, Hkv, hd, dt=dt)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out = K.flash_attention(q, k, v, **kw)
+    dout = rn(B, Sq, H, hd, dt=dt)
+    before = K.flash_attention_backward.launches
+    got = K.flash_attention_backward(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert K.flash_attention_backward.launches == before + 1
+    want = K.flash_attention_backward_plain(q, k, v, out, dout, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == dt
+        _close(a, b, TOL[dt])
+    again = K.flash_attention_backward(q, k, v, out, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+def test_flash_backward_sweep_matches_plain(cuda, dt, hd):
+    """Every head dim at ragged tiles (37 rows, 70 keys), a group of 4, a
+    cross shape (13 queries over 100 keys, bidirectional), an explicit
+    q_offset with a window, and end-aligned causal Sq < Sk."""
+    rn = _randn(cuda, 15)
+    for B, Sq, Sk, H, Hkv, causal, window, q_offset in (
+            (2, 37, 37, 4, 1, True, 0, None), (1, 70, 70, 8, 2, True, 0, None),
+            (2, 13, 100, 4, 4, False, 0, None), (1, 40, 90, 4, 2, True, 16, 45),
+            (1, 20, 130, 2, 2, True, 0, None)):
+        q, k, v = rn(B, Sq, H, hd, dt=dt), rn(B, Sk, Hkv, hd, dt=dt), \
+            rn(B, Sk, Hkv, hd, dt=dt)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out = K.flash_attention(q, k, v, **kw)
+        dout = rn(B, Sq, H, hd, dt=dt)
+        got = K.flash_attention_backward(q, k, v, out, dout, **kw)
+        want = K.flash_attention_backward_plain(q, k, v, out, dout, **kw)
+        for a, b in zip(got, want):
+            _close(a, b, TOL[dt])
+
+
+def test_backward_tolerance_rejects_planted_faults(cuda):
+    """One K tile short in the flash backward's launch A, and an rmsnorm
+    row's sums over its first warp's share, fail the checks."""
+    FA_ = importlib.import_module("repro_torch.kernels.flash_attention")
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    rn = _randn(cuda, 13)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = rn(2, 128, 16, 128, dt=dt), rn(2, 128, 2, 128, dt=dt), \
+            rn(2, 128, 2, 128, dt=dt)
+        out = K.flash_attention(q, k, v)
+        dout = rn(2, 128, 16, 128, dt=dt)
+        scale = 128 ** -0.5
+        want = K.flash_attention_backward_plain(q, k, v, out, dout)
+        bad = FA_._launch_backward(q, k, v, out, dout, True, 0, scale, 0,
+                                   short_tiles=1)
+        assert not all(_agree(a, b, TOL[dt]) for a, b in zip(bad, want))
+        x, s, g = rn(64, 2048, dt=dt), rn(2048) * 0.1 + 1.0, \
+            rn(64, 2048, dt=dt)
+        wdx, _ = K.rmsnorm_backward_plain(x, s, g)
+        dx, _ = RN._launch_backward(x, s, g, 1e-5,
+                                    fault=RN.FAULT_FIRST_WARP_ONLY)
+        assert not _agree(dx, wdx, TOL[dt])
+
+
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rn = _randn(cuda, 14)
+    q, k, v = rn(1, 8, 4, 192), rn(1, 8, 4, 192), rn(1, 8, 4, 128)
+    with pytest.raises(ValueError, match="hd_v = hd"):
+        K.flash_attention_backward(q, k, v, rn(1, 8, 4, 128),
+                                   rn(1, 8, 4, 128))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K.rmsnorm_backward(rn(4, 8 * 1024 + 8), rn(8 * 1024 + 8),
+                           rn(4, 8 * 1024 + 8))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "phi-3-vision-4.2b",
+                                  "whisper-large-v3"])
+def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 train step of the smoke config on the card (both backward
+    kernels) against the same step on the CPU (plain versions)."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = smoke_shrink(get_config(arch), dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal(
+            (2, cfg.encdec.encoder_seq, cfg.d_model), np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (2, cfg.vlm.num_image_tokens, cfg.d_model), np.float32)
+    params = L.to_tree(M.init_params(cfg, 0, device="cpu"))
+    step = ST.make_train_step(cfg, AdamWConfig(warmup_steps=1,
+                                               decay_steps=10), remat="none")
+    got = {}
+    for dev in ("cpu", cuda):
+        state = init_opt_state(
+            torch.utils._pytree.tree_map(lambda t: t.to(dev), params))
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        K.reset_launches()
+        got[str(dev)] = step(state, b)
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = got["cpu"], got["cuda"]
+    assert K.rmsnorm_backward.launches > 0 or cfg.norm != "rmsnorm"
+    assert K.flash_attention_backward.launches > 0
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(m_cpu[key]) - float(m_gpu[key])) <= \
+            1e-4 * (1 + abs(float(m_cpu[key]))), key
+    for a, b in zip(torch.utils._pytree.tree_leaves(s_cpu["master"]),
+                    torch.utils._pytree.tree_leaves(s_gpu["master"])):
+        _close(a, b.cpu(), 1e-4)

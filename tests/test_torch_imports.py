@@ -47,7 +47,12 @@ def test_import_loads_no_jax():
             "repro_torch.fleet", "repro_torch.fleet.traffic",
             "repro_torch.fleet.balancer", "repro_torch.fleet.pool",
             "repro_torch.launch.fleet", "repro_torch.launch.fanout",
-            "repro_torch.launch.trace"} <= set(mods)
+            "repro_torch.launch.trace", "repro_torch.training.optimizer",
+            "repro_torch.training.grad_compress", "repro_torch.data",
+            "repro_torch.data.pipeline", "repro_torch.runtime",
+            "repro_torch.runtime.checkpoint",
+            "repro_torch.runtime.straggler",
+            "repro_torch.launch.train"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -70,7 +75,9 @@ def test_import_loads_no_jax():
     ("repro_torch.attest",), ("repro_torch.registry",),
     ("repro_torch.api",), ("repro_torch.fleet",),
     ("repro_torch.launch.fleet", "repro_torch.launch.fanout",
-     "repro_torch.launch.trace")],
+     "repro_torch.launch.trace"),
+    ("repro_torch.launch.train", "repro_torch.training.grad_compress",
+     "repro_torch.runtime.straggler")],
     ids=lambda m: m[0].removeprefix("repro_torch."))
 def test_recording_session_modules_load_no_jax_or_msgpack(mods):
     """The CODY session's modules alone: metastate sync frames through
