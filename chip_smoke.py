@@ -9,7 +9,8 @@ Phases, each of which raises (exit code != 0) when it fails:
   gpu      the card's name and power limit, from nvidia-smi;
   build    the CUDA kernels built from src/repro_torch/csrc with nvcc, and
            ptxas's registers, shared memory and spills for the attention
-           kernels, moe_gmm, rmsnorm and the scans (which must not spill);
+           kernels, moe_gmm, rmsnorm, the scans and their backwards
+           (which must not spill);
   kernels  each kernel against its plain PyTorch version on the card, in
            bf16 and fp32, at ``kernels.TOLERANCE``, with its device time,
            the plain version's, one library call's as a yardstick where
@@ -39,12 +40,18 @@ Phases, each of which raises (exit code != 0) when it fails:
            reading its neighbour's weights, a stale tile in moe_gmm's
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
-           be rejected; the two backward kernels (rmsnorm's at the train
+           be rejected; the four backward kernels (rmsnorm's at the train
            step's [1024, 2048], flash's at its q [8,128,16,128] and at
-           phi-3-vision's and whisper's shapes) against their plain
-           versions in both dtypes, timed beside the library's backward,
-           with their planted faults (a row's sums over its first warp's
-           share; launch A one K tile short);
+           phi-3-vision's and whisper's shapes, the two scans' at
+           zamba2-1.2b's and xlstm-350m's train step rows [8,1,128,...]
+           and at the 300-token prompt's [1,2,150,...]) against their
+           plain versions in both dtypes, timed beside the library's
+           backward where there is one, with their planted faults (a
+           row's sums over its first warp's share; launch A one K tile
+           short; a scan chunk reading the state cotangent of the chunk
+           after it; the SSD's head sum of dB without its last head; the
+           mLSTM's sum of dg's column tiles without its last), the scans'
+           two runs bit-equal;
   train    training through the backward kernels: (a) qwen2.5-3b cut to 2
            layers at full width, one fp32 train step on the card against
            the CPU (loss, grad norm, every master leaf); (c) the same
@@ -55,7 +62,13 @@ Phases, each of which raises (exit code != 0) when it fails:
            default batch 8 and seq 128 (finite losses, every master leaf
            moved, step 1 against the fp32 pass, launches 73 + 73 rmsnorm
            and 36 + 36 flash a step), ms per step, tokens/s, peak memory
-           and one more step profiled;
+           and one more step profiled; (d) zamba2-1.2b and xlstm-350m:
+           one fp32 step at phase parity's group of 6 layers (seq 128,
+           two kernel chunks) on the card against the CPU, then
+           ``train`` in bf16 at full width and depth for 3 steps at batch
+           8, seq 128 (finite losses, every master leaf moved, 36 + 36
+           SSD scans and 20 + 20 mLSTM scans a step), ms per step,
+           tokens/s, peak memory and one more step profiled;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -289,7 +302,7 @@ def _kernel_names(mangled):
 
 
 PTXAS_KEYS = ("flash_attention", "decode_attention", "moe_gmm", "rmsnorm",
-              "mamba_scan", "mlstm_scan")
+              "mamba_scan", "mlstm_scan", "mamba_bwd", "mlstm_bwd")
 
 
 def _ptxas_report(text, keys=PTXAS_KEYS):
@@ -334,7 +347,8 @@ def phase_build(state):
             f"{r.get('smem')} B static shared memory, spill stores/loads "
             f"{r.get('spills')} B (dynamic shared memory is set at launch)")
     spilled = {n: r.get("spills") for n, r in report.items()
-               if "_scan_" in n and r.get("spills") != (0, 0)}
+               if ("_scan_" in n or n.startswith(("mamba_bwd", "mlstm_bwd")))
+               and r.get("spills") != (0, 0)}
     assert not spilled, f"build: the scan kernels spill: {spilled}"
 
 
@@ -418,6 +432,7 @@ def phase_kernels(state):
                2 * R * D * esz + 4 * D, 4 * R * D, "float32")
     _rmsnorm_kernels(randn, record, tols)
     _backward_kernels(randn, record, tols)
+    _scan_backward_kernels(randn, record)
 
     _attention_rows(randn, record, tols, state)
 
@@ -826,6 +841,153 @@ def _backward_kernels(randn, record, tols):
             del args_list, q, k, v, o, do, want
 
 
+# the scan backwards' cases (B, Q, nc): a train step's rows (batch 8 of
+# seq 128: one caller chunk, two kernel chunks) and the 300-token prompt's
+# two chunks of 150
+BWD_SCAN_CASES = ((8, 128, 1), (1, 150, 2))
+
+
+def _scan_backward_bytes(which, B, Q, nc, esz):
+    """Bytes one backward run must move: the forward's inputs, y (mLSTM),
+    the cotangents of y and the final state read once, the gradients
+    written once."""
+    rows = B * nc * Q
+    if which == "mamba":
+        nh, P, N = 64, 64, 64
+        return 12 * rows * nh * P + 4 * esz * rows * N + 8 * rows * nh \
+            + 4 * B * nh * P * N
+    nh, dh = 4, 512
+    return 6 * esz * rows * nh * dh + 16 * rows * nh + 8 * rows * nh * dh \
+        + 4 * B * nh * dh * (dh + 1)
+
+
+def _least_ops(count, B, S):
+    """The operations ``count(chunks, pairs)`` of a scan over B rows of S
+    = nc·Q steps cut into chunks of L rows (the last shorter), at the L
+    from 1 (the recurrent form) to the kernel's 64 whose work takes the
+    least time at the peaks.  Every such cut computes the same scan (the
+    kernel's own plan regroups the caller's chunks), so the least work of
+    any of them bounds it: fewer rows a chunk means fewer causal pairs,
+    more a chunk fewer products with a state a chunk."""
+    def at(L):
+        full, rest = divmod(S, L)
+        return count(B * (full + (rest > 0)),
+                     B * (full * L * (L + 1) + rest * (rest + 1)) // 2)
+    return min((at(L) for L in range(1, 65)),
+               key=lambda ops: sum(n / PEAK_OPS_S[d] for d, n in ops.items()))
+
+
+def _scan_backward_ops(which, B, Q, nc, esz):
+    """{dtype name: operations} of one backward run, its multiply-adds at
+    the least-work chunking (``_least_ops``): per row the state passes
+    (recomputed forward, reverse) and the products with a state (SSD: dx̄,
+    dB, dC; mLSTM: dq, dk, dv), per chunk the state's part of dg, and the
+    intra-chunk products over the causal pairs.  C Bᵀ and q kᵀ of bf16
+    inputs are exact at the bf16 peak; every other product has an fp32
+    operand (x̄, dy, a state) and counts at the fp32 peak."""
+    rows = B * nc * Q
+    if which == "mamba":
+        nh, P, N = 64, 64, 64
+
+        def count(chunks, pairs):
+            return 2 * pairs * N, 2 * (5 * rows * nh * P * N
+                                       + chunks * nh * P * N
+                                       + pairs * nh * (2 * P + 2 * N))
+    else:
+        nh, dh = 4, 512
+
+        def count(chunks, pairs):
+            return 2 * nh * pairs * dh, 2 * nh * (
+                4 * rows * dh * (dh + 1) + rows * dh * dh
+                + chunks * dh * (dh + 1) + 4 * pairs * dh)
+
+    def ops(chunks, pairs):
+        exact, fp32 = count(chunks, pairs)
+        if esz == 4:
+            return {"float32": exact + fp32}
+        return {"bfloat16": exact, "float32": fp32}
+    return _least_ops(ops, B, nc * Q)
+
+
+def _scan_backward_kernels(randn, record):
+    """The two scan backwards at BWD_SCAN_CASES, with bf16 and fp32 B, C
+    (SSD) or q, k, v (mLSTM), against their plain versions on the same
+    inputs and cotangents (the final state's nonzero); fp32 gradients at
+    ``TOLERANCE`` of the largest reference value (dB, dC and dcum sum
+    the 64 heads' or the rows' terms, of up to ~5e3, in another order),
+    the bf16 ones at the bf16 limit; two runs bit-equal; the planted
+    faults rejected (the chunk's state cotangent read from the chunk
+    after it; the SSD's head sum of dB without its last head; the mLSTM's
+    sum of dg's column tiles without its last tile).  No single PyTorch
+    call computes a scan's gradient."""
+    import importlib
+    import torch
+    from repro_torch import kernels as K
+    MS = importlib.import_module("repro_torch.kernels.mamba_scan")
+    ML = importlib.import_module("repro_torch.kernels.mlstm")
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    f32 = torch.float32
+    for which in ("mamba", "mlstm"):
+        if which == "mamba":
+            fwd, run, plain = (K.mamba_chunk_scan, K.mamba_chunk_scan_backward,
+                               K.mamba_chunk_scan_backward_plain)
+            launch, names = MS._launch_backward, ("dx", "dB", "dC", "dcum")
+            faults = (("the state cotangent read from the chunk after",
+                       MS.FAULT_WRONG_COTANGENT),
+                      ("dB's head sum without its last head",
+                       MS.FAULT_DROP_HEAD))
+            width = "zamba2 nh=64 P=64 N=64"
+        else:
+            fwd, run, plain = (K.mlstm_chunk_scan, K.mlstm_chunk_scan_backward,
+                               K.mlstm_chunk_scan_backward_plain)
+            launch, names = ML._launch_backward, ("dq", "dk", "dv", "dcumf",
+                                                  "dli")
+            faults = (("the state cotangent read from the chunk after",
+                       ML.FAULT_WRONG_COTANGENT),
+                      ("dg's column tiles without the last",
+                       ML.FAULT_DROP_TILE))
+            width = "xlstm nh=4 dh=512"
+        for (B, Q, nc) in BWD_SCAN_CASES:
+            for dname, dt in dts.items():
+                esz = torch.finfo(dt).bits // 8
+                nbytes = _scan_backward_bytes(which, B, Q, nc, esz)
+
+                def make(which=which, B=B, Q=Q, nc=nc, dt=dt, fwd=fwd):
+                    ins = _scan_inputs(randn, which, B, Q, nc, dt)
+                    outs = fwd(*ins)
+                    cots = tuple(randn(*o.shape, dt=f32) for o in outs)
+                    return (*ins, outs[0], *cots) if which == "mlstm" \
+                        else (*ins, *cots)
+                args_list = cold_copies(make, nbytes)
+                a = args_list[0]
+                case = f"{width} B={B} Q={Q} nc={nc} {dname}"
+                got, want = run(*a), plain(*a)
+                tol = K.TOLERANCE[dt]
+                # fp32: atol tol * max |w|, rtol tol
+                scales = [max(1.0, float(w.float().abs().max()))
+                          if esz == 4 else 1.0 for w in want]
+                err = 0.0
+                for nm, g, w, sc in zip(names, got, want, scales):
+                    assert g.dtype == w.dtype, (case, nm, g.dtype, w.dtype)
+                    _check(f"{which} backward {case} {nm}", g.float() / sc,
+                           w.float() / sc, tol)
+                    err = max(err, float((g.float() - w.float()).abs().max()))
+                assert all(torch.equal(g, h) for g, h in zip(got, run(*a))), \
+                    f"{which} backward {case}: two runs differ"
+                # a fault must fail the scaled check of one gradient, the
+                # check each gradient of the kernel passed just above
+                flat = lambda ts, scales=scales: torch.cat(
+                    [t.float().flatten() / sc for t, sc in zip(ts, scales)])
+                for label, fault in faults:
+                    _reject(f"{which} backward {case}, {label}",
+                            flat(launch(*a, fault=fault)), flat(want), tol)
+                record(f"{which}_chunk_scan_backward", case,
+                       (B, Q, nc) == BWD_SCAN_CASES[0] and dname == "bfloat16",
+                       err, args_list, run, plain, None, nbytes,
+                       _scan_backward_ops(which, B, Q, nc, esz), dname)
+                del args_list, a, got, want
+
+
 def _sass_mma_counts(keys=("flash_attention", "moe_gmm", "mlstm_scan",
                            "mamba_scan")):
     """HMMA/HGMMA instructions in the SASS of each kernel whose name holds
@@ -1029,24 +1191,28 @@ def _scan_bytes(which, B, Q, nc, esz):
 
 def _scan_ops(which, B, Q, nc, esz, parts):
     """{dtype name: operations} of one scan call: the multiply-adds of the
-    chunked form at the caller's Q, each at the peak of the fastest way
-    that meets the fp32 limit.  With fp32 inputs every product is fp32.
-    With bf16 inputs a product of two bf16 operands (C Bᵀ, q kᵀ) is exact
-    at the bf16 peak; one with an fp32 operand (the state, x̄, the decayed
-    scores) costs ``parts`` bf16 products (the split); the SSD's
-    (C Bᵀ ⊙ decay) x̄ stays fp32, since its split fails the limit."""
-    rows, pairs = B * nc * Q, B * nc * Q * (Q + 1) // 2
-    if which == "mamba":
-        nh, P, N = 64, 64, 64
-        exact, fp32 = 2 * pairs * N, 2 * pairs * nh * P
-        split = 2 * 2 * rows * nh * P * N           # carried term, state
-    else:
-        nh, dh = 4, 512
-        exact, fp32 = 2 * nh * pairs * dh, 2 * nh * pairs   # q kᵀ, row sums
-        split = 2 * nh * (pairs * dh + 2 * rows * dh * dh + rows * dh)
-    if esz == 4:
-        return {"float32": exact + fp32 + split}
-    return {"bfloat16": exact + parts * split, "float32": fp32}
+    chunked form at the least-work chunking (``_least_ops``), each at the
+    peak of the fastest way that meets the fp32 limit.  With fp32 inputs
+    every product is fp32.  With bf16 inputs a product of two bf16
+    operands (C Bᵀ, q kᵀ) is exact at the bf16 peak; one with an fp32
+    operand (the state, x̄, the decayed scores) costs ``parts`` bf16
+    products (the split); the SSD's (C Bᵀ ⊙ decay) x̄ stays fp32, since
+    its split fails the limit."""
+    rows = B * nc * Q
+
+    def ops(chunks, pairs):
+        if which == "mamba":
+            nh, P, N = 64, 64, 64
+            exact, fp32 = 2 * pairs * N, 2 * pairs * nh * P
+            split = 2 * 2 * rows * nh * P * N       # carried term, state
+        else:
+            nh, dh = 4, 512
+            exact, fp32 = 2 * nh * pairs * dh, 2 * nh * pairs  # q kᵀ, sums
+            split = 2 * nh * (pairs * dh + 2 * rows * dh * dh + rows * dh)
+        if esz == 4:
+            return {"float32": exact + fp32 + split}
+        return {"bfloat16": exact + parts * split, "float32": fp32}
+    return _least_ops(ops, B, nc * Q)
 
 
 def _scan_kernels(randn, record, times):
@@ -3396,6 +3562,36 @@ TRAIN_ARCH = "qwen2.5-3b"
 TRAIN_SHAPES = dict(steps=6, batch=8, seq=128)   # launch/train.py's defaults
 TRAIN_SMALL = dict(num_layers=2, batch=2, seq=64)
 TRAIN_OPT = dict(warmup_steps=1, decay_steps=10)
+# (d) the recurrent families: the parity step at phase parity's group (6
+# layers: zamba2's 6 Mamba2 layers and its shared block, xlstm's 5 mLSTM
+# and 1 sLSTM) and seq 128 (two kernel chunks a row), then train() at
+# full depth for 3 steps at launch/train.py's batch and seq
+TRAIN_RECURRENT = ("zamba2-1.2b", "xlstm-350m")
+TRAIN_RECURRENT_SMALL = dict(num_layers=6, batch=2, seq=128)
+TRAIN_RECURRENT_SHAPES = dict(steps=3, batch=8, seq=128)
+
+
+def _train_launches(cfg):
+    """The backward kernel runs of one train step (remat "none": one for
+    every forward launch): dense, rmsnorm's 2 L + 1 and flash's L; hybrid,
+    2 L + 2 (L / shared_every) + 1 rmsnorm, a flash per shared block and
+    an SSD scan per layer; ssm, 2 L + 1 rmsnorm and an mLSTM scan per
+    layer but the sLSTM ones."""
+    L_ = cfg.num_layers
+    want = dict.fromkeys(("rmsnorm_backward", "flash_attention_backward",
+                          "mamba_chunk_scan_backward",
+                          "mlstm_chunk_scan_backward"), 0)
+    if cfg.family == "hybrid":
+        shared = L_ // cfg.shared_every
+        want.update(rmsnorm_backward=2 * L_ + 2 * shared + 1,
+                    flash_attention_backward=shared,
+                    mamba_chunk_scan_backward=L_)
+    elif cfg.family == "ssm":
+        want.update(rmsnorm_backward=2 * L_ + 1, mlstm_chunk_scan_backward=(
+            L_ - sum(i < L_ for i in cfg.xlstm.slstm_at)))
+    else:
+        want.update(rmsnorm_backward=2 * L_ + 1, flash_attention_backward=L_)
+    return want
 
 
 def _grads_resolved(state):
@@ -3407,10 +3603,11 @@ def _grads_resolved(state):
             for m in torch.utils._pytree.tree_leaves(state["m"])]
 
 
-def _train_parity():
+def _train_parity(arch=TRAIN_ARCH, small=TRAIN_SMALL, part="(a)"):
     """(a) one fp32 train step of qwen2.5-3b cut to 2 layers at full width
-    on the card (both backward kernels) against the same step on the CPU
-    (plain versions), same params and batch."""
+    on the card (its backward kernels) against the same step on the CPU
+    (plain versions), same params and batch; (d) the same for ``arch`` at
+    ``small``."""
     import dataclasses as dc
     import torch
     from torch.utils import _pytree as pytree
@@ -3422,11 +3619,11 @@ def _train_parity():
     from repro_torch.training import steps as ST
     from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 
-    cfg = dc.replace(get_config(TRAIN_ARCH),
-                     num_layers=TRAIN_SMALL["num_layers"], dtype="float32")
+    cfg = dc.replace(get_config(arch), num_layers=small["num_layers"],
+                     dtype="float32")
     tree = L.to_tree(M.init_params(cfg, 0, device="cuda"))
-    batch = SyntheticLM(cfg.vocab_size, TRAIN_SMALL["batch"],
-                        TRAIN_SMALL["seq"]).next_batch()
+    batch = SyntheticLM(cfg.vocab_size, small["batch"],
+                        small["seq"]).next_batch()
     step = ST.make_train_step(cfg, AdamWConfig(**TRAIN_OPT), remat="none")
     got = {}
     for dev in ("cpu", "cuda"):
@@ -3436,13 +3633,12 @@ def _train_parity():
         got[dev] = step(state, {k: torch.from_numpy(v).to(dev)
                                 for k, v in batch.items()})
         torch.cuda.synchronize()
-        log(f"train: (a) fp32 step on {dev} in "
-            f"{time.perf_counter() - t0:.2f} s; backward launches "
+        log(f"train: {part} {cfg.name} {cfg.num_layers} layers fp32 step on "
+            f"{dev} in {time.perf_counter() - t0:.2f} s; backward launches "
             f"{K.launch_counts(K.BACKWARD_KERNELS)}")
     (sc, mc), (sg, mg) = got["cpu"], got["cuda"]
-    L2 = TRAIN_SMALL["num_layers"]
-    assert K.launch_counts(K.BACKWARD_KERNELS) == {
-        "rmsnorm_backward": 2 * L2 + 1, "flash_attention_backward": L2}
+    assert K.launch_counts(K.BACKWARD_KERNELS) == _train_launches(cfg), \
+        K.launch_counts(K.BACKWARD_KERNELS)
     rel = {k: abs(float(mc[k]) - float(mg[k])) / abs(float(mc[k]))
            for k in ("loss", "grad_norm")}
     lr = float(mc["lr"])
@@ -3455,7 +3651,7 @@ def _train_parity():
         worst = max(worst, float(d[ok].max()) if ok.any() else 0.0)
         worst_free = max(worst_free, float(d[~ok].max()) if (~ok).any()
                          else 0.0)
-    log(f"train: (a) card vs CPU: loss {float(mg['loss'])!r} vs "
+    log(f"train: {part} card vs CPU: loss {float(mg['loss'])!r} vs "
         f"{float(mc['loss'])!r} (rel {rel['loss']:.3g}), grad_norm "
         f"{float(mg['grad_norm'])!r} vs {float(mc['grad_norm'])!r} (rel "
         f"{rel['grad_norm']:.3g}); master max |diff| {worst:.3g} where the "
@@ -3519,20 +3715,23 @@ def _train_resume(cfg, tree):
 
 
 def _train_profile(step, state, batch):
-    """One more train step under torch.profiler: (device busy ms, CUDA
+    """One more train step under torch.profiler, the device's activity
+    only (busy time needs no host events, and recording and parsing those
+    of a recurrent step's ~50,000 kernels is slow): (device busy ms, CUDA
     kernels, {kind: device ms}) with the kernels sorted into the custom
     forwards, the custom backwards, matrix products and the rest."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step(state, batch)
         torch.cuda.synchronize()
     busy, n_kern = _device_busy(prof)
-    kinds = {"custom backward": ("flash_bwd", "rmsnorm_bwd"),
+    kinds = {"custom backward": ("flash_bwd", "rmsnorm_bwd", "mamba_bwd",
+                                 "mlstm_bwd"),
              "custom forward": ("flash_attention_mma", "rmsnorm_warp",
-                                "rmsnorm_block"),
+                                "rmsnorm_block", "mamba_scan_",
+                                "mlstm_scan_"),
              "matrix products": ("nvjet", "gemm", "xmma", "cutlass")}
     ms = dict.fromkeys(list(kinds) + ["other"], 0.0)
     by_name = {}
@@ -3548,22 +3747,84 @@ def _train_profile(step, state, batch):
     return busy, n_kern, ms, top
 
 
+def _train_checked(state, cfg, steps, B, S, init, part):
+    """launch/train.py's ``train`` of ``cfg`` in bf16 on the card, from
+    the weights of seed 0 (``init``: the same, on the host), for ``steps``
+    at batch B, seq S: finite losses, every master leaf moved, one backward
+    run per forward launch of each kernel with a backward and as many as
+    ``_train_launches`` says; ms per step, tokens/s and peak memory; then
+    one more step profiled.  -> (run, steady ms a step, peak GB, device
+    busy ms, backward launches)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels as K
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.training import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig
+
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=steps, batch=B, seq=S, remat="none", log_every=1,
+                device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    fwd, bwd = K.launch_counts(), K.launch_counts(K.BACKWARD_KERNELS)
+    assert bwd == {k: n * steps for k, n in _train_launches(cfg).items()}, \
+        bwd
+    fwd_of = {k: fwd[k[:-len("_backward")]] for k in bwd}
+    assert fwd_of == bwd, (fwd, bwd)     # one forward launch per backward
+    losses = [float(mt["loss"]) for mt in run.metrics]
+    gnorms = [float(mt["grad_norm"]) for mt in run.metrics]
+    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
+    changed = [not torch.equal(a, b.cuda().float()) for a, b in zip(
+        pytree.tree_leaves(run.state["master"]), init)]
+    assert all(changed), f"{changed.count(False)} master leaves unchanged"
+    steady = run.step_ms[1:]
+    ms = sum(steady) / len(steady)
+    per_step = ", ".join(f"{k[:-len('_backward')]} {fwd_of[k] // steps} + "
+                         f"backward {n // steps}" for k, n in bwd.items() if n)
+    log(f"train: {part} {cfg.name} "
+        f"{sum(t.numel() for t in init) / 1e9:.3f} B params, bf16, batch "
+        f"{B} seq {S}: {steps} steps in {wall:.2f} s; step ms "
+        f"{[round(x, 1) for x in run.step_ms]} (steady {ms:.1f} ms/step, "
+        f"{B * S * 1000 / ms:.0f} training tokens/s); peak {peak:.2f} GB; "
+        f"every master leaf moved; losses {losses}; launches per step: "
+        f"{per_step}; on {_card(state)}")
+
+    step = ST.make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10,
+                                               decay_steps=steps),
+                              remat="none")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             SyntheticLM(cfg.vocab_size, B, S).next_batch().items()}
+    t0 = time.perf_counter()
+    busy, n_kern, kinds, top = _train_profile(step, run.state, batch)
+    log(f"train: {part} {cfg.name} one more step profiled (in "
+        f"{time.perf_counter() - t0:.1f} s): device busy "
+        f"{busy:.2f} ms over {n_kern} kernels against {ms:.1f} ms wall "
+        f"(idle share {1 - busy / ms:.3f}); device ms by kind "
+        f"{ {k: round(v, 2) for k, v in kinds.items()} }; top kernels "
+        f"{[(n[:60], round(t, 2)) for n, t in top]}")
+    return run, ms, peak, busy, bwd
+
+
 def _train_full(state):
     """(b) qwen2.5-3b at full width and depth: one fp32 forward + backward
     (no optimizer) from the weights of seed 0, freed; then
     launch/train.py's ``train`` in bf16, which draws the same weights, for
-    6 steps at its default batch and seq; one more step profiled."""
+    6 steps at its default batch and seq (``_train_checked``); its first
+    step against the fp32 pass."""
     import dataclasses as dc
     import torch
     from torch.utils import _pytree as pytree
-    from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.launch.train import train
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.training import steps as ST
-    from repro_torch.training.optimizer import AdamWConfig, global_norm
+    from repro_torch.training.optimizer import global_norm
 
     cfg = get_config(TRAIN_ARCH)
     steps, B, S = (TRAIN_SHAPES[k] for k in ("steps", "batch", "seq"))
@@ -3571,7 +3832,6 @@ def _train_full(state):
     batch = {k: torch.from_numpy(v).cuda()
              for k, v in data.next_batch().items()}
     params = L.to_tree(M.init_params(cfg, 0, device="cuda"))
-    n_params = sum(p.numel() for p in pytree.tree_leaves(params))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     flat, spec = pytree.tree_flatten(params)
@@ -3585,64 +3845,55 @@ def _train_full(state):
         f"{time.perf_counter() - t0:.2f} s, peak "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     init = [p.to("cpu") for p in flat]    # to check that every leaf moves
-    del leaves, params, flat
+    del leaves, params, flat, batch
     torch.cuda.empty_cache()
 
-    K.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    run = train(cfg, steps=steps, batch=B, seq=S, remat="none", log_every=1,
-                device="cuda")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    fwd, bwd = K.launch_counts(), K.launch_counts(K.BACKWARD_KERNELS)
-    L_ = cfg.num_layers
-    want = {"rmsnorm": (2 * L_ + 1) * steps,
-            "flash_attention": L_ * steps}
-    assert {k: fwd[k] for k in want} == want, fwd
-    assert bwd == {"rmsnorm_backward": want["rmsnorm"],
-                   "flash_attention_backward": want["flash_attention"]}, bwd
-    losses = [float(mt["loss"]) for mt in run.metrics]
-    gnorms = [float(mt["grad_norm"]) for mt in run.metrics]
-    assert all(map(math.isfinite, losses + gnorms)), (losses, gnorms)
-    changed = [not torch.equal(a, b.cuda().float()) for a, b in zip(
-        pytree.tree_leaves(run.state["master"]), init)]
-    assert all(changed), f"{changed.count(False)} master leaves unchanged"
-    steady = run.step_ms[1:]
-    ms = sum(steady) / len(steady)
-    log(f"train: (b) {cfg.name} {n_params / 1e9:.3f} B params, bf16, "
-        f"batch {B} seq {S}: {steps} steps in {wall:.2f} s; step ms "
-        f"{[round(x, 1) for x in run.step_ms]} (steady {ms:.1f} ms/step, "
-        f"{B * S * 1000 / ms:.0f} training tokens/s); peak "
-        f"{peak:.2f} GB; every master leaf moved; launches per step: "
-        f"rmsnorm {fwd['rmsnorm'] // steps} + backward "
-        f"{bwd['rmsnorm_backward'] // steps}, flash_attention "
-        f"{fwd['flash_attention'] // steps} + backward "
-        f"{bwd['flash_attention_backward'] // steps}; on {_card(state)}")
-    d_loss = abs(losses[0] - loss32) / loss32
-    d_gn = abs(gnorms[0] - gnorm32) / gnorm32
-    log(f"train: (b) step 1 bf16 against the fp32 pass: loss {losses[0]!r} "
-        f"vs {loss32!r} (rel {d_loss:.3g}), grad_norm {gnorms[0]!r} vs "
-        f"{gnorm32!r} (rel {d_gn:.3g}); losses {losses}")
+    run, ms, peak, busy, bwd = _train_checked(state, cfg, steps, B, S, init,
+                                              "(b)")
+    loss1, gnorm1 = (float(run.metrics[0][k]) for k in ("loss", "grad_norm"))
+    d_loss = abs(loss1 - loss32) / loss32
+    d_gn = abs(gnorm1 - gnorm32) / gnorm32
+    log(f"train: (b) step 1 bf16 against the fp32 pass: loss {loss1!r} vs "
+        f"{loss32!r} (rel {d_loss:.3g}), grad_norm {gnorm1!r} vs "
+        f"{gnorm32!r} (rel {d_gn:.3g})")
     # measured: rel 1.6e-5 (loss) and 3.6e-5 (grad norm); the limits
     # leave room for bf16 rounding that differs from run to run of data
     assert d_loss <= 1e-3 and d_gn <= 1e-2, (d_loss, d_gn)
-    state["train_launches"] = bwd
-
-    step = ST.make_train_step(cfg, AdamWConfig(lr=3e-4, warmup_steps=10,
-                                               decay_steps=steps),
-                              remat="none")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in
-             SyntheticLM(cfg.vocab_size, B, S).next_batch().items()}
-    busy, n_kern, kinds, top = _train_profile(step, run.state, batch)
-    log(f"train: (b) one more step profiled: device busy {busy:.2f} ms over "
-        f"{n_kern} kernels against {ms:.1f} ms wall (idle share "
-        f"{1 - busy / ms:.3f}); device ms by kind "
-        f"{ {k: round(v, 2) for k, v in kinds.items()} }; top kernels "
-        f"{[(n[:60], round(t, 2)) for n, t in top]}")
+    state.setdefault("train_launches", {}).update(
+        rmsnorm_backward=bwd["rmsnorm_backward"],
+        flash_attention_backward=bwd["flash_attention_backward"])
     state["train"] = dict(ms=ms, peak_gb=peak, tok_s=B * S * 1000 / ms,
                           busy_ms=busy)
+
+
+def _train_recurrent(state, arch):
+    """(d) ``arch`` (zamba2-1.2b or xlstm-350m): the fp32 parity step at
+    TRAIN_RECURRENT_SMALL, then launch/train.py's ``train`` in bf16 at full
+    width and depth for TRAIN_RECURRENT_SHAPES (``_train_checked``: one
+    scan launch per scan layer a step, forward and backward)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    _train_parity(arch, TRAIN_RECURRENT_SMALL, "(d)")
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    steps, B, S = (TRAIN_RECURRENT_SHAPES[k] for k in ("steps", "batch",
+                                                        "seq"))
+    init = [p.to("cpu") for p in pytree.tree_leaves(
+        L.to_tree(M.init_params(cfg, 0, device="cuda")))]
+    torch.cuda.empty_cache()
+    run, ms, peak, busy, bwd = _train_checked(state, cfg, steps, B, S, init,
+                                              "(d)")
+    scan = "mamba_chunk_scan_backward" if cfg.family == "hybrid" else \
+        "mlstm_chunk_scan_backward"
+    state.setdefault("train_launches", {})[scan] = bwd[scan]
+    state.setdefault("train_recurrent", {})[arch] = dict(
+        ms=ms, peak_gb=peak, tok_s=B * S * 1000 / ms, busy_ms=busy)
+    del run, init
+    torch.cuda.empty_cache()
 
 
 def phase_train(state):
@@ -3653,6 +3904,8 @@ def phase_train(state):
     torch.cuda.empty_cache()
     _train_full(state)
     torch.cuda.empty_cache()
+    for arch in TRAIN_RECURRENT:
+        _train_recurrent(state, arch)
 
 
 def main(argv=None) -> int:

@@ -196,4 +196,41 @@ __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
+// ---- the backward kernels' 64 x 64 tiles (mamba_scan_backward.cu,
+// mlstm_scan_backward.cu): blocks of kTileThreads threads, fp32 tiles in
+// shared memory at row stride kLd, each thread holding a 4 x 4 share of a
+// 64 x 64 product (rows t / 16 + 16 x, columns t % 16 + 16 y).
+constexpr int kTileThreads = 256;
+constexpr int kLd = kL + 1;
+
+// acc[x][y] += sum_{k < K} A(r0 + 16 x, k) B(k, c0 + 16 y) (r0 = t / 16,
+// c0 = t % 16); A(r, k) at A[r kLd + k] (at A[k kLd + r] with kAT), B(k,
+// c) at B[k kLd + c] (at B[c kLd + k] with kBT), all in shared memory.
+template <bool kAT, bool kBT>
+__device__ __forceinline__ void mm(float (&acc)[4][4], const float* A, const float* Bt,
+                                   int K) {
+  const int r0 = threadIdx.x / 16, c0 = threadIdx.x % 16;
+  for (int k = 0; k < K; ++k) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      av[x] = kAT ? A[k * kLd + r0 + 16 * x] : A[(r0 + 16 * x) * kLd + k];
+#pragma unroll
+    for (int y = 0; y < 4; ++y)
+      bv[y] = kBT ? Bt[(c0 + 16 * y) * kLd + k] : Bt[k * kLd + c0 + 16 * y];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) acc[x][y] += av[x] * bv[y];
+  }
+}
+
+// The sum over the 16 threads that share a row of mm's layout (one half
+// of a warp), in a fixed order.
+__device__ __forceinline__ float row_sum16(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 }  // namespace scan

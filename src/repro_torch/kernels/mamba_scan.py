@@ -21,6 +21,17 @@ state entering each kernel chunk (one ordered pass over the kernel
 chunks per (b, head, 16 rows of P)), ``C Bᵀ`` once per (b, kernel chunk)
 for every head, then the outputs.  ``mamba_chunk_scan_staged`` is the
 same plan and stages in plain PyTorch, for the CPU tests.
+
+The gradient (``mamba_chunk_scan_backward``, ``csrc/
+mamba_scan_backward.cu``) is registered as the op's autograd.  The TPU
+kernel has no backward (the reference differentiates its pure-JAX
+``ssm.py`` scan); this one is the port's own.  The forward keeps its
+schema and saves nothing, so the backward recomputes the state entering
+each kernel chunk by the forward's ordered pass and runs the same pass
+backwards for the cotangent of the state leaving it, then per (b,
+kernel chunk, head) forms dx̄, the head's share of dB and dC, and dg,
+and sums the heads' shares in order; fp32 on the CUDA cores.  The
+rebase is the wrapper's (``rebase``, and ``rebase_adjoint`` for dcum).
 """
 from __future__ import annotations
 
@@ -31,6 +42,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/mamba_scan.cu"
 REPLACES = "src/repro/kernels/mamba_scan.py:73"
@@ -93,6 +105,29 @@ def rebase(cum: torch.Tensor, plan: ScanPlan, *,
                        (c - base[:, :, None]) + carry, 0.0)
 
 
+def rebase_adjoint(dg: torch.Tensor, plan: ScanPlan, nc: int,
+                   Q: int) -> torch.Tensor:
+    """The gradient of ``rebase``: dg [B,chunks,chunk,nh] (the rows past
+    the last ignored) -> dcum [B,nc,Q,nh].  Row u takes its own dg, the
+    dg of every later row of its kernel chunk where u ends a caller chunk
+    (the carry), less the whole dg of the kernel chunk that starts at
+    u + 1 inside a caller chunk (the base).  Written out, not taken as
+    ``rebase``'s vjp: that traces ``rebase`` again on every call, 34 more
+    launches a backward and 0.04-0.07 ms a call on an H100."""
+    B, n, L, nh = dg.shape
+    S = nc * Q
+    t = torch.arange(n * L, device=dg.device).reshape(n, L)
+    dg = torch.where((t < S)[None, :, :, None], dg, 0.0)
+    later = torch.flip(torch.cumsum(torch.flip(dg, (2,)), 2), (2,)) - dg
+    out = dg + torch.where((t % Q == Q - 1)[None, :, :, None], later, 0.0)
+    s0 = torch.arange(1, n, device=dg.device) * L
+    base = torch.where((s0 % Q != 0)[None, :, None], dg[:, 1:].sum(2), 0.0)
+    out = torch.cat([out[:, :, :L - 1],
+                     torch.cat([out[:, :-1, L - 1] - base,
+                                out[:, -1:, L - 1]], 1)[:, :, None]], 2)
+    return out.reshape(B, n * L, nh)[:, :S].reshape(B, nc, Q, nh)
+
+
 def chunked(t: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
     """[B,nc,Q,...] -> [B,chunks,chunk,...], rows past S zero."""
     B, nc, Q = t.shape[:3]
@@ -128,6 +163,12 @@ def last_rows(g: torch.Tensor, S: int) -> torch.Tensor:
     return g[:, torch.arange(n, device=g.device), idx]
 
 
+def _valid_rows(plan: ScanPlan, S: int, device) -> torch.Tensor:
+    """[chunks, chunk]: the kernel rows that hold one of the S rows."""
+    t = torch.arange(plan.chunks * plan.chunk, device=device)
+    return (t < S).reshape(plan.chunks, plan.chunk)
+
+
 def _causal(Q: int, diagonal: int, device) -> torch.Tensor:
     return torch.ones(Q, Q, dtype=torch.bool, device=device).tril(diagonal)
 
@@ -137,7 +178,7 @@ def mamba_chunk_plain(xbar, B_c, C_c, cum, h_prev, *, diagonal: int = 0):
     B_c, C_c [B,Q,N]; cum [B,Q,nh]; h_prev [B,nh,P,N] -> (y, new state).
     The causal mask keeps ``j <= i + diagonal`` (the model's is 0)."""
     Q = xbar.shape[1]
-    Bf, Cf = B_c.float(), C_c.float()
+    Bf, Cf = plain_float(B_c), plain_float(C_c)
     scores = torch.einsum("bin,bjn->bij", Cf, Bf)
     decay = torch.exp(cum[:, :, None] - cum[:, None, :])        # [B,Q,Q,nh]
     lmat = torch.where(_causal(Q, diagonal, xbar.device)[None, :, :, None],
@@ -184,8 +225,7 @@ def mamba_chunk_scan_staged(xbar, B_c, C_c, cum, *, split: bool = False,
     gl = last_rows(g, S)                                 # [B,n,nh]
     x = chunked(xbar.float(), plan)                      # [B,n,L,nh,P]
     Bm, Cm = chunked(B_c.float(), plan), chunked(C_c.float(), plan)
-    valid = (torch.arange(n, device=g.device)[:, None] * L
-             + torch.arange(L, device=g.device) < S)     # [n,L]
+    valid = _valid_rows(plan, S, g.device)               # [n,L]
     w = torch.exp(gl[:, :, None] - g) * valid[None, :, :, None]
     h = xbar.new_zeros(B, nh, P, Bm.shape[-1])
     hin = []
@@ -294,3 +334,199 @@ def mamba_chunk_scan(xbar, B_c, C_c, cum):
 
 
 mamba_chunk_scan.launches = 0    # kernel launches (CUDA path only)
+
+
+# ------------------------------------------------------------- backward --
+BACKWARD_SOURCE = "src/repro_torch/csrc/mamba_scan_backward.cu"
+BACKWARD_MAX_P = 64     # csrc/mamba_scan_backward.cu: one block holds all P
+# planted faults of the backward (csrc kFault*), for the checks only
+FAULT_WRONG_COTANGENT = 1   # chunk c reads the cotangent leaving c + 1
+FAULT_DROP_HEAD = 2         # the head sum of dB drops the last head
+
+
+def _last_put(dg: torch.Tensor, S: int, add: torch.Tensor) -> torch.Tensor:
+    """dg [B,chunks,chunk,nh] with ``add`` [B,chunks,nh] added at each
+    kernel chunk's last valid row."""
+    n, L = dg.shape[1], dg.shape[2]
+    idx = torch.clamp_max(S - torch.arange(n, device=dg.device) * L, L) - 1
+    at = torch.arange(L, device=dg.device)[None, :] == idx[:, None]
+    return dg + torch.where(at[None, :, :, None], add[:, :, None], 0.0)
+
+
+def mamba_chunk_scan_backward_plain(xbar, B_c, C_c, cum, dy, dstate=None):
+    """The gradient of ``mamba_chunk_scan`` in plain PyTorch (the CPU
+    path and the oracle), as an explicit reverse pass over the kernel's
+    plan: the state entering each kernel chunk recomputed by the forward's
+    ordered pass, the cotangent of the state leaving each chunk by the
+    same pass run backwards from ``dstate`` (zeros for None), then per
+    chunk, with g the rebased cum, gl its last row, h_in / dh_out the
+    state entering / the cotangent leaving:
+
+        dx̄_j = Σ_{i≥j} (C_i·B_j) e^{g_i−g_j} dy_i + e^{gl−g_j} dh_out B_j
+        dB_j = Σ_{i≥j} e^{g_i−g_j} (dy_i·x̄_j) C_i + e^{gl−g_j} x̄_jᵀ dh_out
+        dC_i = Σ_{j≤i} e^{g_i−g_j} (dy_i·x̄_j) B_j + e^{g_i} dy_iᵀ h_in
+
+    (dB, dC summed over the heads) and dg from the intra-chunk terms, the
+    carried term and the state term; dcum is dg through ``rebase``'s
+    adjoint.  -> (dx̄, dB, dC, dcum), each in its input's dtype."""
+    B, nc, Q, nh, P = xbar.shape
+    plan = plan_scan(nc, Q)
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    ft = torch.promote_types(xbar.dtype, torch.float32)
+    g = rebase(cum.to(ft), plan)                         # [B,n,L,nh]
+    gl = last_rows(g, S)                                 # [B,n,nh]
+    x, dyc = chunked(xbar.to(ft), plan), chunked(dy.to(ft), plan)
+    Bm, Cm = chunked(B_c.to(ft), plan), chunked(C_c.to(ft), plan)
+    rows = _valid_rows(plan, S, g.device)                # [n,L]
+    valid = rows[None, :, :, None]
+    ws = torch.exp(gl[:, :, None] - g) * valid           # e^{gl - g_j}
+    eg = torch.exp(g) * valid                            # e^{g_i}
+    decay = torch.exp(gl)                                # [B,n,nh]
+    h = x.new_zeros(B, nh, P, Bm.shape[-1])
+    hin = []
+    for c in range(n):                                   # forward pass
+        hin.append(h)
+        h = h * decay[:, c, :, None, None] + torch.einsum(
+            "bjh,bjhp,bjn->bhpn", ws[:, c], x[:, c], Bm[:, c])
+    dh = torch.zeros_like(h) if dstate is None else dstate.to(ft)
+    dhout = [None] * n
+    for c in reversed(range(n)):                         # reverse pass
+        dhout[c] = dh
+        dh = dh * decay[:, c, :, None, None] + torch.einsum(
+            "bih,bihp,bin->bhpn", eg[:, c], dyc[:, c], Cm[:, c])
+    H, Dh = torch.stack(hin, 1), torch.stack(dhout, 1)   # [B,n,nh,P,N]
+    keep = (_causal(L, 0, g.device)[None] & rows[:, :, None])[
+        None, ..., None]                                 # [1,n,L,L,1]
+    e = torch.where(keep, torch.exp(g[:, :, :, None] - g[:, :, None, :]),
+                    0.0)                                 # [B,n,i,j,nh]
+    M = torch.einsum("bcin,bcjn->bcij", Cm, Bm)[..., None] * e
+    Dd = torch.einsum("bcihp,bcjhp->bcijh", dyc, x)      # dy_i · x̄_j
+    Ap, A = e * Dd, M * Dd
+    dxs = ws[..., None] * torch.einsum("bchpn,bcjn->bcjhp", Dh, Bm)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", M, dyc) + dxs
+    dB = torch.einsum("bcijh,bcin->bcjn", Ap, Cm) + torch.einsum(
+        "bcjh,bcjhp,bchpn->bcjn", ws, x, Dh)
+    car = eg[..., None] * torch.einsum("bcihp,bchpn->bcihn", dyc, H)
+    dC = torch.einsum("bcijh,bcjn->bcin", Ap, Bm) + car.sum(3)
+    xd = (x * dxs).sum(-1)                               # [B,n,L,nh]
+    dg = A.sum(3) - A.sum(2) + torch.einsum("bcihn,bcin->bcih", car, Cm) \
+        - xd
+    dg = _last_put(dg, S, decay * (Dh * H).sum((-1, -2)) + xd.sum(2))
+    return (unchunked(dx, nc, Q).to(xbar.dtype),
+            unchunked(dB, nc, Q).to(B_c.dtype),
+            unchunked(dC, nc, Q).to(C_c.dtype),
+            rebase_adjoint(dg, plan, nc, Q).to(cum.dtype))
+
+
+@torch.library.custom_op("repro_torch::mamba_chunk_scan_backward",
+                         mutates_args=())
+def _scan_bwd_op(xbar: torch.Tensor, B_c: torch.Tensor, C_c: torch.Tensor,
+                 cum: torch.Tensor, dy: torch.Tensor, dstate: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    raise NotImplementedError(
+        f"mamba_chunk_scan_backward: no implementation on {xbar.device}")
+
+
+@_scan_bwd_op.register_kernel("cpu")
+def _scan_bwd_cpu(xbar, B_c, C_c, cum, dy, dstate):
+    return mamba_chunk_scan_backward_plain(xbar, B_c, C_c, cum, dy, dstate)
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(xbar, B_c, C_c, cum, dy, dstate):
+    return (torch.empty_like(xbar), torch.empty_like(B_c),
+            torch.empty_like(C_c), torch.empty_like(cum))
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
+
+
+def _launch_backward(xbar, B_c, C_c, cum, dy, dstate, fault: int = 0):
+    """One run of the backward kernel (three launches) on CUDA tensors,
+    with the rebase and its adjoint around it; ``fault`` plants a fault
+    for the checks only.  Scratch: the state entering and the cotangent
+    leaving each kernel chunk, nh·P·N·4 bytes each a kernel chunk and
+    batch row (1 MiB at zamba2-1.2b: 32 MiB for a train step's batch 8 of
+    two kernel chunks), and each head's share of dB and dC (as much
+    again)."""
+    B, nc, Q, nh, P = xbar.shape
+    N = B_c.shape[-1]
+    f32 = torch.float32
+    _build.require(xbar.dtype == f32 and cum.dtype == f32 and dy.dtype == f32
+                   and dstate.dtype == f32 and B_c.dtype in _build.DTYPE_CODES
+                   and C_c.dtype == B_c.dtype,
+                   f"mamba_chunk_scan_backward: dtypes {xbar.dtype}/"
+                   f"{B_c.dtype}/{C_c.dtype}/{cum.dtype}/{dy.dtype}/"
+                   f"{dstate.dtype}")
+    _build.require(B_c.shape == (B, nc, Q, N) and C_c.shape == B_c.shape
+                   and cum.shape == (B, nc, Q, nh) and dy.shape == xbar.shape
+                   and dstate.shape == (B, nh, P, N),
+                   f"mamba_chunk_scan_backward: shapes {xbar.shape} "
+                   f"{B_c.shape} {C_c.shape} {cum.shape} {dy.shape} "
+                   f"{dstate.shape}")
+    _build.require(all(t.is_contiguous() and t.device == xbar.device
+                       for t in (xbar, B_c, C_c, cum, dy, dstate)),
+                   "mamba_chunk_scan_backward: inputs must be contiguous on "
+                   "one device")
+    _build.require(1 <= Q <= MAX_Q and 1 <= N <= MAX_N
+                   and 1 <= P <= BACKWARD_MAX_P,
+                   f"mamba_chunk_scan_backward: Q={Q}, P={P}, N={N} not "
+                   f"supported")
+    plan = plan_scan(nc, Q)
+    L, n = plan.chunk, plan.chunks
+    dx, dB, dC = (torch.empty_like(t) for t in (xbar, B_c, C_c))
+    if xbar.numel() == 0:
+        return dx, dB.zero_(), dC.zero_(), torch.zeros_like(cum)
+    g = rebase(cum, plan).contiguous()                   # [B,n,L,nh]
+    hin = xbar.new_empty(n, B, nh, P, N)
+    dho = xbar.new_empty(n, B, nh, P, N)
+    dBh = xbar.new_empty(B, n, nh, L, N)
+    dCh = xbar.new_empty(B, n, nh, L, N)
+    dg = torch.empty_like(g)
+    fn = _build.entry("mamba_chunk_scan_backward_launch", _BWD_ARGTYPES)
+    _build.check(fn(xbar.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
+                    g.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
+                    hin.data_ptr(), dho.data_ptr(), dx.data_ptr(),
+                    dB.data_ptr(), dC.data_ptr(), dBh.data_ptr(),
+                    dCh.data_ptr(), dg.data_ptr(), B, nc * Q, nh, P, N, n,
+                    _build.DTYPE_CODES[B_c.dtype], fault,
+                    _build.stream_handle(xbar)),
+                 "mamba_chunk_scan_backward")
+    return dx, dB, dC, rebase_adjoint(dg, plan, nc, Q)
+
+
+@_scan_bwd_op.register_kernel("cuda")
+def _scan_bwd_cuda(xbar, B_c, C_c, cum, dy, dstate):
+    out = _launch_backward(xbar, B_c, C_c, cum, dy, dstate)
+    if xbar.numel():
+        mamba_chunk_scan_backward.launches += 1
+    return out
+
+
+def mamba_chunk_scan_backward(xbar, B_c, C_c, cum, dy, dstate=None):
+    """(dx̄, dB, dC, dcum) of ``mamba_chunk_scan(xbar, B_c, C_c, cum)`` for
+    the gradients dy of y and ``dstate`` of the final state (zeros for
+    None).  CUDA tensors launch the kernel, CPU tensors take the plain
+    version."""
+    if dstate is None:
+        B, _, _, nh, P = xbar.shape
+        dstate = xbar.new_zeros(B, nh, P, B_c.shape[-1])
+    return _scan_bwd_op(xbar, B_c, C_c, cum, dy.contiguous(),
+                        dstate.contiguous())
+
+
+mamba_chunk_scan_backward.launches = 0   # kernel runs (CUDA path only)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy, dstate):
+    return mamba_chunk_scan_backward(*ctx.saved_tensors, dy, dstate)
+
+
+torch.library.register_autograd("repro_torch::mamba_chunk_scan", _backward,
+                                setup_context=_setup_context)

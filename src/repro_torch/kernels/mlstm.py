@@ -23,6 +23,16 @@ bf16 inputs run on the tensor cores, every fp32 operand split into three
 bf16 parts (``mamba_scan.split_bf16``); fp32 inputs on the CUDA cores.
 ``mlstm_chunk_scan_staged`` is the same plan and stages in plain PyTorch,
 for the CPU tests.
+
+The gradient (``mlstm_chunk_scan_backward``, ``csrc/
+mlstm_scan_backward.cu``) is registered as the op's autograd.  The TPU
+kernel has no backward (the reference differentiates its pure-JAX
+``xlstm.py`` scan); this one is the port's own.  The forward keeps its
+schema and saves only y, so the backward recomputes the state (C, n)
+entering each kernel chunk and the normaliser, runs the ordered pass
+backwards for the state's cotangent, then per (b, kernel chunk, head, 64
+columns of d) forms dq, dk, dv and its part of dg and dli, summed over
+the column tiles in order; fp32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -32,9 +42,13 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.mamba_scan import (FAULT_WRONG_STATE, MAX_Q, _causal,
-                                            chunked, last_rows, plan_scan,
-                                            rebase, split_bf16, unchunked)
+from repro_torch.kernels._build import plain_float
+from repro_torch.kernels.mamba_scan import (FAULT_WRONG_COTANGENT,
+                                            FAULT_WRONG_STATE, MAX_Q, _causal,
+                                            _last_put, _valid_rows, chunked,
+                                            last_rows, plan_scan, rebase,
+                                            rebase_adjoint, split_bf16,
+                                            unchunked)
 
 SOURCE = "src/repro_torch/csrc/mlstm_scan.cu"
 REPLACES = "src/repro/kernels/mlstm.py:54"
@@ -48,7 +62,7 @@ def mlstm_chunk_plain(q, k, v, cumf, li, C_prev, n_prev, *,
     -> (y, C, n).  The causal mask keeps ``j <= i + diagonal`` (the
     model's is 0)."""
     Q = q.shape[1]
-    q, k, v = q.float(), k.float(), v.float()
+    q, k, v = plain_float(q), plain_float(k), plain_float(v)
     scores = torch.einsum("bihd,bjhd->bijh", q, k)
     decay = torch.exp(cumf[:, :, None] - cumf[:, None, :] + li[:, None])
     lmat = torch.where(_causal(Q, diagonal, q.device)[None, :, :, None],
@@ -75,8 +89,9 @@ def mlstm_chunk_scan_plain(q, k, v, cumf, li, *, diagonal: int = 0):
     q, k, v [B,nc,Q,nh,dh]; cumf, li [B,nc,Q,nh] fp32 -> (y [B,nc,Q,nh,dh]
     fp32, C [B,nh,dh,dh] fp32, n [B,nh,dh] fp32)."""
     B, nc, Q, nh, dh = q.shape
-    C = q.new_zeros(B, nh, dh, dh, dtype=torch.float32)
-    n = q.new_zeros(B, nh, dh, dtype=torch.float32)
+    ft = torch.promote_types(q.dtype, torch.float32)
+    C = q.new_zeros(B, nh, dh, dh, dtype=ft)
+    n = q.new_zeros(B, nh, dh, dtype=ft)
     ys = []
     for c in range(nc):
         y, C, n = mlstm_chunk_plain(q[:, c], k[:, c], v[:, c], cumf[:, c],
@@ -103,8 +118,7 @@ def mlstm_chunk_scan_staged(q, k, v, cumf, li, *, split: bool = False,
     gl = last_rows(g, S)                                 # [B,n,nh]
     qc, kc, vc = (chunked(t.float(), plan) for t in (q, k, v))
     lic = chunked(li, plan)
-    valid = (torch.arange(n, device=g.device)[:, None] * L
-             + torch.arange(L, device=g.device) < S)     # [n,L]
+    valid = _valid_rows(plan, S, g.device)               # [n,L]
     w = torch.exp(gl[:, :, None] - g + lic) * valid[None, :, :, None]
     C = q.new_zeros(B, nh, dh, dh, dtype=torch.float32)
     nv = q.new_zeros(B, nh, dh, dtype=torch.float32)
@@ -153,7 +167,7 @@ def _scan_cpu(q, k, v, cumf, li):
 @_scan_op.register_fake
 def _scan_fake(q, k, v, cumf, li):
     B, _, _, nh, dh = q.shape
-    f32 = torch.float32
+    f32 = torch.promote_types(q.dtype, torch.float32)
     return (torch.empty_like(q, dtype=f32), q.new_empty(B, nh, dh, dh,
                                                         dtype=f32),
             q.new_empty(B, nh, dh, dtype=f32))
@@ -227,3 +241,213 @@ def mlstm_chunk_scan(q, k, v, cumf, li):
 
 
 mlstm_chunk_scan.launches = 0    # kernel launches (CUDA path only)
+
+
+# ------------------------------------------------------------- backward --
+BACKWARD_SOURCE = "src/repro_torch/csrc/mlstm_scan_backward.cu"
+# planted fault of the backward (csrc kFaultDropTile), for the checks only;
+# FAULT_WRONG_COTANGENT is the SSD backward's
+FAULT_DROP_TILE = 2     # the sum of dg's column-tile parts drops the last
+
+
+def mlstm_chunk_scan_backward_plain(q, k, v, cumf, li, y, dy, dC=None,
+                                    dn=None):
+    """The gradient of ``mlstm_chunk_scan`` in plain PyTorch (the CPU path
+    and the oracle), as an explicit reverse pass over the kernel's plan.
+    The normaliser is one more value column: with v' = [v, 1] and the
+    state C' = [C, n], den is num with v replaced by 1.  With m_i =
+    max(|den_i|, 1) the cotangents of num and den are dy_i / m_i and
+    -sign(den_i)·[|den_i| > 1]·(dy_i·y_i) / m_i (``y`` is the forward's
+    output).  The state entering each kernel chunk is recomputed by the
+    forward's ordered pass, the cotangent of the state leaving it by the
+    same pass run backwards from (dC, dn) (zeros for None); then per
+    chunk, with w_ij = e^{g_i−g_j+li_j} (j ≤ i), D_ij = dnum'_i·v'_j and
+    w^s_j = e^{gl−g_j+li_j}:
+
+        dq_i = Σ_j w_ij D_ij k_j + e^{g_i} C'_in dnum'_i
+        dk_j = Σ_i w_ij D_ij q_i + w^s_j dC'_out v'_j
+        dv_j = Σ_i w_ij (q_i·k_j) dnum_i + w^s_j k_jᵀ dC_out
+
+    and dg from the intra-chunk, carried and state terms; li_j enters
+    where −g_j does, so dli_j is the column part of dg_j with its sign
+    flipped.  dcumf is dg through ``rebase``'s adjoint.
+    -> (dq, dk, dv, dcumf, dli), each in its input's dtype."""
+    B, nc, Q, nh, dh = q.shape
+    plan = plan_scan(nc, Q)
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    ft = torch.promote_types(q.dtype, torch.float32)
+    g = rebase(cumf.to(ft), plan)                        # [B,n,L,nh]
+    gl = last_rows(g, S)                                 # [B,n,nh]
+    qc, kc, vc, yc, dyc = (chunked(t.to(ft), plan) for t in (q, k, v, y, dy))
+    lic = chunked(li.to(ft), plan)
+    rows = _valid_rows(plan, S, g.device)                # [n,L]
+    valid = rows[None, :, :, None]
+    ws = torch.exp(gl[:, :, None] - g + lic) * valid     # e^{gl-g_j+li_j}
+    eg = torch.exp(g) * valid                            # e^{g_i}
+    decay = torch.exp(gl)                                # [B,n,nh]
+    C = q.new_zeros(B, nh, dh, dh, dtype=ft)
+    nv = q.new_zeros(B, nh, dh, dtype=ft)
+    Cin, nin = [], []
+    for c in range(n):                                   # forward pass
+        Cin.append(C)
+        nin.append(nv)
+        C = C * decay[:, c, :, None, None] + torch.einsum(
+            "bjh,bjhd,bjhe->bhde", ws[:, c], kc[:, c], vc[:, c])
+        nv = nv * decay[:, c, :, None] + torch.einsum(
+            "bjh,bjhd->bhd", ws[:, c], kc[:, c])
+    Cin, nin = torch.stack(Cin, 1), torch.stack(nin, 1)  # [B,n,nh,dh(,dh)]
+    keep = (_causal(L, 0, g.device)[None] & rows[:, :, None])[
+        None, ..., None]                                 # [1,n,L,L,1]
+    w = torch.where(keep, torch.exp(g[:, :, :, None] - g[:, :, None, :]
+                                    + lic[:, :, None]), 0.0)
+    Sc = torch.einsum("bcihd,bcjhd->bcijh", qc, kc)      # q_i · k_j
+    den = (w * Sc).sum(3) + eg * torch.einsum("bcihd,bchd->bcih", qc, nin)
+    m = torch.clamp_min(den.abs(), 1.0)
+    dnum = dyc / m[..., None]
+    dden = torch.where(den.abs() > 1.0,
+                       -torch.sign(den) * (dyc * yc).sum(-1) / m, 0.0)
+    dCo = torch.zeros_like(C) if dC is None else dC.to(ft)
+    dno = torch.zeros_like(nv) if dn is None else dn.to(ft)
+    dCout, dnout = [None] * n, [None] * n
+    for c in reversed(range(n)):                         # reverse pass
+        dCout[c], dnout[c] = dCo, dno
+        dCo = dCo * decay[:, c, :, None, None] + torch.einsum(
+            "bih,bihd,bihe->bhde", eg[:, c], qc[:, c], dnum[:, c])
+        dno = dno * decay[:, c, :, None] + torch.einsum(
+            "bih,bihd,bih->bhd", eg[:, c], qc[:, c], dden[:, c])
+    dCout, dnout = torch.stack(dCout, 1), torch.stack(dnout, 1)
+    D = torch.einsum("bcihe,bcjhe->bcijh", dnum, vc) + dden[:, :, :, None]
+    W1, W2 = w * D, w * Sc
+    A = W1 * Sc
+    carq = torch.einsum("bchde,bcihe->bcihd", Cin, dnum) \
+        + nin[:, :, None] * dden[..., None]              # C'_in dnum'_i
+    dq = torch.einsum("bcijh,bcjhd->bcihd", W1, kc) + eg[..., None] * carq
+    dks = ws[..., None] * (torch.einsum("bchde,bcjhe->bcjhd", dCout, vc)
+                           + dnout[:, :, None])
+    dk = torch.einsum("bcijh,bcihd->bcjhd", W1, qc) + dks
+    dv = torch.einsum("bcijh,bcihe->bcjhe", W2, dnum) + ws[..., None] * \
+        torch.einsum("bcjhd,bchde->bcjhe", kc, dCout)
+    ks = (kc * dks).sum(-1)                              # [B,n,L,nh]
+    dg = A.sum(3) - A.sum(2) + eg * (qc * carq).sum(-1) - ks
+    st = decay * ((dCout * Cin).sum((-1, -2)) + (dnout * nin).sum(-1))
+    dg = _last_put(dg, S, st + ks.sum(2))
+    dli = A.sum(2) + ks
+    return (unchunked(dq, nc, Q).to(q.dtype), unchunked(dk, nc, Q).to(k.dtype),
+            unchunked(dv, nc, Q).to(v.dtype),
+            rebase_adjoint(dg, plan, nc, Q).to(cumf.dtype),
+            unchunked(dli, nc, Q).to(li.dtype))
+
+
+@torch.library.custom_op("repro_torch::mlstm_chunk_scan_backward",
+                         mutates_args=())
+def _scan_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 cumf: torch.Tensor, li: torch.Tensor, y: torch.Tensor,
+                 dy: torch.Tensor, dC: torch.Tensor, dn: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    raise NotImplementedError(
+        f"mlstm_chunk_scan_backward: no implementation on {q.device}")
+
+
+@_scan_bwd_op.register_kernel("cpu")
+def _scan_bwd_cpu(q, k, v, cumf, li, y, dy, dC, dn):
+    return mlstm_chunk_scan_backward_plain(q, k, v, cumf, li, y, dy, dC, dn)
+
+
+@_scan_bwd_op.register_fake
+def _scan_bwd_fake(q, k, v, cumf, li, y, dy, dC, dn):
+    return tuple(torch.empty_like(t) for t in (q, k, v, cumf, li))
+
+
+_BWD_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
+
+
+def _launch_backward(q, k, v, cumf, li, y, dy, dC, dn, fault: int = 0):
+    """One run of the backward kernel (five launches) on CUDA tensors,
+    with the rebase and its adjoint around it; ``fault`` plants a fault
+    for the checks only.  Scratch: the state entering and the cotangent
+    leaving each kernel chunk, nh·dh·(dh + 1)·4 bytes each a kernel chunk
+    and batch row (4 MiB at xlstm-350m: 128 MiB for a train step's batch 8
+    of two kernel chunks), two [64, 64] weight matrices per (b, kernel
+    chunk, head) and dg's parts per 64 columns of d."""
+    B, nc, Q, nh, dh = q.shape
+    f32 = torch.float32
+    _build.require(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
+                   and v.dtype == q.dtype and all(
+                       t.dtype == f32 for t in (cumf, li, y, dy, dC, dn)),
+                   f"mlstm_chunk_scan_backward: dtypes {q.dtype}/{k.dtype}/"
+                   f"{v.dtype} and {[str(t.dtype) for t in (cumf, li, y, dy, dC, dn)]}")
+    _build.require(k.shape == q.shape and v.shape == q.shape
+                   and y.shape == q.shape and dy.shape == q.shape
+                   and cumf.shape == (B, nc, Q, nh) and li.shape == cumf.shape
+                   and dC.shape == (B, nh, dh, dh) and dn.shape == (B, nh, dh),
+                   f"mlstm_chunk_scan_backward: shapes {q.shape} {k.shape} "
+                   f"{v.shape} {cumf.shape} {li.shape} {y.shape} {dy.shape} "
+                   f"{dC.shape} {dn.shape}")
+    _build.require(all(t.is_contiguous() and t.device == q.device
+                       for t in (q, k, v, cumf, li, y, dy, dC, dn)),
+                   "mlstm_chunk_scan_backward: inputs must be contiguous on "
+                   "one device")
+    _build.require(1 <= Q <= MAX_Q and 1 <= dh <= MAX_DH,
+                   f"mlstm_chunk_scan_backward: Q={Q}, dh={dh} not supported")
+    plan = plan_scan(nc, Q)
+    L, n = plan.chunk, plan.chunks
+    T = -(-dh // 64)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv, torch.zeros_like(cumf), torch.zeros_like(li)
+    g = rebase(cumf, plan).contiguous()                  # [B,n,L,nh]
+    new = lambda *s: q.new_empty(*s, dtype=f32)
+    Cin, dCo = new(n, B, nh, dh, dh), new(n, B, nh, dh, dh)
+    nin, dno = new(n, B, nh, dh), new(n, B, nh, dh)
+    W1, W2 = new(B, n, nh, L, L), new(B, n, nh, L, L)
+    rows = new(4, B, n, nh, L)          # 1 / m, dden, rowA - colA, colA
+    pg, pli = new(B, n, T, L, nh), new(B, n, T, L, nh)
+    dg, dli = torch.empty_like(g), torch.empty_like(li)
+    fn = _build.entry("mlstm_chunk_scan_backward_launch", _BWD_ARGTYPES)
+    ptrs = (q, k, v, g, li, y, dy, dC, dn, Cin, nin, dCo, dno, W1, W2, rows,
+            pg, pli, dq, dk, dv, dg, dli)
+    _build.check(fn(*(t.data_ptr() for t in ptrs), B, nc * Q, nh, dh, n, T,
+                    _build.DTYPE_CODES[q.dtype], fault,
+                    _build.stream_handle(q)),
+                 "mlstm_chunk_scan_backward")
+    return dq, dk, dv, rebase_adjoint(dg, plan, nc, Q), dli
+
+
+@_scan_bwd_op.register_kernel("cuda")
+def _scan_bwd_cuda(q, k, v, cumf, li, y, dy, dC, dn):
+    out = _launch_backward(q, k, v, cumf, li, y, dy, dC, dn)
+    if q.numel():
+        mlstm_chunk_scan_backward.launches += 1
+    return out
+
+
+def mlstm_chunk_scan_backward(q, k, v, cumf, li, y, dy, dC=None, dn=None):
+    """(dq, dk, dv, dcumf, dli) of ``mlstm_chunk_scan(q, k, v, cumf, li)``
+    -> (y, C, n) for the gradients dy, dC, dn (zeros for None); ``y`` is
+    the forward's output.  CUDA tensors launch the kernel, CPU tensors
+    take the plain version."""
+    B, _, _, nh, dh = q.shape
+    ft = torch.promote_types(q.dtype, torch.float32)
+    if dC is None:
+        dC = q.new_zeros(B, nh, dh, dh, dtype=ft)
+    if dn is None:
+        dn = q.new_zeros(B, nh, dh, dtype=ft)
+    return _scan_bwd_op(q, k, v, cumf, li, y, dy.contiguous(),
+                        dC.contiguous(), dn.contiguous())
+
+
+mlstm_chunk_scan_backward.launches = 0   # kernel runs (CUDA path only)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs, output[0])
+
+
+def _backward(ctx, dy, dC, dn):
+    return mlstm_chunk_scan_backward(*ctx.saved_tensors, dy, dC, dn)
+
+
+torch.library.register_autograd("repro_torch::mlstm_chunk_scan", _backward,
+                                setup_context=_setup_context)

@@ -8,6 +8,12 @@ Counterpart of ``repro/launch/train.py``, with the same flags and defaults
         --steps 4
     python -m repro_torch.launch.train --arch qwen2.5-3b --steps 50 \\
         --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
+    python -m repro_torch.launch.train --arch zamba2-1.2b --steps 4
+    python -m repro_torch.launch.train --arch xlstm-350m --device cpu
+
+Every family but moe trains: dense, vlm, audio, hybrid (zamba2-1.2b,
+through the Mamba2 scan's backward kernel) and ssm (xlstm-350m, through
+the mLSTM scan's).
 
 Wires together: data pipeline -> train step (eager; the custom ops'
 backward kernels on the card) -> AdamW -> async checkpoints -> restore.

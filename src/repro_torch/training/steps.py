@@ -9,10 +9,11 @@ inputs: nothing is read back to the host inside a step.  The reference's
 item 15) and is dropped.
 
 A train step differentiates the loss with ``torch.autograd`` through the
-custom ops' registered backwards: on the card ``rmsnorm`` and
-``flash_attention`` launch their backward kernels.  ``moe_gmm`` and the
-two chunk scans have no backward yet, so the moe, hybrid and ssm families
-do not train (``make_train_step`` raises).
+custom ops' registered backwards: on the card ``rmsnorm``,
+``flash_attention`` and the two chunk scans (``mamba_chunk_scan``,
+``mlstm_chunk_scan``) launch their backward kernels, so the dense, vlm,
+audio, hybrid and ssm families train.  ``moe_gmm`` has no backward yet,
+so the moe family does not (``make_train_step`` raises).
 """
 from __future__ import annotations
 
@@ -28,9 +29,7 @@ from repro_torch.training.optimizer import AdamWConfig, adamw_update
 
 # the families whose kernels have no backward, and the ROADMAP item that
 # brings it
-NO_BACKWARD = {"moe": "moe_gmm (ROADMAP.md Queue 2, item 7)",
-               "hybrid": "the Mamba2 chunk scan (ROADMAP.md Queue 2, item 8)",
-               "ssm": "the mLSTM chunk scan (ROADMAP.md Queue 2, item 8)"}
+NO_BACKWARD = {"moe": "moe_gmm (ROADMAP.md Queue 2, item 7)"}
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):

@@ -14,6 +14,7 @@ wrappers take their plain versions.
 import copy
 import dataclasses
 import importlib
+import math
 import os
 
 import numpy as np
@@ -964,3 +965,138 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(torch.utils._pytree.tree_leaves(s_cpu["master"]),
                     torch.utils._pytree.tree_leaves(s_gpu["master"])):
         _close(a, b.cpu(), 1e-4)
+
+
+# ------------------------------------------------------ scan backwards ----
+# (B, Q, nc): a train step's rows of zamba2-1.2b and xlstm-350m (batch 8 of
+# seq 128), the 300-token prompt's two chunks of 150, and 70 chunks of one
+# row (kernel chunks of 64 and 6 across the caller chunks)
+SCAN_BWD_CASES = [(8, 128, 1), (1, 150, 2), (2, 1, 70)]
+SCAN_BWDS = {"mamba": (K.mamba_chunk_scan_backward,
+                       K.mamba_chunk_scan_backward_plain),
+             "mlstm": (K.mlstm_chunk_scan_backward,
+                       K.mlstm_chunk_scan_backward_plain)}
+
+
+def _scan_bwd_args(dev, which, B, Q, nc, dt):
+    """The forward's inputs at full width with ``dt`` for B, C or q, k, v,
+    y (mLSTM) and nonzero cotangents of every output."""
+    rn = _randn(dev, 21)
+    if which == "mamba":                 # nh = P = N = 64
+        ins = (rn(B, nc, Q, 64, 64) * 0.5, (rn(B, nc, Q, 64) * 0.5).to(dt),
+               (rn(B, nc, Q, 64) * 0.5).to(dt),
+               torch.cumsum(-rn(B, nc, Q, 64).abs() * 0.1, 2))
+        outs = K.mamba_chunk_scan(*ins)
+        return (*ins, *(rn(*o.shape) for o in outs))
+    ins = (*((rn(B, nc, Q, 4, 512) * 512 ** -0.25).to(dt)  # nh 4, dh 512
+             for _ in range(2)), rn(B, nc, Q, 4, 512).to(dt),
+           torch.cumsum(-rn(B, nc, Q, 4).abs() * 0.2, 2),
+           torch.clamp_max(rn(B, nc, Q, 4), 8.0))
+    outs = K.mlstm_chunk_scan(*ins)
+    return (*ins, outs[0], *(rn(*o.shape) for o in outs))
+
+
+def _close_scaled(a, b, tol):
+    """atol tol times the largest |b| (at least 1), rtol tol: a scan's
+    gradients sum up to 64 heads' or 300 rows' terms of up to ~5e3 in
+    another order than the plain version."""
+    scale = max(1.0, float(b.float().abs().max()))
+    _close(a.float() / scale, b.float() / scale, tol)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Q,nc", SCAN_BWD_CASES)
+@pytest.mark.parametrize("which", sorted(SCAN_BWDS))
+def test_scan_backwards_match_plain(cuda, which, B, Q, nc, dt):
+    """Every gradient against the plain backward, in its input's dtype;
+    one counted run; identical bits on a second run (no atomics)."""
+    run, plain = SCAN_BWDS[which]
+    a = _scan_bwd_args(cuda, which, B, Q, nc, dt)
+    before = run.launches
+    got = run(*a)
+    torch.cuda.synchronize()
+    assert run.launches == before + 1
+    for g, w in zip(got, plain(*a)):
+        assert g.dtype == w.dtype
+        if dt == torch.float32:
+            _close_scaled(g, w, TOL[dt])
+        else:
+            _close(g, w, TOL[dt])
+    again = run(*a)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
+
+
+@pytest.mark.parametrize("which", sorted(SCAN_BWDS))
+def test_scan_backward_tolerance_rejects_planted_faults(cuda, which):
+    """At a train step's rows (two kernel chunks): a chunk reading the
+    state cotangent of the chunk after it, and the SSD's head sum of dB
+    without its last head or the mLSTM's sum of dg's column tiles without
+    its last, each fail the check the kernel passes."""
+    mod = importlib.import_module(
+        f"repro_torch.kernels.{'mamba_scan' if which == 'mamba' else 'mlstm'}")
+    _, plain = SCAN_BWDS[which]
+    for dt in (torch.float32, torch.bfloat16):
+        a = _scan_bwd_args(cuda, which, 8, 128, 1, dt)
+        ref = plain(*a)
+        # each gradient scaled as test_scan_backwards_match_plain holds it
+        # (fp32: by its largest |reference|, at least 1): the check passes
+        # iff every gradient passes its own
+        scales = [max(1.0, float(w.float().abs().max()))
+                  if dt == torch.float32 else 1.0 for w in ref]
+        flat = lambda ts: torch.cat([t.float().flatten() / s
+                                     for t, s in zip(ts, scales)])
+        want = flat(ref)
+        assert _agree(flat(mod._launch_backward(*a)), want, TOL[dt])
+        last = mod.FAULT_DROP_HEAD if which == "mamba" else \
+            mod.FAULT_DROP_TILE
+        for fault in (mod.FAULT_WRONG_COTANGENT, last):
+            assert not _agree(flat(mod._launch_backward(*a, fault=fault)),
+                              want, TOL[dt]), fault
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-350m"])
+def test_recurrent_smoke_train_steps_on_card(cuda, arch):
+    """One fp32 train step of the smoke config on the card (the scan's
+    backward kernel) against the same step on the CPU, its master
+    elements whose first-step gradient is resolved (|g| >= 1e-6) at 1e-4
+    and the rest within Adam's step bound; then one bf16 step on the card
+    (the launcher's dtype): finite, one scan backward per scan layer."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = smoke_shrink(get_config(arch), dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 80))   # two kernel chunks
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    params = L.to_tree(M.init_params(cfg, 0, device="cpu"))
+    opt = AdamWConfig(warmup_steps=1, decay_steps=10)
+    step = ST.make_train_step(cfg, opt, remat="none")
+    got = {}
+    for dev in ("cpu", cuda):
+        state = init_opt_state(
+            torch.utils._pytree.tree_map(lambda t: t.to(dev), params))
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        K.reset_launches()
+        got[str(dev)] = step(state, b)
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = got["cpu"], got["cuda"]
+    scan = "mamba_chunk_scan" if cfg.family == "hybrid" else \
+        "mlstm_chunk_scan"
+    n_scan = K.launch_counts()[scan]
+    assert n_scan > 0 and \
+        K.launch_counts(K.BACKWARD_KERNELS)[scan + "_backward"] == n_scan
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(m_cpu[key]) - float(m_gpu[key])) <= \
+            1e-4 * (1 + abs(float(m_cpu[key]))), key
+    lr = float(m_cpu["lr"])
+    for a, b, m in zip(torch.utils._pytree.tree_leaves(s_cpu["master"]),
+                       torch.utils._pytree.tree_leaves(s_gpu["master"]),
+                       torch.utils._pytree.tree_leaves(s_cpu["m"])):
+        ok = m.abs() / (1 - 0.9) >= 1e-6
+        _close(a[ok], b.cpu()[ok], 1e-4)
+        assert torch.all((a - b.cpu()).abs()[~ok] <= 2 * lr + 1e-4)
+    bcfg = smoke_shrink(get_config(arch))              # bf16
+    state = init_opt_state(L.to_tree(M.init_params(bcfg, 0, device=cuda)))
+    K.reset_launches()
+    _, m = ST.make_train_step(bcfg, opt, remat="none")(
+        state, {k: torch.as_tensor(v, device=cuda) for k, v in batch.items()})
+    assert math.isfinite(float(m["loss"])) and \
+        math.isfinite(float(m["grad_norm"]))
+    assert K.launch_counts(K.BACKWARD_KERNELS)[scan + "_backward"] == n_scan

@@ -94,6 +94,22 @@ def test_rebase_is_the_global_cumsum_restarted_per_kernel_chunk(B, nc, Q):
         assert not g[:, c, rows:].any()
 
 
+@pytest.mark.parametrize("B,nc,Q", CASES + [(1, 5, 30), (1, 2, 150),
+                                            (1, 257, 1)])
+def test_rebase_adjoint_is_the_vjp_of_rebase(B, nc, Q):
+    """The scans' backwards map dg to dcum through ``rebase_adjoint``,
+    written out: it equals autograd's vjp of ``rebase`` in fp64, the rows
+    past the last ignored."""
+    rng = np.random.default_rng(Q * nc)
+    plan = MS.plan_scan(nc, Q)
+    cum = torch.zeros(B, nc, Q, 3, dtype=torch.float64)
+    dg = torch.from_numpy(rng.standard_normal(
+        (B, plan.chunks, plan.chunk, 3)))
+    want = torch.func.vjp(lambda c: MS.rebase(c, plan), cum)[1](dg)[0]
+    torch.testing.assert_close(MS.rebase_adjoint(dg, plan, nc, Q), want,
+                               atol=1e-12, rtol=0)
+
+
 # ---------------------------------------------------------------- stages --
 @pytest.mark.parametrize("B,nc,Q", CASES)
 def test_mamba_stages_vs_plain_pallas_and_ref(B, nc, Q):
