@@ -41,8 +41,14 @@ Phases, each of which raises (exit code != 0) when it fails:
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
            be rejected; the four backward kernels (rmsnorm's at the train
-           step's [1024, 2048], flash's at its q [8,128,16,128] and at
-           phi-3-vision's and whisper's shapes, the two scans' at
+           step's [1024, 2048], two launches by ``plan_rmsnorm_backward``:
+           a block per SM over groups of rows, then the partial rows
+           summed in column tiles; flash's, two launches by
+           ``plan_flash_backward`` with wgmma at hd 64 to 128 and launch
+           B's walk of the group split over a cluster of blocks, at its q
+           [8,128,16,128], at zamba2-1.2b's shared attention
+           [8,128,32,64] (G = 1) and at phi-3-vision's and whisper's
+           shapes; the two scans' at
            zamba2-1.2b's and xlstm-350m's train step rows [8,1,128,...]
            and at the 300-token prompt's [1,2,150,...]) against their
            plain versions in both dtypes, timed beside the library's
@@ -62,7 +68,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            default batch 8 and seq 128 (finite losses, every master leaf
            moved, step 1 against the fp32 pass, launches 73 + 73 rmsnorm
            and 36 + 36 flash a step), ms per step, tokens/s, peak memory
-           and one more step profiled; (d) zamba2-1.2b and xlstm-350m:
+           and one more step profiled, with the device ms of its custom
+           backward kernels by family; (d) zamba2-1.2b and xlstm-350m:
            one fp32 step at phase parity's group of 6 layers (seq 128,
            two kernel chunks) on the card against the CPU, then
            ``train`` in bf16 at full width and depth for 3 steps at batch
@@ -727,6 +734,8 @@ BWD_RMSNORM_ROWS = ((8 * 128, 2048),)   # qwen2.5-3b's train step rows
 BWD_FLASH_ROWS = (
     FlashRow("qwen2.5-3b train step", 8, 128, 128, 16, 2, 128, role="main",
              faults=("short_tiles",)),
+    # G = 1 at hd 64: 6 runs a train step
+    FlashRow("zamba2 shared attention train step", 8, 128, 128, 32, 32, 64),
     FlashRow("phi-3, 576 image + 128 text rows", 1, 704, 704, 32, 32, 96),
     FlashRow("whisper encoder", 2, 1500, 1500, 20, 20, 64, causal=False))
 
@@ -3718,7 +3727,8 @@ def _train_profile(step, state, batch):
     """One more train step under torch.profiler, the device's activity
     only (busy time needs no host events, and recording and parsing those
     of a recurrent step's ~50,000 kernels is slow): (device busy ms, CUDA
-    kernels, {kind: device ms}) with the kernels sorted into the custom
+    kernels, {kind: device ms}, the six heaviest kernels, {custom backward
+    family: (device ms, kernels)}) with the kernels sorted into the custom
     forwards, the custom backwards, matrix products and the rest."""
     import torch
     from torch.autograd import DeviceType
@@ -3734,7 +3744,7 @@ def _train_profile(step, state, batch):
                                 "mlstm_scan_"),
              "matrix products": ("nvjet", "gemm", "xmma", "cutlass")}
     ms = dict.fromkeys(list(kinds) + ["other"], 0.0)
-    by_name = {}
+    by_name, backward = {}, {}
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
@@ -3743,8 +3753,13 @@ def _train_profile(step, state, batch):
         kind = next((k for k, keys in kinds.items()
                      if any(x in e.name for x in keys)), "other")
         ms[kind] += t
+        family = next((x for x in kinds["custom backward"] if x in e.name),
+                      None)
+        if family:
+            t0, n = backward.get(family, (0.0, 0))
+            backward[family] = (t0 + t, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return busy, n_kern, ms, top
+    return busy, n_kern, ms, top, backward
 
 
 def _train_checked(state, cfg, steps, B, S, init, part):
@@ -3800,14 +3815,19 @@ def _train_checked(state, cfg, steps, B, S, init, part):
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              SyntheticLM(cfg.vocab_size, B, S).next_batch().items()}
     t0 = time.perf_counter()
-    busy, n_kern, kinds, top = _train_profile(step, run.state, batch)
+    busy, n_kern, kinds, top, backward = _train_profile(step, run.state,
+                                                        batch)
     log(f"train: {part} {cfg.name} one more step profiled (in "
         f"{time.perf_counter() - t0:.1f} s): device busy "
         f"{busy:.2f} ms over {n_kern} kernels against {ms:.1f} ms wall "
         f"(idle share {1 - busy / ms:.3f}); device ms by kind "
         f"{ {k: round(v, 2) for k, v in kinds.items()} }; top kernels "
         f"{[(n[:60], round(t, 2)) for n, t in top]}")
-    return run, ms, peak, busy, bwd
+    log(f"train: {part} {cfg.name} custom backward device ms "
+        f"{kinds['custom backward']:.4f} a step: " + ", ".join(
+            f"{f} {t:.4f} ms over {n} kernels" for f, (t, n) in
+            sorted(backward.items())))
+    return run, ms, peak, busy, bwd, kinds["custom backward"]
 
 
 def _train_full(state):
@@ -3848,8 +3868,8 @@ def _train_full(state):
     del leaves, params, flat, batch
     torch.cuda.empty_cache()
 
-    run, ms, peak, busy, bwd = _train_checked(state, cfg, steps, B, S, init,
-                                              "(b)")
+    run, ms, peak, busy, bwd, bwd_ms = _train_checked(state, cfg, steps, B,
+                                                      S, init, "(b)")
     loss1, gnorm1 = (float(run.metrics[0][k]) for k in ("loss", "grad_norm"))
     d_loss = abs(loss1 - loss32) / loss32
     d_gn = abs(gnorm1 - gnorm32) / gnorm32
@@ -3863,7 +3883,7 @@ def _train_full(state):
         rmsnorm_backward=bwd["rmsnorm_backward"],
         flash_attention_backward=bwd["flash_attention_backward"])
     state["train"] = dict(ms=ms, peak_gb=peak, tok_s=B * S * 1000 / ms,
-                          busy_ms=busy)
+                          busy_ms=busy, custom_backward_ms=bwd_ms)
 
 
 def _train_recurrent(state, arch):
@@ -3885,8 +3905,8 @@ def _train_recurrent(state, arch):
     init = [p.to("cpu") for p in pytree.tree_leaves(
         L.to_tree(M.init_params(cfg, 0, device="cuda")))]
     torch.cuda.empty_cache()
-    run, ms, peak, busy, bwd = _train_checked(state, cfg, steps, B, S, init,
-                                              "(d)")
+    run, ms, peak, busy, bwd, _ = _train_checked(state, cfg, steps, B, S,
+                                                 init, "(d)")
     scan = "mamba_chunk_scan_backward" if cfg.family == "hybrid" else \
         "mlstm_chunk_scan_backward"
     state.setdefault("train_launches", {})[scan] = bwd[scan]

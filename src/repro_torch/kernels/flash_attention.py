@@ -36,16 +36,22 @@ launch A, per (b, head, 16 query rows), finds each row's log-sum-exp and
 ``rowsum(dout * out)`` over the K tiles it can see and computes dq; launch
 B, per (b, KV head, tile of keys), walks the group's query heads and the
 query tiles that see its keys and sums dk and dv in registers (no
-atomics).  In bf16 all five products run on the tensor cores (``mma.sync``
-as in the forward, dS rounded to bf16 before dQ and dK, as
-FlashAttention-2 does); fp32, the parity path, stays on the CUDA cores.
-hd 16 to 128 with hd_v = hd.
+atomics).  In bf16 at hd 64, 96 and 128 all products run by ``wgmma`` on
+64-row tiles, one warpgroup a block, the next tile loading under this
+one's products (dS rounded to bf16 before dQ and dK, as FlashAttention-2
+does), and ``plan_flash_backward`` splits launch B's walk over the group's
+heads so that its blocks cover the SMs, a split's blocks summing their dk
+and dv in a fixed order through a thread block cluster's shared memory;
+``flash_attention_backward_staged`` is that decomposition in plain
+PyTorch, for the CPU tests.  hd 16 and 32 keep ``mma.sync``; fp32, the
+parity path, stays on the CUDA cores.  hd 16 to 128 with hd_v = hd.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -70,6 +76,46 @@ def tile_rows(B: int, Sq: int, H: int, sm_count: int) -> int:
     blocks of 64 rows, 128 of 32).  A function of shapes only."""
     blocks = B * H * -(-Sq // 64)
     return 64 if 8 * blocks >= 7 * sm_count else 32
+
+
+BWD_TILE = 64          # rows of the bf16 backward's wgmma tiles (hd >= 64)
+BWD_MAX_SPLIT = 8      # launch B's blocks a group: a portable cluster
+
+
+class FlashBackwardPlan(NamedTuple):
+    """Launch B's split of a group: one block per (b, KV head, 64-key tile,
+    split), each split walking ``heads_per`` of the group's heads (the
+    last split the rest), the ``splits`` blocks of a unit one cluster.
+    Launch A takes one block per (b, head, 64-row query tile)."""
+    heads_per: int
+    splits: int
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_flash_backward(B: int, Sq: int, Sk: int, H: int, Hkv: int, hd: int,
+                        sm_count: int) -> FlashBackwardPlan:
+    """The bf16 backward's plan from shapes only.  At hd 64, 96 and 128
+    (wgmma, 64-row tiles) launch B splits each group of G = H / Hkv heads
+    into the fewest splits s of ceil(G / s) heads (at most 8) whose B Hkv
+    ceil(Sk / 64) s blocks reach seven eighths of the SMs (qwen2.5-3b's
+    train step, [8,128,16,128] / [8,128,2,128] on 132 SMs: 4 splits of 2
+    heads, 128 blocks; G = 1, as zamba2, phi-3 and whisper: none); hd 16
+    and 32 (mma.sync) walk the whole group in one block."""
+    for name, v in (("B", B), ("Sq", Sq), ("Sk", Sk), ("H", H),
+                    ("Hkv", Hkv), ("hd", hd), ("sm_count", sm_count)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_flash_backward: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    G = H // Hkv
+    if hd < 64:
+        return FlashBackwardPlan(G, 1)
+    units = B * Hkv * -(-Sk // BWD_TILE)
+    heads_per = G
+    for s in range(1, min(G, BWD_MAX_SPLIT) + 1):
+        heads_per = -(-G // s)
+        if 8 * units * -(-G // heads_per) >= 7 * sm_count:
+            break
+    return FlashBackwardPlan(heads_per, -(-G // heads_per))
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -142,6 +188,118 @@ def flash_attention_backward_plain(q, k, v, out, dout, *, causal: bool = True,
     if G != 1:
         dk = dk.reshape(B, Sk, Hkv, G, hd).sum(3)
         dv = dv.reshape(B, Sk, Hkv, G, v.shape[-1]).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _visible_keys(q0, rows, Sq, Sk, causal, window, q_offset):
+    """[k_lo, k_hi) of the keys some query row of [q0, q0 + rows) can
+    see (launch A's walk)."""
+    last = min(q0 + rows, Sq) - 1 + q_offset
+    hi = min(Sk, last + 1) if causal else Sk
+    lo = max(0, q0 + q_offset - window + 1) if window > 0 else 0
+    return lo, hi
+
+
+def _visible_rows(k0, keys, Sq, Sk, causal, window, q_offset):
+    """[i_lo, i_hi) of the query rows that can see some key of [k0, k0 +
+    keys) (launch B's walk)."""
+    k1 = min(Sk, k0 + keys)
+    lo = max(0, k0 - q_offset) if causal else 0
+    hi = min(Sq, k1 - 1 + window - q_offset) if window > 0 else Sq
+    return lo, hi
+
+
+def flash_attention_backward_staged(q, k, v, out, dout, *, causal=True,
+                                    window=0, scale=None, q_offset=None,
+                                    plan: Optional[FlashBackwardPlan] = None):
+    """The bf16 wgmma kernel's decomposition in plain PyTorch, in fp32
+    (fp64 for fp64 inputs), with its bf16 roundings of P and dS where the
+    inputs are bf16: launch A per 64-row query tile over the 64-key tiles
+    its rows can see, in order (lse over the visible keys; dQ summed tile
+    by tile); launch B per 64-key tile and split of ``plan`` (``plan_flash_
+    backward`` at 132 SMs unless given), each split summing its heads'
+    query tiles of 64 rows in order, the splits' partials then summed in
+    split order.  -> (dq, dk, dv) in the inputs' dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    q_offset = Sk - Sq if q_offset is None else q_offset
+    if plan is None:
+        plan = plan_flash_backward(B, Sq, Sk, H, Hkv, hd, 132)
+    T = BWD_TILE
+    rnd = (lambda t: t.to(q.dtype).to(t.dtype)) \
+        if q.dtype == torch.bfloat16 else (lambda t: t)
+    qf, kf, vf = plain_float(q), plain_float(k), plain_float(v)
+    dof, of = plain_float(dout), plain_float(out)
+    mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
+    ft = qf.dtype
+    dq = torch.zeros(B, Sq, H, hd, dtype=ft)
+    dk = torch.zeros(B, Sk, Hkv, hd, dtype=ft)
+    dv = torch.zeros(B, Sk, Hkv, hd, dtype=ft)
+    lse = torch.full((B, H, Sq), float("inf"), dtype=ft)
+    delta = (dof * of).sum(-1).transpose(1, 2)          # [B, H, Sq]
+    for h in range(H):
+        hk = h // G
+        for q0 in range(0, Sq, T):
+            rows = slice(q0, min(Sq, q0 + T))
+            lo, hi = _visible_keys(q0, T, Sq, Sk, causal, window, q_offset)
+            if hi <= lo:
+                continue
+            tiles = range(lo // T * T, hi, T)
+            s_of = {t: torch.einsum("bqd,bkd->bqk", qf[:, rows, h],
+                                    kf[:, t:t + T, hk]) * scale
+                    for t in tiles}
+            vis = {t: mask[rows, t:min(t + T, hi)] for t in tiles}
+            s_all = torch.cat(
+                [torch.where(vis[t], s_of[t][..., :vis[t].shape[-1]],
+                             -float("inf")) for t in tiles], -1)
+            m = s_all.amax(-1, keepdim=True)
+            m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+            l = torch.exp(s_all - m).sum(-1, keepdim=True)
+            lse_r = torch.where(l > 0, m + torch.log(l), float("inf"))
+            lse[:, h, rows] = lse_r[..., 0]
+            for t in tiles:
+                n = vis[t].shape[-1]
+                p = torch.where(vis[t], torch.exp(s_of[t][..., :n] - lse_r),
+                                0.0)
+                dp = torch.einsum("bqd,bkd->bqk", dof[:, rows, h],
+                                  vf[:, t:t + n, hk])
+                ds = rnd(p * (dp - delta[:, h, rows, None]))
+                dq[:, rows, h] += torch.einsum("bqk,bkd->bqd", ds,
+                                               kf[:, t:t + n, hk])
+    dq *= scale
+    for hk in range(Hkv):
+        for k0 in range(0, Sk, T):
+            keys = slice(k0, min(Sk, k0 + T))
+            lo, hi = _visible_rows(k0, T, Sq, Sk, causal, window, q_offset)
+            parts = []
+            for c in range(plan.splits):
+                pk = torch.zeros(B, keys.stop - k0, hd, dtype=ft)
+                pv = torch.zeros_like(pk)
+                heads = range(c * plan.heads_per,
+                              min(G, (c + 1) * plan.heads_per))
+                for g in heads:
+                    h = hk * G + g
+                    for i0 in range(lo, hi, T):
+                        rows = slice(i0, min(Sq, i0 + T))
+                        st = torch.einsum("bkd,bqd->bkq", kf[:, keys, hk],
+                                          qf[:, rows, h]) * scale
+                        vis = mask[rows, keys].T
+                        p = torch.where(vis, torch.exp(
+                            st - lse[:, h, None, rows]), 0.0)
+                        dpt = torch.einsum("bkd,bqd->bkq", vf[:, keys, hk],
+                                           dof[:, rows, h])
+                        ds = rnd(p * (dpt - delta[:, h, None, rows]))
+                        pv += torch.einsum("bkq,bqd->bkd", rnd(p),
+                                           dof[:, rows, h])
+                        pk += torch.einsum("bkq,bqd->bkd", ds, qf[:, rows, h])
+                parts.append((pk, pv))
+            sk, sv = parts[0]
+            for pk, pv in parts[1:]:
+                sk, sv = sk + pk, sv + pv
+            dk[:, keys, hk] = sk * scale
+            dv[:, keys, hk] = sv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -247,14 +405,15 @@ def _flash_bwd_fake(q, k, v, out, dout, causal, window, scale, q_offset):
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _launch_backward(q, k, v, out, dout, causal, window, scale, q_offset,
-                     short_tiles=0):
-    """One run of the backward (two launches) on CUDA tensors.
-    ``short_tiles`` > 0 only plants a fault for the checks: launch A then
-    walks that many fewer K tiles."""
+                     short_tiles=0, plan: Optional[FlashBackwardPlan] = None):
+    """One run of the backward (two launches) on CUDA tensors, by ``plan``
+    (``plan_flash_backward`` unless given).  ``short_tiles`` > 0 only
+    plants a fault for the checks: launch A then walks that many fewer K
+    tiles."""
     B, Sq, H, hd = q.shape
     Sk, Hkv, hd_v = k.shape[1], k.shape[2], v.shape[-1]
     _build.require(all(t.dtype == q.dtype for t in (k, v, out, dout))
@@ -281,6 +440,9 @@ def _launch_backward(q, k, v, out, dout, causal, window, scale, q_offset,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    if plan is None:
+        plan = plan_flash_backward(B, Sq, Sk, H, Hkv, hd,
+                                   _build.sm_count(q.device))
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     fn = _build.entry("flash_attention_backward_launch", _BWD_ARGTYPES)
@@ -288,7 +450,7 @@ def _launch_backward(q, k, v, out, dout, causal, window, scale, q_offset,
                     dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Sq,
                     Sk, H, Hkv, hd, int(causal), window, scale, q_offset,
-                    short_tiles, _build.DTYPE_CODES[q.dtype],
+                    short_tiles, plan.heads_per, _build.DTYPE_CODES[q.dtype],
                     _build.stream_handle(q)),
                  "flash_attention_backward")
     return dq, dk, dv

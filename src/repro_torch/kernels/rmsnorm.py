@@ -18,10 +18,17 @@ registered as the op's autograd: with r = rsqrt(mean(x^2) + eps) and g the
 output's gradient, ``dx = r (g scale) - x r^3 mean(x g scale)`` in x's
 dtype and ``dscale = sum over rows of g x r`` in fp32.  The TPU kernel has
 no backward (the reference differentiates ``apply_norm``); this one is the
-port's own, bound by bytes like the forward: a block walks rows
-grid-stride, a thread holds 8 columns, and each block's share of dscale
-stays in registers until a second launch sums the blocks' partials in a
-fixed order (no atomics, so two runs give the same bits).
+port's own, bound by bytes like the forward.  ``plan_rmsnorm_backward``
+plans both launches from the shapes and the SM count: launch 1 gives each
+block (about one per SM) a contiguous run of rows, staged group by group
+in shared memory by ``cp.async`` through a ring of two stages, so the
+next group's loads are in flight during a group's reductions; a thread
+holds 8 columns and keeps its share of dscale in registers, written once
+as the block's partial row; launch 2, which may start while launch 1
+runs (programmatic dependent launch) and waits for it, sums the partial
+rows in column tiles, each tile's parts in a fixed order (no atomics, so
+two runs give the same bits).  ``rmsnorm_backward_staged``
+is that decomposition in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -194,21 +201,92 @@ def _rmsnorm_bwd_fake(x, scale, g, eps):
     return torch.empty_like(x), torch.empty_like(scale)
 
 
-def plan_rmsnorm_backward(rows: int, D: int, sm_count: int):
-    """(threads, grid) of the backward's first launch, from shapes only:
-    a thread per 8 columns in whole warps, and at most two blocks per SM
-    walking the rows (the second launch sums ``grid`` partial rows)."""
-    return 32 * -(-D // 256), max(1, min(rows, 2 * sm_count))
+BACKWARD_RING_BYTES = 128 * 1024   # launch 1's ring of x and g rows
+
+
+class NormBackwardPlan(NamedTuple):
+    """Both launches of the backward: ``threads`` (one per 8 columns, whole
+    warps); ``grid`` blocks of ``chunk`` contiguous rows each, taken
+    ``group`` rows at a time through a ring of two stages in shared memory
+    (the next group loading while one reduces); each block writes one
+    partial row of dscale, which the second launch sums in tiles of
+    ``cols`` columns."""
+    threads: int
+    grid: int
+    chunk: int
+    group: int
+    cols: int
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_rmsnorm_backward(rows: int, D: int, itemsize: int,
+                          sm_count: int) -> NormBackwardPlan:
+    """The backward's plan from shapes only.  At most one block per SM
+    (``chunk`` = ceil(rows / sm_count)), so the card holds at most
+    ``sm_count`` partial rows; ``group`` the most rows, of 8, 4, 2 or 1,
+    whose x and g fit a stage of the 128 KB ring of two and leave the
+    block two groups; ``cols`` the widest column tile of 32, 16 or 8 that
+    still gives the second launch a block per SM ([1024, 2048] bf16 on
+    132 SMs: 256 threads, 128 blocks of 8 rows in 2 groups of 4, tiles of
+    8 columns)."""
+    for name, v in (("rows", rows), ("D", D), ("itemsize", itemsize),
+                    ("sm_count", sm_count)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_rmsnorm_backward: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    threads = 32 * -(-D // 256)
+    chunk = max(1, -(-rows // sm_count))
+    grid = max(1, -(-rows // chunk))
+    row_bytes = 2 * D * itemsize                  # a row of x and one of g
+    group = next((r for r in (8, 4, 2) if 2 * r <= chunk and
+                  2 * r * row_bytes <= BACKWARD_RING_BYTES), 1)
+    cols = next((c for c in (32, 16) if -(-D // c) >= sm_count), 8)
+    return NormBackwardPlan(threads, grid, chunk, group, cols)
+
+
+def rmsnorm_backward_staged(x: torch.Tensor, scale: torch.Tensor,
+                            g: torch.Tensor, eps: float = 1e-5,
+                            plan: Optional[NormBackwardPlan] = None):
+    """The kernel's decomposition in plain PyTorch, in fp32 (fp64 for fp64
+    x): dx per row as ``rmsnorm_backward_plain``; dscale as the kernel sums
+    it, each block's ``chunk`` rows into one partial row (row by row, in
+    order), then the partial rows in contiguous parts of the second
+    launch's tiles, the parts added in order.  ``plan`` defaults to
+    ``plan_rmsnorm_backward`` at 132 SMs."""
+    D = x.shape[-1]
+    xf, gf = plain_float(x).reshape(-1, D), plain_float(g).reshape(-1, D)
+    rows = xf.shape[0]
+    if plan is None:
+        plan = plan_rmsnorm_backward(rows, D, x.element_size(), 132)
+    gs = gf * scale
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    dx = r * gs - xf * (r * r * r) * (xf * gs).mean(-1, keepdim=True)
+    term = gf * (xf * r)
+    partial = torch.zeros(plan.grid, D, dtype=xf.dtype)
+    for b in range(plan.grid):
+        for i in range(b * plan.chunk, min(rows, (b + 1) * plan.chunk)):
+            partial[b] += term[i]
+    n_parts = 256 // plan.cols
+    per = -(-plan.grid // n_parts)
+    dscale = torch.zeros(D, dtype=xf.dtype)
+    for p in range(n_parts):
+        s = torch.zeros(D, dtype=xf.dtype)
+        for i in range(p * per, min(plan.grid, (p + 1) * per)):
+            s += partial[i]
+        dscale += s
+    return dx.reshape(x.shape).to(x.dtype), dscale.to(scale.dtype)
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                 + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 def _launch_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
-                     eps: float, fault: int = 0):
-    """One run of the backward (two launches) on CUDA tensors; ``fault``
-    plants a fault for the checks only."""
+                     eps: float, fault: int = 0,
+                     plan: Optional[NormBackwardPlan] = None):
+    """One run of the backward (two launches) on CUDA tensors, by ``plan``
+    (``plan_rmsnorm_backward`` unless given); ``fault`` plants a fault for
+    the checks only."""
     D = x.shape[-1]
     _build.require(x.dtype in _build.DTYPE_CODES and g.dtype == x.dtype,
                    f"rmsnorm_backward: dtypes {x.dtype}/{g.dtype}")
@@ -231,13 +309,16 @@ def _launch_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
     rows = x.numel() // D
     if rows == 0:
         return dx, dscale.zero_()
-    threads, grid = plan_rmsnorm_backward(rows, D, _build.sm_count(x.device))
-    partial = torch.empty(grid, D, dtype=torch.float32, device=x.device)
+    if plan is None:
+        plan = plan_rmsnorm_backward(rows, D, x.element_size(),
+                                     _build.sm_count(x.device))
+    partial = torch.empty(plan.grid, D, dtype=torch.float32, device=x.device)
     fn = _build.entry("rmsnorm_backward_launch", _BWD_ARGTYPES)
     _build.check(fn(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
                     dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-                    rows, D, eps, _build.DTYPE_CODES[x.dtype], threads, grid,
-                    fault, _build.stream_handle(x)),
+                    rows, D, eps, _build.DTYPE_CODES[x.dtype], plan.threads,
+                    plan.grid, plan.chunk, plan.group, plan.cols, fault,
+                    _build.stream_handle(x)),
                  "rmsnorm_backward")
     return dx, dscale
 

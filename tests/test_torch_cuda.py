@@ -824,11 +824,21 @@ def test_smoke_fleet_on_card_matches_cpu(cuda, source, tmp_path):
 
 
 # ---------------------------------------------------------- backwards ----
-RMS_BWD_CASES = [(4, 2048), (1024, 2048), (300, 96), (300, 3072), (16, 8192)]
+# (100, 2048): fewer rows than SMs (a row a block); (1029, 2048): rows
+# that do not divide the plan's 8 a block (the last block's 5 rows in
+# groups of 4 and 1)
+RMS_BWD_CASES = [(4, 2048), (1024, 2048), (300, 96), (300, 3072), (16, 8192),
+                 (100, 2048), (1029, 2048)]
 FLASH_BWD_CASES = [  # B, Sq, Sk, H, Hkv, hd, causal, window, q_offset
     (2, 128, 128, 16, 2, 128, True, 0, None),
     (1, 70, 90, 4, 1, 96, True, 24, None),
-    (2, 40, 40, 4, 4, 64, False, 0, None)]
+    (2, 40, 40, 4, 4, 64, False, 0, None),
+    # the qwen2.5-3b train step (G = 8 in 4 splits of 2) and zamba2-1.2b's
+    # shared attention (G = 1)
+    (8, 128, 128, 16, 2, 128, True, 0, None),
+    (8, 128, 128, 32, 32, 64, True, 0, None),
+    # G = 3 in 2 splits, the last of one head
+    (8, 128, 128, 12, 4, 64, True, 0, None)]
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -893,6 +903,47 @@ def test_flash_backward_sweep_matches_plain(cuda, dt, hd):
         want = K.flash_attention_backward_plain(q, k, v, out, dout, **kw)
         for a, b in zip(got, want):
             _close(a, b, TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_backward_every_split_matches_plain(cuda, dt):
+    """qwen2.5-3b's train step under every split of its group of 8 (1, 2,
+    4 and 8 blocks, a cluster each; 3 splits of 3, 3 and 2 heads): each
+    within the limit, each bit-equal on a second run."""
+    rn = _randn(cuda, 16)
+    q, k, v = rn(8, 128, 16, 128, dt=dt), rn(8, 128, 2, 128, dt=dt), \
+        rn(8, 128, 2, 128, dt=dt)
+    out = K.flash_attention(q, k, v)
+    dout = rn(8, 128, 16, 128, dt=dt)
+    want = K.flash_attention_backward_plain(q, k, v, out, dout)
+    for hp in (8, 4, 3, 2, 1):
+        plan = FA.FlashBackwardPlan(hp, -(-8 // hp))
+        got = FA._launch_backward(q, k, v, out, dout, True, 0, 128 ** -0.5,
+                                  0, plan=plan)
+        for a, b in zip(got, want):
+            _close(a, b, TOL[dt])
+        again = FA._launch_backward(q, k, v, out, dout, True, 0,
+                                    128 ** -0.5, 0, plan=plan)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), plan
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_every_group_matches_plain(cuda, dt):
+    """[1024, 2048] by blocks of 1 to 16 rows in groups of 1 to 8 (the
+    partial rows 1,024 down to 64; the ring within 128 KB): each within
+    the limit."""
+    RN = importlib.import_module("repro_torch.kernels.rmsnorm")
+    rn = _randn(cuda, 17)
+    x, s, g = rn(1024, 2048, dt=dt), rn(2048) * 0.1 + 1.0, \
+        rn(1024, 2048, dt=dt)
+    wdx, wds = K.rmsnorm_backward_plain(x, s, g)
+    groups = ((1, 1), (2, 2), (8, 2), (8, 4), (16, 4)) + (
+        ((8, 8), (16, 8)) if dt == torch.bfloat16 else ())
+    for chunk, group in groups:
+        plan = RN.NormBackwardPlan(256, 1024 // chunk, chunk, group, 16)
+        dx, ds = RN._launch_backward(x, s, g, 1e-5, plan=plan)
+        _close(dx, wdx, TOL[dt])
+        _close(ds / 32, wds / 32, TOL[dt])
 
 
 def test_backward_tolerance_rejects_planted_faults(cuda):
