@@ -55,9 +55,12 @@ Phases, each of which raises (exit code != 0) when it fails:
            backward where there is one, with their planted faults (a
            row's sums over its first warp's share; launch A one K tile
            short; a scan chunk reading the state cotangent of the chunk
-           after it; the SSD's head sum of dB without its last head; the
-           mLSTM's sum of dg's column tiles without its last), the scans'
-           two runs bit-equal;
+           after it; the SSD's sum of dB over its head groups without the
+           last; the mLSTM's sums of dg's column tiles and of its scores'
+           d tiles without the last, and of <dC'_out, C'_in>'s state
+           tiles without the last (with forget gates near 1); a scan
+           backward's bf16 splits cut to one part), the scans' two runs
+           bit-equal, each scan backward's device time by launch;
   train    training through the backward kernels: (a) qwen2.5-3b cut to 2
            layers at full width, one fp32 train step on the card against
            the CPU (loss, grad norm, every master leaf); (c) the same
@@ -212,7 +215,7 @@ PHASES = ("gpu", "build", "kernels", "train", "parity", "serve", "prefill",
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_S = {"bfloat16": 989e12, "tfloat32": 495e12, "float32": 67e12}
 L2_BYTES = 50e6
 
 
@@ -886,36 +889,71 @@ def _least_ops(count, B, S):
                key=lambda ops: sum(n / PEAK_OPS_S[d] for d, n in ops.items()))
 
 
-def _scan_backward_ops(which, B, Q, nc, esz):
+def _scan_backward_ops(which, B, Q, nc, esz, parts):
     """{dtype name: operations} of one backward run, its multiply-adds at
     the least-work chunking (``_least_ops``): per row the state passes
     (recomputed forward, reverse) and the products with a state (SSD: dx̄,
-    dB, dC; mLSTM: dq, dk, dv), per chunk the state's part of dg, and the
-    intra-chunk products over the causal pairs.  C Bᵀ and q kᵀ of bf16
-    inputs are exact at the bf16 peak; every other product has an fp32
-    operand (x̄, dy, a state) and counts at the fp32 peak."""
+    dB, dC; mLSTM: dq, dk, dv), per chunk the state's part of dg (fp32,
+    elementwise), and the intra-chunk products over the causal pairs.
+    With fp32 inputs every product is three TF32 products (3xTF32, the
+    kernels' fp32 path).  With bf16 inputs C Bᵀ and q
+    kᵀ are exact at the bf16 peak, a product with one fp32 operand costs
+    ``parts`` bf16 products (the split) and one of two fp32 operands
+    parts·(parts + 1)/2 (its cross terms down to the same order): SSD
+    dy x̄ᵀ, the intra-chunk dx̄, and the states' dB and dC; mLSTM the
+    intra-chunk dv and the state's dq."""
     rows = B * nc * Q
     if which == "mamba":
         nh, P, N = 64, 64, 64
 
-        def count(chunks, pairs):
-            return 2 * pairs * N, 2 * (5 * rows * nh * P * N
-                                       + chunks * nh * P * N
-                                       + pairs * nh * (2 * P + 2 * N))
+        def count(chunks, pairs):     # exact, one fp32 operand, two, dots
+            return (2 * pairs * N,
+                    2 * (3 * rows * nh * P * N + 2 * pairs * nh * N),
+                    2 * (2 * rows * nh * P * N + 2 * pairs * nh * P),
+                    2 * chunks * nh * P * N)
     else:
         nh, dh = 4, 512
 
         def count(chunks, pairs):
-            return 2 * nh * pairs * dh, 2 * nh * (
-                4 * rows * dh * (dh + 1) + rows * dh * dh
-                + chunks * dh * (dh + 1) + 4 * pairs * dh)
+            return (2 * nh * pairs * dh,
+                    2 * nh * (3 * rows * dh * (dh + 1) + rows * dh * dh
+                              + 3 * pairs * dh),
+                    2 * nh * (rows * dh * (dh + 1) + pairs * dh),
+                    2 * nh * chunks * dh * (dh + 1))
 
     def ops(chunks, pairs):
-        exact, fp32 = count(chunks, pairs)
+        exact, one, two, dots = count(chunks, pairs)
         if esz == 4:
-            return {"float32": exact + fp32}
-        return {"bfloat16": exact, "float32": fp32}
+            return {"tfloat32": 3 * (exact + one + two), "float32": dots}
+        return {"bfloat16": exact + parts * one
+                + parts * (parts + 1) // 2 * two, "float32": dots}
     return _least_ops(ops, B, nc * Q)
+
+
+def _launch_split(fn, args_list):
+    """{CUDA kernel: device ms a call} of ``fn(*args)``, one call for each
+    cold copy in ``args_list``, under torch.profiler (the device's
+    activity only); the kernels PyTorch launches around the custom ones
+    (the wrapper's rebase and its adjoint) summed as "torch glue"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for a in args_list[:2]:
+        fn(*a)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args_list:
+            fn(*a)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        hit = re.search(r"(\w+_bwd_\w+(<[^>]*>)?)", e.name)
+        name = hit.group(1) if hit else "torch glue"
+        out[name] = out.get(name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3
+    return {k: v / len(args_list) for k, v in out.items()}
 
 
 def _scan_backward_kernels(randn, record):
@@ -926,9 +964,12 @@ def _scan_backward_kernels(randn, record):
     the 64 heads' or the rows' terms, of up to ~5e3, in another order),
     the bf16 ones at the bf16 limit; two runs bit-equal; the planted
     faults rejected (the chunk's state cotangent read from the chunk
-    after it; the SSD's head sum of dB without its last head; the mLSTM's
-    sum of dg's column tiles without its last tile).  No single PyTorch
-    call computes a scan's gradient."""
+    after it; the SSD's sum of dB over its head groups without the last;
+    the mLSTM's sums of dg's column tiles and of its scores' d tiles
+    without the last; with bf16 inputs every split cut to one part; and
+    ``_scan_backward_slow_forget``); each call's device time by launch
+    (``_launch_split``).  No single PyTorch call computes a scan's
+    gradient."""
     import importlib
     import torch
     from repro_torch import kernels as K
@@ -943,8 +984,10 @@ def _scan_backward_kernels(randn, record):
             launch, names = MS._launch_backward, ("dx", "dB", "dC", "dcum")
             faults = (("the state cotangent read from the chunk after",
                        MS.FAULT_WRONG_COTANGENT),
-                      ("dB's head sum without its last head",
-                       MS.FAULT_DROP_HEAD))
+                      ("dB's sum of the head groups without its last",
+                       MS.FAULT_DROP_GROUP),
+                      ("every split cut to its first part",
+                       MS.FAULT_ONE_PART))
             width = "zamba2 nh=64 P=64 N=64"
         else:
             fwd, run, plain = (K.mlstm_chunk_scan, K.mlstm_chunk_scan_backward,
@@ -954,7 +997,11 @@ def _scan_backward_kernels(randn, record):
             faults = (("the state cotangent read from the chunk after",
                        ML.FAULT_WRONG_COTANGENT),
                       ("dg's column tiles without the last",
-                       ML.FAULT_DROP_TILE))
+                       ML.FAULT_DROP_TILE),
+                      ("the d tiles' scores summed without the last",
+                       ML.FAULT_ROWS_DROP_TILE),
+                      ("every split cut to its first part",
+                       ML.FAULT_ONE_PART))
             width = "xlstm nh=4 dh=512"
         for (B, Q, nc) in BWD_SCAN_CASES:
             for dname, dt in dts.items():
@@ -988,17 +1035,54 @@ def _scan_backward_kernels(randn, record):
                 flat = lambda ts, scales=scales: torch.cat(
                     [t.float().flatten() / sc for t, sc in zip(ts, scales)])
                 for label, fault in faults:
+                    if fault == MS.FAULT_ONE_PART and esz == 4:
+                        continue            # fp32 inputs split nothing
                     _reject(f"{which} backward {case}, {label}",
                             flat(launch(*a, fault=fault)), flat(want), tol)
+                if which == "mlstm" and (B, Q, nc) == BWD_SCAN_CASES[0]:
+                    _scan_backward_slow_forget(randn, dt, tol)
+                split = _launch_split(run, args_list)
+                log(f"kernels: {which} backward {case} by launch: " +
+                    "; ".join(f"{k} {v:.4f} ms" for k, v in split.items()))
                 record(f"{which}_chunk_scan_backward", case,
                        (B, Q, nc) == BWD_SCAN_CASES[0] and dname == "bfloat16",
                        err, args_list, run, plain, None, nbytes,
-                       _scan_backward_ops(which, B, Q, nc, esz), dname)
+                       _scan_backward_ops(which, B, Q, nc, esz,
+                                          MS.BACKWARD_PARTS), dname)
                 del args_list, a, got, want
 
 
+def _scan_backward_slow_forget(randn, dt, tol):
+    """The mLSTM backward at a train step's rows with forget gates near 1
+    (cumf a hundredth of ``_scan_inputs``'): the state's cotangent term
+    e^{gl} <dC'_out, C'_in> of dg then counts (at the usual gates e^{gl}
+    is ~e^-10), so the check must reject the sum of its state tiles
+    without the last tile."""
+    import importlib
+    import torch
+    from repro_torch import kernels as K
+    ML = importlib.import_module("repro_torch.kernels.mlstm")
+    q, k, v, cumf, li = _scan_inputs(randn, "mlstm", 8, 128, 1, dt)
+    cumf = cumf * 0.01
+    outs = K.mlstm_chunk_scan(q, k, v, cumf, li)
+    a = (q, k, v, cumf, li, outs[0],
+         *(randn(*o.shape, dt=torch.float32) for o in outs))
+    want = K.mlstm_chunk_scan_backward_plain(*a)
+    scales = [max(1.0, float(w.float().abs().max()))
+              if dt == torch.float32 else 1.0 for w in want]
+    flat = lambda ts: torch.cat(
+        [t.float().flatten() / sc for t, sc in zip(ts, scales)])
+    case = f"xlstm nh=4 dh=512 B=8 Q=128 nc=1 slow forget {dt}"
+    err = _check(f"mlstm backward {case}", flat(K.mlstm_chunk_scan_backward(
+        *a)), flat(want), tol)
+    log(f"kernels: mlstm backward {case}: err {err:.3g}")
+    _reject(f"mlstm backward {case}, <dC'_out, C'_in> without its last "
+            f"state tile", flat(ML._launch_backward(
+                *a, fault=ML.FAULT_STATE_DROP_TILE)), flat(want), tol)
+
+
 def _sass_mma_counts(keys=("flash_attention", "moe_gmm", "mlstm_scan",
-                           "mamba_scan")):
+                           "mamba_scan", "mlstm_bwd", "mamba_bwd")):
     """HMMA/HGMMA instructions in the SASS of each kernel whose name holds
     one of ``keys``, by cuobjdump where the toolkit has it (None where it
     does not)."""
@@ -1153,7 +1237,10 @@ def _attention_sweep(randn, tols, dev):
         # the scans' bf16 products: every scan kernel (the SSD's: C B^T
         # and the state update, then the carried term)
         for key in ("mlstm_scan_chunk_kernel", "mlstm_scan_out_kernel",
-                    "mamba_scan_chunk_kernel", "mamba_scan_out_kernel"):
+                    "mamba_scan_chunk_kernel", "mamba_scan_out_kernel",
+                    "mlstm_bwd_pass_kernel", "mlstm_bwd_rows_kernel",
+                    "mlstm_bwd_out_kernel", "mamba_bwd_pass_kernel",
+                    "mamba_bwd_chunk_kernel"):
             mma = {k: c for k, c in counts.items()
                    if key in k and "bfloat16" in k}
             assert mma and all(mma.values()), \

@@ -14,7 +14,8 @@
 //     dC_i  = sum_h [sum_{j<=i} e^{g_i - g_j} (dy_i . x_j) B_j + e^{g_i} dy_i^T h_in]
 //     dg    = row sums - column sums of e^{g_i - g_j} (C_i . B_j)(dy_i . x_j),
 //             + dy_i . y_off_i, - x_j . (the state part of dx_j), and at the
-//             last row <dh_out, h_out>.
+//             last row e^{gl} <dh_out, h_in> + the sum of x_j . (the state
+//             part of dx_j).
 //
 // The port's own: the TPU kernel repro/kernels/mamba_scan.py:
 // mamba_chunk_scan_chunked has no backward, and the reference
@@ -22,38 +23,58 @@
 // forward keeps its schema and saves nothing, so the backward recomputes
 // the state entering each kernel chunk.
 //
-// What bounds it on the H100: operations, in fp32 on the CUDA cores (about
-// 4 L^2 (N + P) + 4 L P N multiply-adds a (b, kernel chunk, head), against
-// one read of the inputs and one write of the gradients).  Three launches:
-//  1. mamba_bwd_pass_kernel: two kinds of block, one per (b, head, 16 rows
-//     of P) each.  Forward blocks walk the kernel chunks in order and
-//     write the state entering each (hin); reverse blocks walk them
-//     backwards from dstate and write the cotangent of the state leaving
-//     each (dho).
-//  2. mamba_bwd_chunk_kernel, one block per (b, kernel chunk, head), its
-//     x, dy, B, C rows and both [P, N] states in shared memory: dx, this
-//     head's share of dB and dC (to scratch) and dg.
-//  3. mamba_bwd_heads_kernel sums the heads' shares of dB and dC, head by
-//     head in order.
+// What bounds it on the H100: operations and bytes about evenly at
+// zamba2's widths (about 4 L^2 (N + P) + 4 L P N multiply-adds a (b,
+// kernel chunk, head) against x̄ and dy read and dx written, fp32).  With
+// bf16 B and C every 64 x 64 x 64 product runs on the tensor cores
+// (mma.sync m16n8k16, fp32 sums; scan::bwd::mma_tile): C B^T is exact,
+// an fp32 operand (x̄, dy, a state, the decayed scores) is split into two
+// bf16 parts, and a product of two fp32 operands keeps hi hi + hi lo + lo
+// hi.  fp32 B and C take the same tiles as three TF32 products
+// (mma.m16n8k8, each operand's TF32 parts, about 2^-21 relative).  Three
+// launches (two with one kernel chunk), and the two of the rebase:
+//  1. mamba_bwd_pass_kernel (two kernel chunks or more): two kinds of
+//     block, one per (b, head) each, the [P, N] tile in four warps.
+//     Forward blocks walk chunks 0 .. n - 2 and write the state entering
+//     chunks 1 .. n - 1 (hin); reverse blocks walk chunks n - 1 .. 1 from
+//     dstate, read in place, and write the cotangent leaving chunks 0 ..
+//     n - 2 (dho).  The product of the chunk a pass ends on is read by
+//     nobody and not formed.
+//  2. mamba_bwd_chunk_kernel, one block per (b, kernel chunk, group of
+//     heads; kernels/mamba_scan.py:plan_scan_backward): B, C and C B^T
+//     once for the group, then head by head (the next head's x̄, dy and
+//     states staged by cp.async while one is multiplied) dx, dg and the
+//     head's dB and dC, summed in head order into the group's share.
+//  3. mamba_bwd_groups_kernel sums the groups' shares of dB and dC, group
+//     by group in order.
+// Around them the rebase of cum (scan::bwd::rebase_kernel) and its adjoint
+// (rebase_adjoint_kernel), one launch each.
 // No atomics: two runs give identical bits.
 #include "scan.cuh"
 
 namespace {
 
 using scan::kL;
-using scan::kLd;
-using scan::mm;
-using scan::row_sum16;
-constexpr int kThreads = scan::kTileThreads;  // chunk blocks
+using scan::bwd::first;
+using scan::bwd::get;
+using scan::bwd::kFLd;
+using scan::bwd::kLdOf;
+using scan::bwd::load_tile;
+using scan::bwd::mma_tile;
+using scan::bwd::Opnd;
+using scan::bwd::put2;
+using scan::bwd::put_tile;
+using scan::bwd::quad_sum;
 
 constexpr int kMaxP = 64;
 constexpr int kMaxN = 64;
-constexpr int kPT = 16;        // rows of P a pass block owns
-constexpr int kPassThreads = 128;
+constexpr int kPassThreads = 128;  // four warps, 16 rows of P each
+constexpr int kThreads = 256;      // chunk blocks: eight warps, 16 x 32 each
 
 // planted faults (kernels/mamba_scan.py FAULT_*), for the checks only
 constexpr int kFaultWrongCotangent = 1;  // chunk c reads dh_out of c + 1
-constexpr int kFaultDropHead = 2;        // dB's head sum drops the last head
+constexpr int kFaultDropGroup = 2;       // dB's group sum drops the last group
+constexpr int kFaultOnePart = 4;         // every split cut to one part
 
 struct Args {
   const float* x;
@@ -62,320 +83,412 @@ struct Args {
   const float* g;
   const float* dy;
   const float* dstate;
-  float* hin;  // [chunks][B][nh][P][N]
-  float* dho;  // [chunks][B][nh][P][N]
+  float* hin;  // [chunks - 1][B][nh][P][N]: the state entering 1 ..
+  float* dho;  // [chunks - 1][B][nh][P][N]: the cotangent leaving 0 ..
   float* dx;
   void* dB;
   void* dC;
-  float* dBh;  // [B][chunks][nh][kL][N]: each head's share of dB
-  float* dCh;
+  float* dBg;  // [B][chunks][groups][kL][N]: each group's share of dB
+  float* dCg;
   float* dg;
-  int B, S, nh, P, N, chunks, fault;
+  int B, S, nh, P, N, chunks, group, vec, fault;
 };
 
 __device__ __forceinline__ float g_at(const Args& a, int b, int t, int hd) {
   return a.g[(static_cast<size_t>(b) * a.chunks * kL + t) * a.nh + hd];
 }
 
-// One (b, head, P tile), forward (kReverse false: the state entering each
-// kernel chunk, from zero) or backwards (the cotangent of the state
-// leaving each, from dstate).  Thread t holds row p0 + t / 8 of the tile,
-// columns t % 8 + 8 m.
-template <typename T, bool kReverse>
-__device__ void pass_block(const Args& a, int bid, float* sm) {
-  float(*u)[kPT + 1] = reinterpret_cast<float(*)[kPT + 1]>(sm);
-  float(*v)[kMaxN + 1] = reinterpret_cast<float(*)[kMaxN + 1]>(sm + kL * (kPT + 1));
-  float* w = sm + kL * (kPT + 1) + kL * (kMaxN + 1);
-  const int ptiles = (a.P + kPT - 1) / kPT;
-  const int pt = bid % ptiles, hd = bid / ptiles % a.nh, b = bid / (ptiles * a.nh);
-  const int t = threadIdx.x, p = t / 8, n0 = t % 8, p0 = pt * kPT;
-  const size_t head = static_cast<size_t>(b) * a.nh + hd;
-  const size_t xld = static_cast<size_t>(a.nh) * a.P;
-  // forward: rows x_j, columns B_j, weights e^{gl - g_j}; reverse: rows
-  // dy_i, columns C_i, weights e^{g_i}
-  const float* rowsrc = kReverse ? a.dy : a.x;
-  const T* colsrc = static_cast<const T*>(kReverse ? a.Cm : a.Bm);
-  float* out = kReverse ? a.dho : a.hin;
-  float h[8];
-#pragma unroll
-  for (int m = 0; m < 8; ++m) {
-    const int n = n0 + 8 * m;
-    h[m] = (kReverse && p0 + p < a.P && n < a.N)
-               ? a.dstate[(head * a.P + p0 + p) * a.N + n]
-               : 0.f;
-  }
-  for (int s = 0; s < a.chunks; ++s) {
-    const int c = kReverse ? a.chunks - 1 - s : s;
-    const int s0 = c * kL, rows = min(kL, a.S - s0);
-    const float gl = g_at(a, b, s0 + rows - 1, hd);
-    __syncthreads();  // the chunk before is done with u, v, w
-    for (int i = t; i < kL * kPT; i += kPassThreads) {
-      const int r = i / kPT, pp = i % kPT;
-      u[r][pp] = (r < rows && p0 + pp < a.P)
-                     ? rowsrc[(static_cast<size_t>(b) * a.S + s0 + r) * xld +
-                              static_cast<size_t>(hd) * a.P + p0 + pp]
-                     : 0.f;
-    }
-    for (int i = t; i < kL * kMaxN; i += kPassThreads) {
-      const int r = i / kMaxN, e = i % kMaxN;
-      v[r][e] = (r < rows && e < a.N)
-                    ? to_float(colsrc[(static_cast<size_t>(b) * a.S + s0 + r) * a.N + e])
-                    : 0.f;
-    }
-    for (int r = t; r < kL; r += kPassThreads) {
-      const float gr = g_at(a, b, s0 + r, hd);
-      w[r] = r < rows ? expf(kReverse ? gr : gl - gr) : 0.f;
-    }
-    __syncthreads();
-    if (p0 + p < a.P) {
-      float* dst = out + ((static_cast<size_t>(c) * a.B * a.nh + head) * a.P + p0 + p) * a.N;
-#pragma unroll
-      for (int m = 0; m < 8; ++m)
-        if (n0 + 8 * m < a.N) dst[n0 + 8 * m] = h[m];
-    }
-    float part[8] = {};
-    for (int r = 0; r < rows; ++r) {
-      const float uw = w[r] * u[r][p];
-#pragma unroll
-      for (int m = 0; m < 8; ++m) part[m] += uw * v[r][n0 + 8 * m];
-    }
-    const float decay = expf(gl);
-#pragma unroll
-    for (int m = 0; m < 8; ++m) h[m] = h[m] * decay + part[m];
-  }
+// the [P, N] scratch slot `slot` of head (b, hd)
+__device__ __forceinline__ size_t slot_at(const Args& a, int slot, int b, int hd) {
+  return ((static_cast<size_t>(slot) * a.B + b) * a.nh + hd) * a.P * a.N;
 }
 
-constexpr size_t kPassSmem = sizeof(float) * (kL * (kPT + 1) + kL * (kMaxN + 1) + kL);
+__device__ __forceinline__ int parts(const Args& a) {
+  return (a.fault & kFaultOnePart) ? 1 : scan::bwd::kParts;
+}
 
+// ---- launch 1: the ordered passes over the kernel chunks ----
 template <typename T>
-__global__ void __launch_bounds__(kPassThreads) mamba_bwd_pass_kernel(const Args a,
-                                                                      int per_kind) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  float* sm = reinterpret_cast<float*>(raw);
-  if (static_cast<int>(blockIdx.x) < per_kind)
-    pass_block<T, false>(a, blockIdx.x, sm);
-  else
-    pass_block<T, true>(a, blockIdx.x - per_kind, sm);
-}
-
-struct ChunkSmem {
-  float x[kL][kLd];    // x_j [j][p]
-  float dy[kL][kLd];   // dy_i [i][p]
-  float b[kL][kLd];    // B_j [j][n]
-  float c[kL][kLd];    // C_i [i][n]
-  float h[kMaxP][kLd];   // h_in [p][n]
-  float dh[kMaxP][kLd];  // dh_out [p][n]
-  float m[kL][kLd];    // (C_i . B_j) e^{g_i - g_j}, causal
-  float ap[kL][kLd];   // (dy_i . x_j) e^{g_i - g_j}, causal
-  float a[kL][kLd];    // their product (dg's intra-chunk terms)
-  float g[kL], rowa[kL], cola[kL], xd[kL], car[kL];
-  float red[kThreads / 32];
+struct PassSmem {
+  Opnd<T> a;  // (w x̄) or (e^g dy) split, [j][p]
+  Opnd<T> b;  // B or C exact, [j][n]
+  alignas(16) float st[kL][kFLd];  // the x̄ or dy rows staged
+  float sc[kL];
 };
 
+// Two kinds of block, one per (b, head) each: forward (the state entering
+// chunks 1 .. n - 1, from zero: h <- e^{gl} h + sum_j (e^{gl - g_j} x̄_j)
+// B_j^T) and reverse (the cotangent leaving chunks 0 .. n - 2, from
+// dstate: dh <- e^{gl} dh + sum_i (e^{g_i} dy_i) C_i^T), one code for both.
+// Warp w holds rows 16 w .. 16 w + 15 of P.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mamba_bwd_chunk_kernel(const Args a) {
+__global__ void __launch_bounds__(kPassThreads) mamba_bwd_pass_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char raw[];
-  ChunkSmem& sm = *reinterpret_cast<ChunkSmem*>(raw);
-  const int bid = blockIdx.x;
-  const int hd = bid % a.nh, c = bid / a.nh % a.chunks, b = bid / (a.nh * a.chunks);
-  const int t = threadIdx.x, r0 = t / 16, c0 = t % 16;
-  const int s0 = c * kL, rows = min(kL, a.S - s0);
+  PassSmem<T>& sm = *reinterpret_cast<PassSmem<T>*>(raw);
+  const bool rev = static_cast<int>(blockIdx.x) >= a.B * a.nh;
+  const int bid = blockIdx.x - (rev ? a.B * a.nh : 0);
+  const int hd = bid % a.nh, b = bid / a.nh;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
   const size_t xld = static_cast<size_t>(a.nh) * a.P;
-  const size_t row0 = static_cast<size_t>(b) * a.S + s0;
-  const size_t head = static_cast<size_t>(b) * a.nh + hd;
-  const T* bp = static_cast<const T*>(a.Bm) + row0 * a.N;
-  const T* cp = static_cast<const T*>(a.Cm) + row0 * a.N;
-  const int src = (a.fault & kFaultWrongCotangent) ? min(c + 1, a.chunks - 1) : c;
-  const float* hp = a.hin + (static_cast<size_t>(c) * a.B * a.nh + head) * a.P * a.N;
-  const float* dhp = a.dho + (static_cast<size_t>(src) * a.B * a.nh + head) * a.P * a.N;
-
-  for (int i = t; i < kL * kL; i += kThreads) {
-    const int r = i / kL, e = i % kL;
-    const bool okp = r < rows && e < a.P, okn = r < rows && e < a.N;
-    const size_t xo = (row0 + r) * xld + static_cast<size_t>(hd) * a.P + e;
-    sm.x[r][e] = okp ? a.x[xo] : 0.f;
-    sm.dy[r][e] = okp ? a.dy[xo] : 0.f;
-    sm.b[r][e] = okn ? to_float(bp[static_cast<size_t>(r) * a.N + e]) : 0.f;
-    sm.c[r][e] = okn ? to_float(cp[static_cast<size_t>(r) * a.N + e]) : 0.f;
-    const bool oks = r < a.P && e < a.N;
-    sm.h[r][e] = oks ? hp[r * a.N + e] : 0.f;
-    sm.dh[r][e] = oks ? dhp[r * a.N + e] : 0.f;
-  }
-  if (t < kL) sm.g[t] = t < rows ? g_at(a, b, s0 + t, hd) : 0.f;
-  __syncthreads();
-  const float gl = sm.g[rows - 1];
-
-  {  // the decayed causal score matrices
-    float s[4][4] = {}, d[4][4] = {};
-    mm<false, true>(s, &sm.c[0][0], &sm.b[0][0], a.N);   // C_i . B_j
-    mm<false, true>(d, &sm.dy[0][0], &sm.x[0][0], a.P);  // dy_i . x_j
+  const int np = parts(a);
+  const float* init = a.dstate + slot_at(a, 0, b, hd);
+  const float* rowsrc = rev ? a.dy : a.x;
+  const T* colsrc = static_cast<const T*>(rev ? a.Cm : a.Bm);
+  float h[8][4];
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int i = r0 + 16 * x, j = c0 + 16 * y;
-        const float e = (j <= i && i < rows) ? expf(sm.g[i] - sm.g[j]) : 0.f;
-        sm.m[i][j] = s[x][y] * e;
-        sm.ap[i][j] = d[x][y] * e;
-        sm.a[i][j] = s[x][y] * e * d[x][y];
-      }
-  }
-  __syncthreads();
-  if (t < kL) {  // row sums
-    float s = 0.f;
-    for (int j = 0; j < kL; ++j) s += sm.a[t][j];
-    sm.rowa[t] = s;
-  } else if (t < 2 * kL) {  // column sums
-    float s = 0.f;
-    for (int i = 0; i < kL; ++i) s += sm.a[i][t - kL];
-    sm.cola[t - kL] = s;
-  }
-
-  // dx_j[p] = sum_i m_ij dy_i[p] + e^{gl - g_j} sum_n B_j[n] dh[p][n]
-  {
-    float acc[4][4] = {}, st[4][4] = {};
-    mm<true, false>(acc, &sm.m[0][0], &sm.dy[0][0], rows);
-    mm<false, true>(st, &sm.b[0][0], &sm.dh[0][0], a.N);
+  for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const int j = r0 + 16 * x;
-      const float wj = j < rows ? expf(gl - sm.g[j]) : 0.f;
-      float xd = 0.f;
+      const int p = 16 * warp + gq + 8 * (x >> 1), n = 8 * nt + 2 * tq + (x & 1);
+      h[nt][x] = (rev && p < a.P && n < a.N) ? init[p * a.N + n] : 0.f;
+    }
+  for (int s = 0; s + 1 < a.chunks; ++s) {
+    const int c = rev ? a.chunks - 1 - s : s;
+    const int s0 = c * kL, rows = min(kL, a.S - s0);
+    const float gl = g_at(a, b, s0 + rows - 1, hd);
+    __syncthreads();  // the chunk before is done with the tiles
+    if (t < kL) {
+      const float gr = g_at(a, b, s0 + t, hd);
+      sm.sc[t] = t < rows ? expf(rev ? gr : gl - gr) : 0.f;
+    }
+    const size_t row0 = static_cast<size_t>(b) * a.S + s0;
+    load_tile<float, kFLd, kPassThreads>(&sm.st[0][0], rowsrc + row0 * xld + hd * a.P, xld,
+                                         rows, a.P, a.vec);
+    load_tile<T, kLdOf<T>, kPassThreads>(first(sm.b), colsrc + row0 * a.N, a.N, rows, a.N,
+                                         a.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    put_tile<kPassThreads>(sm.a, &sm.st[0][0], sm.sc);
+    __syncthreads();
+    const float decay = expf(gl);  // h <- e^{gl} h, then the chunk's product
 #pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int p = c0 + 16 * y;
-        st[x][y] *= wj;
-        xd += sm.x[j][p] * st[x][y];
-        if (j < rows && p < a.P)
-          a.dx[(row0 + j) * xld + static_cast<size_t>(hd) * a.P + p] = acc[x][y] + st[x][y];
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) h[nt][x] *= decay;
+    mma_tile<8, true, true>(h, sm.a, np, sm.b, 1, 16 * warp, 0);
+    float* dst = (rev ? a.dho : a.hin) + slot_at(a, rev ? c - 1 : c, b, hd);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int p = 16 * warp + gq + 8 * (x >> 1), n = 8 * nt + 2 * tq + (x & 1);
+        if (p < a.P && n < a.N) dst[p * a.N + n] = h[nt][x];
       }
-      xd = row_sum16(xd);
-      if (c0 == 0) sm.xd[j] = xd;
-    }
-  }
-
-  // this head's dB_j[n] = sum_i ap_ij C_i[n] + e^{gl - g_j} sum_p x_j[p] dh[p][n]
-  float* dBh = a.dBh + ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * kL * a.N;
-  float* dCh = a.dCh + ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * kL * a.N;
-  {
-    float acc[4][4] = {}, st[4][4] = {};
-    mm<true, false>(acc, &sm.ap[0][0], &sm.c[0][0], rows);
-    mm<false, false>(st, &sm.x[0][0], &sm.dh[0][0], a.P);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int j = r0 + 16 * x;
-      const float wj = j < rows ? expf(gl - sm.g[j]) : 0.f;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int n = c0 + 16 * y;
-        if (n < a.N) dBh[j * a.N + n] = acc[x][y] + wj * st[x][y];
-      }
-    }
-  }
-  // this head's dC_i[n] = sum_j ap_ij B_j[n] + e^{g_i} sum_p dy_i[p] h[p][n]
-  {
-    float acc[4][4] = {}, cr[4][4] = {};
-    mm<false, false>(acc, &sm.ap[0][0], &sm.b[0][0], rows);
-    mm<false, false>(cr, &sm.dy[0][0], &sm.h[0][0], a.P);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int i = r0 + 16 * x;
-      const float ei = i < rows ? expf(sm.g[i]) : 0.f;
-      float car = 0.f;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int n = c0 + 16 * y;
-        cr[x][y] *= ei;
-        car += sm.c[i][n] * cr[x][y];
-        if (n < a.N) dCh[i * a.N + n] = acc[x][y] + cr[x][y];
-      }
-      car = row_sum16(car);
-      if (c0 == 0) sm.car[i] = car;
-    }
-  }
-
-  // <dh_out, h_in>, in a fixed order
-  float hh = 0.f;
-  for (int i = t; i < kMaxP * kMaxN; i += kThreads)
-    hh += sm.dh[i / kMaxN][i % kMaxN] * sm.h[i / kMaxN][i % kMaxN];
-  hh = warp_sum(hh);
-  if (t % 32 == 0) sm.red[t / 32] = hh;
-  __syncthreads();
-  if (t < kL) {
-    float dg = sm.rowa[t] - sm.cola[t] + sm.car[t] - sm.xd[t];
-    if (t == rows - 1) {
-      float tot = 0.f, xs = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) tot += sm.red[w];
-      for (int j = 0; j < rows; ++j) xs += sm.xd[j];
-      dg += expf(gl) * tot + xs;
-    }
-    a.dg[(static_cast<size_t>(b) * a.chunks * kL + s0 + t) * a.nh + hd] = t < rows ? dg : 0.f;
   }
 }
 
-// dB, dC [B, S, N]: the heads' shares summed in head order.
+// ---- launch 2: one (b, kernel chunk, group of heads) ----
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mamba_bwd_heads_kernel(const Args a) {
+struct ChunkSmem {
+  alignas(16) float st[4][kL][kFLd];  // the next head's x̄, dy, h_in, dh_out
+  Opnd<T> x;   // x̄ [j][p], split
+  Opnd<T> dy;  // dy [i][p], split
+  Opnd<T> h;   // h_in [p][n], split
+  Opnd<T> dh;  // dh_out [p][n], split
+  Opnd<T> m;   // (C_i . B_j) e^{g_i - g_j}, causal, [i][j], split
+  Opnd<T> ap;  // (dy_i . x̄_j) e^{g_i - g_j}, causal, [i][j], split
+  alignas(16) T b[kL][kLdOf<T>];  // B [j][n], exact
+  alignas(16) T c[kL][kLdOf<T>];  // C [i][n], exact
+  float g[kL], eg[kL], ws[kL];
+  float rowa[2][kL], cola[4][kL], car[2][kL], xd[2][kL];
+  float hh[kThreads / 32];
+};
+
+// An exact tile (B or C) as the first part of an operand: the same rows,
+// read through a view whose other parts are never touched (na = 1).
+template <typename T>
+__device__ __forceinline__ const Opnd<T>& as_opnd(const T (&t)[kL][kLdOf<T>]) {
+  return *reinterpret_cast<const Opnd<T>*>(&t[0][0]);
+}
+
+// Warp w holds rows 16 (w % 4) .. + 15 and columns 32 (w / 4) .. + 31 of
+// each 64 x 64 product.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) mamba_bwd_chunk_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  ChunkSmem<T>& sm = *reinterpret_cast<ChunkSmem<T>*>(raw);
+  const int groups = (a.nh + a.group - 1) / a.group;
+  const int bid = blockIdx.x;
+  const int gr = bid % groups, c = bid / groups % a.chunks, b = bid / (groups * a.chunks);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  const int s0 = c * kL, rows = min(kL, a.S - s0);
+  const int h0 = gr * a.group, h1 = min(a.nh, h0 + a.group);
+  const size_t xld = static_cast<size_t>(a.nh) * a.P;
+  const size_t row0 = static_cast<size_t>(b) * a.S + s0;
+  const int np = parts(a);
+  const int src = (a.fault & kFaultWrongCotangent) ? min(c + 1, a.chunks - 1) : c;
+
+  auto stage = [&](int hd) {
+    load_tile<float, kFLd, kThreads>(&sm.st[0][0][0], a.x + row0 * xld + hd * a.P, xld, rows,
+                                     a.P, a.vec);
+    load_tile<float, kFLd, kThreads>(&sm.st[1][0][0], a.dy + row0 * xld + hd * a.P, xld, rows,
+                                     a.P, a.vec);
+    if (c > 0)  // chunk 0's h_in is zero
+      load_tile<float, kFLd, kThreads>(&sm.st[2][0][0], a.hin + slot_at(a, c - 1, b, hd), a.N,
+                                       a.P, a.N, a.vec);
+    load_tile<float, kFLd, kThreads>(
+        &sm.st[3][0][0],
+        src == a.chunks - 1 ? a.dstate + slot_at(a, 0, b, hd) : a.dho + slot_at(a, src, b, hd),
+        a.N, a.P, a.N, a.vec);
+  };
+  load_tile<T, kLdOf<T>, kThreads>(&sm.b[0][0], static_cast<const T*>(a.Bm) + row0 * a.N, a.N,
+                                   rows, a.N, a.vec);
+  load_tile<T, kLdOf<T>, kThreads>(&sm.c[0][0], static_cast<const T*>(a.Cm) + row0 * a.N, a.N,
+                                   rows, a.N, a.vec);
+  stage(h0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  // C_i . B_j, once for the group
+  float s[4][4] = {};
+  mma_tile<4, false, false>(s, as_opnd(sm.c), 1, as_opnd(sm.b), 1, m0, n0);
+  float dBs[4][4] = {}, dCs[4][4] = {};  // the group's shares, head by head
+
+  for (int hd = h0; hd < h1; ++hd) {
+    if (hd > h0) {
+      cp_async_wait<0>();
+      __syncthreads();  // this head's tiles landed; the head before is done
+    }
+    put_tile<kThreads>(sm.x, &sm.st[0][0][0], nullptr);
+    put_tile<kThreads>(sm.dy, &sm.st[1][0][0], nullptr);
+    put_tile<kThreads>(sm.dh, &sm.st[3][0][0], nullptr);
+    float hh = 0.f;  // <dh_out, h_in> (chunk 0's h_in is zero), in a fixed order
+    if (c > 0) {
+      put_tile<kThreads>(sm.h, &sm.st[2][0][0], nullptr);
+      for (int i = t; i < kL * kL; i += kThreads)
+        hh += sm.st[3][i / kL][i % kL] * sm.st[2][i / kL][i % kL];
+    }
+    hh = warp_sum(hh);
+    if (lane == 0) sm.hh[warp] = hh;
+    if (t < kL) {
+      const float g = t < rows ? g_at(a, b, s0 + t, hd) : 0.f;
+      const float gl = g_at(a, b, s0 + rows - 1, hd);
+      sm.g[t] = g;
+      sm.eg[t] = t < rows ? expf(g) : 0.f;
+      sm.ws[t] = t < rows ? expf(gl - g) : 0.f;
+    }
+    __syncthreads();  // the parts and gates; the staging is free
+    if (hd + 1 < h1) stage(hd + 1);
+    cp_async_commit();
+
+    // the decayed causal score matrices: m = s e, ap = (dy . x) e, and
+    // dg's intra-chunk terms a = m (dy . x)
+    {
+      float d[4][4] = {};
+      mma_tile<4, false, false>(d, sm.dy, np, sm.x, np, m0, n0);  // dy_i . x_j
+      float ra[2] = {0.f, 0.f}, ca[4][2] = {};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int hx = 0; hx < 2; ++hx) {
+          const int i = m0 + gq + 8 * hx, j = n0 + 8 * nt + 2 * tq;
+          float mv[2], av[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float e = (j + u <= i && i < rows) ? expf(sm.g[i] - sm.g[j + u]) : 0.f;
+            mv[u] = s[nt][2 * hx + u] * e;
+            av[u] = d[nt][2 * hx + u] * e;
+            const float am = mv[u] * d[nt][2 * hx + u];
+            ra[hx] += am;
+            ca[nt][u] += am;
+          }
+          put2(sm.m, i, j, mv[0], mv[1]);
+          put2(sm.ap, i, j, av[0], av[1]);
+        }
+#pragma unroll
+      for (int hx = 0; hx < 2; ++hx) {
+        const float v = quad_sum(ra[hx]);
+        if (tq == 0) sm.rowa[warp >> 2][m0 + gq + 8 * hx] = v;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float v = ca[nt][u];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (gq == 0) sm.cola[warp & 3][n0 + 8 * nt + 2 * tq + u] = v;
+        }
+    }
+    __syncthreads();  // m, ap
+
+    // dx_j[p] = sum_i m_ij dy_i[p] + e^{gl - g_j} sum_n B_j[n] dh[p][n]
+    float xdp[2] = {0.f, 0.f};
+    {
+      float acc[4][4] = {}, st[4][4] = {};
+      mma_tile<4, true, true>(acc, sm.m, np, sm.dy, np, m0, n0);
+      mma_tile<4, false, false>(st, as_opnd(sm.b), 1, sm.dh, np, m0, n0);
+      float* dx = a.dx + row0 * xld + hd * a.P;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int j = m0 + gq + 8 * (x >> 1), p = n0 + 8 * nt + 2 * tq + (x & 1);
+          const float sv = sm.ws[j] * st[nt][x];
+          xdp[x >> 1] += scan::bwd::get_all(sm.x, j, p) * sv;
+          if (j < rows && p < a.P) dx[j * xld + p] = acc[nt][x] + sv;
+        }
+    }
+    // this head's dB_j[n] = sum_i ap_ij C_i[n] + e^{gl - g_j} sum_p x_j[p] dh[p][n]
+    {
+      float acc[4][4] = {}, st[4][4] = {};
+      mma_tile<4, true, true>(acc, sm.ap, np, as_opnd(sm.c), 1, m0, n0);
+      mma_tile<4, false, true>(st, sm.x, np, sm.dh, np, m0, n0);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          dBs[nt][x] += acc[nt][x] + sm.ws[m0 + gq + 8 * (x >> 1)] * st[nt][x];
+    }
+    // this head's dC_i[n] = sum_j ap_ij B_j[n] + e^{g_i} sum_p dy_i[p] h[p][n]
+    float carp[2] = {0.f, 0.f};
+    {
+      float acc[4][4] = {}, cr[4][4] = {};
+      mma_tile<4, false, true>(acc, sm.ap, np, as_opnd(sm.b), 1, m0, n0);
+      if (c > 0) mma_tile<4, false, true>(cr, sm.dy, np, sm.h, np, m0, n0);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = m0 + gq + 8 * (x >> 1), n = n0 + 8 * nt + 2 * tq + (x & 1);
+          const float cv = sm.eg[i] * cr[nt][x];
+          carp[x >> 1] += get(as_opnd(sm.c), i, n) * cv;
+          dCs[nt][x] += acc[nt][x] + cv;
+        }
+    }
+#pragma unroll
+    for (int hx = 0; hx < 2; ++hx) {
+      const float xv = quad_sum(xdp[hx]), cv = quad_sum(carp[hx]);
+      if (tq == 0) {
+        sm.xd[warp >> 2][m0 + gq + 8 * hx] = xv;
+        sm.car[warp >> 2][m0 + gq + 8 * hx] = cv;
+      }
+    }
+    __syncthreads();  // the row and column sums
+    if (t < kL) {
+      const float xdt = sm.xd[0][t] + sm.xd[1][t];
+      float dg = (sm.rowa[0][t] + sm.rowa[1][t]) -
+                 (((sm.cola[0][t] + sm.cola[1][t]) + sm.cola[2][t]) + sm.cola[3][t]) +
+                 (sm.car[0][t] + sm.car[1][t]) - xdt;
+      if (t == rows - 1) {
+        float tot = 0.f, xs = 0.f;
+        for (int w = 0; w < kThreads / 32; ++w) tot += sm.hh[w];
+        for (int j = 0; j < rows; ++j) xs += sm.xd[0][j] + sm.xd[1][j];
+        dg += expf(sm.g[t]) * tot + xs;
+      }
+      a.dg[(static_cast<size_t>(b) * a.chunks * kL + s0 + t) * a.nh + hd] = t < rows ? dg : 0.f;
+    }
+  }
+  // the group's shares of dB and dC
+  const size_t share = ((static_cast<size_t>(b) * a.chunks + c) * groups + gr) * kL * a.N;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int r = m0 + gq + 8 * (x >> 1), n = n0 + 8 * nt + 2 * tq + (x & 1);
+      if (n < a.N) {
+        a.dBg[share + r * a.N + n] = dBs[nt][x];
+        a.dCg[share + r * a.N + n] = dCs[nt][x];
+      }
+    }
+}
+
+// ---- launch 3: dB, dC [B, S, N], the groups' shares summed in order ----
+template <typename T>
+__global__ void __launch_bounds__(kThreads) mamba_bwd_groups_kernel(const Args a) {
   const size_t total = static_cast<size_t>(a.B) * a.S * a.N;
   const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= total) return;
+  const int groups = (a.nh + a.group - 1) / a.group;
   const int n = i % a.N;
   const size_t bt = i / a.N;
   const int tt = bt % a.S, b = bt / a.S;
   const int c = tt / kL, r = tt % kL;
   const size_t stride = static_cast<size_t>(kL) * a.N;
-  const size_t at = ((static_cast<size_t>(b) * a.chunks + c) * a.nh) * stride +
+  const size_t at = ((static_cast<size_t>(b) * a.chunks + c) * groups) * stride +
                     static_cast<size_t>(r) * a.N + n;
-  const int heads_b = (a.fault & kFaultDropHead) ? a.nh - 1 : a.nh;
+  const int groups_b = (a.fault & kFaultDropGroup) ? groups - 1 : groups;
   float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < a.nh; ++h) {
-    if (h < heads_b) sb += a.dBh[at + h * stride];
-    sc += a.dCh[at + h * stride];
+  for (int gr = 0; gr < groups; ++gr) {
+    if (gr < groups_b) sb += a.dBg[at + gr * stride];
+    sc += a.dCg[at + gr * stride];
   }
   static_cast<T*>(a.dB)[i] = from_float<T>(sb);
   static_cast<T*>(a.dC)[i] = from_float<T>(sc);
 }
 
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
-  const int per_kind = a.B * a.nh * ((a.P + kPT - 1) / kPT);
-  mamba_bwd_pass_kernel<T><<<2 * per_kind, kPassThreads, kPassSmem, stream>>>(a, per_kind);
+int launch(const Args& a, const float* cum, float* dcum, int Q, cudaStream_t stream) {
+  static const cudaError_t attr = [] {  // once
+    cudaError_t e = allow_smem(mamba_bwd_pass_kernel<T>, sizeof(PassSmem<T>));
+    if (e == cudaSuccess) e = allow_smem(mamba_bwd_chunk_kernel<T>, sizeof(ChunkSmem<T>));
+    return e;
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const size_t gsize = static_cast<size_t>(a.B) * a.chunks * kL * a.nh;
+  scan::bwd::rebase_kernel<<<static_cast<unsigned>((gsize + 255) / 256), 256, 0, stream>>>(
+      cum, const_cast<float*>(a.g), a.B, a.S, Q, a.nh, a.chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  static const cudaError_t attr = cudaFuncSetAttribute(  // once
-      mamba_bwd_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      sizeof(ChunkSmem));
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  mamba_bwd_chunk_kernel<T><<<a.B * a.chunks * a.nh, kThreads, sizeof(ChunkSmem), stream>>>(a);
+  if (a.chunks > 1) {
+    mamba_bwd_pass_kernel<T><<<2 * a.B * a.nh, kPassThreads, sizeof(PassSmem<T>), stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int groups = (a.nh + a.group - 1) / a.group;
+  mamba_bwd_chunk_kernel<T><<<a.B * a.chunks * groups, kThreads, sizeof(ChunkSmem<T>),
+                              stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t total = static_cast<size_t>(a.B) * a.S * a.N;
-  mamba_bwd_heads_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
-                              kThreads, 0, stream>>>(a);
+  mamba_bwd_groups_kernel<T><<<static_cast<unsigned>((total + kThreads - 1) / kThreads),
+                               kThreads, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t rows = static_cast<size_t>(a.B) * a.S * a.nh;
+  scan::bwd::rebase_adjoint_kernel<<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
+                                     stream>>>(a.dg, dcum, a.B, a.S, Q, a.nh, a.chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scratch: hin, dho [chunks, B, nh, P, N] and dBh, dCh [B, chunks, nh, 64,
-// N] fp32 (the wrapper's torch.empty; nothing is allocated here); g and dg
-// [B, chunks * 64, nh].  `chunks` must be ceil(S / 64).
+// cum [B, S, nh] is the caller's log-decay cumsum (restarted every Q
+// rows), dcum its gradient; scratch (the wrapper's torch.empty; nothing is
+// allocated here): g and dg [B, chunks * 64, nh] (cum rebased per kernel
+// chunk, and its gradient), hin, dho [chunks - 1, B, nh, P, N] and dBg,
+// dCg [B, chunks, ceil(nh / group), 64, N] fp32.  `chunks` must be
+// ceil(S / 64);
+// `vec` says every row of x̄, dy, B, C and the states starts 16 bytes
+// aligned and P, N fill whole 16-byte pieces (else plain loads).
 extern "C" int mamba_chunk_scan_backward_launch(
-    const void* xbar, const void* Bm, const void* Cm, const void* g, const void* dy,
-    const void* dstate, void* hin, void* dho, void* dx, void* dB, void* dC, void* dBh,
-    void* dCh, void* dg, int B, int S, int nh, int P, int N, int chunks, int dtype,
-    int fault, void* stream) {
-  if (S < 1 || B < 1 || nh < 1 || P < 1 || P > kMaxP || N < 1 || N > kMaxN ||
+    const void* xbar, const void* Bm, const void* Cm, const void* cum, const void* dy,
+    const void* dstate, void* g, void* hin, void* dho, void* dx, void* dB, void* dC,
+    void* dBg, void* dCg, void* dg, void* dcum, int B, int S, int Q, int nh, int P, int N,
+    int chunks, int group, int dtype, int vec, int fault, void* stream) {
+  if (S < 1 || B < 1 || Q < 1 || S % Q || nh < 1 || P < 1 || P > kMaxP || N < 1 ||
+      N > kMaxN || group < 1 ||
       chunks != (S + kL - 1) / kL)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(xbar), Bm, Cm,
                static_cast<const float*>(g), static_cast<const float*>(dy),
                static_cast<const float*>(dstate), static_cast<float*>(hin),
                static_cast<float*>(dho), static_cast<float*>(dx), dB, dC,
-               static_cast<float*>(dBh), static_cast<float*>(dCh),
-               static_cast<float*>(dg), B, S, nh, P, N, chunks, fault};
+               static_cast<float*>(dBg), static_cast<float*>(dCg),
+               static_cast<float*>(dg), B, S, nh, P, N, chunks, group, vec, fault};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, s);
+  const float* cf = static_cast<const float*>(cum);
+  float* dcf = static_cast<float*>(dcum);
+  if (dtype == kFloat32) return launch<float>(a, cf, dcf, Q, s);
+  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, cf, dcf, Q, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

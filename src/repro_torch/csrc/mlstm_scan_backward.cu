@@ -20,7 +20,8 @@
 //   dv_j   = sum_i w_ij (q_i . k_j) dnum_i + w^s_j k_j^T dC_out
 //   dg     = row sums - column sums of w_ij (q_i . k_j) D_ij,
 //            + dnum'_i . (e^{g_i} q_i C'_in), - k_j . (the state part of
-//            dk_j), and at the last row <dC'_out, C'_out>;
+//            dk_j), and at the last row e^{gl} <dC'_out, C'_in> + the sum
+//            of k_j . (the state part of dk_j);
 //   dli_j  = the column sums + k_j . (the state part of dk_j).
 //
 // The port's own: the TPU kernel repro/kernels/mlstm.py:mlstm_chunk_scan
@@ -29,42 +30,68 @@
 // and saves only y, so the backward recomputes the state entering each
 // kernel chunk and the normaliser.
 //
-// What bounds it on the H100: operations, in fp32 on the CUDA cores (at
-// xlstm-350m's dh = 512 the products with the [dh, dh] states, about 4 L
-// dh^2 multiply-adds a (b, kernel chunk, head), against one read of the
-// inputs and one write of the gradients).  Five launches:
-//  1. mlstm_bwd_pass_kernel, forward: one block per (b, head, 64 x 64 tile
-//     of C) walks the kernel chunks in order and writes the state entering
-//     each (Cin, and n in the e-tile 0 blocks).
-//  2. mlstm_bwd_rows_kernel, one block per (b, kernel chunk, head): the
-//     scores q k^T, den, 1 / m, dden, and the weighted matrices
-//     w (dnum' . v') and w (q . k) with dg's intra-chunk row and column
-//     sums, to scratch.
-//  3. mlstm_bwd_pass_kernel, reverse: the same blocks walk the kernel
-//     chunks backwards from (dC, dn) and write the cotangent of the state
-//     leaving each (dCo, dno).
-//  4. mlstm_bwd_out_kernel, one block per (b, kernel chunk, head, 64
-//     columns of d): dq, dk and dv for those columns, the [dh, dh] states
-//     streamed 64 x 64 at a time, and its part of dg and dli.
-//  5. mlstm_bwd_gates_kernel sums the column tiles' parts of dg and dli in
-//     order.
+// What bounds it on the H100: operations (at xlstm-350m's dh = 512 the
+// products with the [dh, dh] states, about 4 L dh^2 multiply-adds a (b,
+// kernel chunk, head)).  With bf16 inputs every 64 x 64 x 64 product runs
+// on the tensor cores (mma.sync m16n8k16, fp32 sums; scan::bwd::mma_tile):
+// q k^T is exact, an fp32 operand (a state, dy, the weighted scores) is
+// split into two bf16 parts, and a product of two fp32 operands keeps hi
+// hi + hi lo + lo hi; scale vectors ride on the fp32 side.  fp32 inputs
+// take the same tiles as three TF32 products (mma.m16n8k8, hi hi + hi lo
+// + lo hi of each operand's TF32 parts, about 2^-21 relative).  Six launches (four with one
+// kernel chunk):
+//  1. mlstm_bwd_pass_kernel, forward (two kernel chunks or more): one
+//     block per (b, head, 64 x 64 tile of C) walks chunks 0 .. n - 2 and
+//     writes the state entering chunks 1 .. n - 1 (Cin, and n in the e-tile
+//     0 blocks); the last chunk's product is read by nobody and not formed.
+//  2. mlstm_bwd_rows_kernel, one block per (b, kernel chunk, head, 64
+//     columns of d): that tile's q k^T, dy v^T, q . n_in and dy . y.
+//  3. mlstm_bwd_combine_kernel, one block per (b, kernel chunk, head): the
+//     tiles summed in order; den, 1 / m, dden and the weighted matrices
+//     W1 = w D, W2 = w (q . k) with dg's intra-chunk row and column sums.
+//  4. mlstm_bwd_pass_kernel, reverse (two kernel chunks or more): the same
+//     blocks walk chunks n - 1 .. 1 from (dC, dn), read in place, and write
+//     the cotangent leaving chunks 0 .. n - 2 (dCo, dno); first each
+//     block's part of <dC'_out, C'_in> of the chunk it is at.
+//  5. mlstm_bwd_out_kernel, three roles of block per (b, kernel chunk,
+//     head, 64 columns): dq (the state product with C_in streamed 64
+//     columns of e at a time), dk (with dC_out), dv (with dC_out's
+//     columns), the next slice staged by cp.async while one is multiplied;
+//     dq's and dk's blocks write their parts of dg and dli.
+//  6. mlstm_bwd_gates_kernel, one block per (b, kernel chunk, head): the
+//     column tiles' parts of dg and dli and the state tiles' parts of
+//     <dC'_out, C'_in>, summed in order.
+// Around them the rebase of cumf (scan::bwd::rebase_kernel) and its
+// adjoint (rebase_adjoint_kernel), one launch each.
 // No atomics: two runs give identical bits.
 #include "scan.cuh"
 
 namespace {
 
 using scan::kL;
-using scan::kLd;
-using scan::mm;
-using scan::row_sum16;
-constexpr int kThreads = scan::kTileThreads;
+using scan::bwd::first;
+using scan::bwd::get;
+using scan::bwd::kFLd;
+using scan::bwd::kLdOf;
+using scan::bwd::load_tile;
+using scan::bwd::mma_tile;
+using scan::bwd::Opnd;
+using scan::bwd::put2;
+using scan::bwd::put_tile;
+using scan::bwd::quad_sum;
 
-constexpr int kTile = 64;      // rows of d and columns of e a tile holds
-constexpr int kTileF = kL * kLd;
+constexpr int kTile = 64;          // rows of d and columns of e a tile holds
+constexpr int kLd = kL + 1;        // launch 3's fp32 tiles' row stride
+constexpr int kPassThreads = 128;  // launches 1, 2, 4: four warps, 16 rows each
+constexpr int kOutThreads = 256;   // launch 5: eight warps, 16 x 32 each
+constexpr int kRowsThreads = 256;  // launch 3: 4 x 4 elements a thread
 
 // planted faults (kernels/mlstm.py FAULT_*), for the checks only
 constexpr int kFaultWrongCotangent = 1;  // chunk c reads dC'_out of c + 1
 constexpr int kFaultDropTile = 2;        // dg's sum drops the last d tile
+constexpr int kFaultOnePart = 4;         // every split cut to one part
+constexpr int kFaultRowsDropTile = 8;    // launch 3 drops launch 2's last tile
+constexpr int kFaultStateDropTile = 16;  // <dC'_out, C'_in> drops a tile
 
 struct Args {
   const void* q;
@@ -76,21 +103,24 @@ struct Args {
   const float* dy;
   const float* dC;
   const float* dn;
-  float* Cin;  // [chunks][B][nh][dh][dh]: the state entering each chunk
-  float* nin;  // [chunks][B][nh][dh]
-  float* dCo;  // [chunks][B][nh][dh][dh]: the cotangent leaving each chunk
-  float* dno;  // [chunks][B][nh][dh]
-  float* W1;   // [B][chunks][nh][kL][kL]: w_ij D_ij
-  float* W2;   // [B][chunks][nh][kL][kL]: w_ij (q_i . k_j)
+  float* Cin;   // [chunks - 1][B][nh][dh][dh]: the state entering 1 ..
+  float* nin;   // [chunks - 1][B][nh][dh]
+  float* dCo;   // [chunks - 1][B][nh][dh][dh]: the cotangent leaving 0 ..
+  float* dno;   // [chunks - 1][B][nh][dh]
+  float* part;  // [B][chunks][nh][tiles][2][kL][kL]: q k^T, dy v^T a d tile
+  float* pv;    // [B][chunks][nh][tiles][2][kL]: q . n_in, dy . y a d tile
+  float* W1;    // [B][chunks][nh][kL][kL]: w_ij D_ij
+  float* W2;    // [B][chunks][nh][kL][kL]: w_ij (q_i . k_j)
   float* rows;  // [4][B][chunks][nh][kL]: 1 / m, dden, rowA - colA, colA
-  float* pg;   // [B][chunks][tiles][kL][nh]: dg's part of each d tile
-  float* pli;  // [B][chunks][tiles][kL][nh]
+  float* stp;   // [B][chunks][nh][tiles^2]: <dC'_out, C'_in> a state tile
+  float* pq;    // [B][chunks][tiles][kL][nh]: dg's carried part a d tile
+  float* pk;    // [B][chunks][tiles][kL][nh]: k . (dk's state part)
   void* dq;
   void* dk;
   void* dv;
   float* dg;
   float* dli;
-  int B, S, nh, dh, chunks, tiles, fault;
+  int B, S, nh, dh, chunks, tiles, vec, fault;
 };
 
 __device__ __forceinline__ float g_at(const Args& a, int b, int t, int hd) {
@@ -101,9 +131,9 @@ __device__ __forceinline__ float li_at(const Args& a, int b, int t, int hd) {
   return a.li[(static_cast<size_t>(b) * a.S + t) * a.nh + hd];
 }
 
-// row r of the chunk starting at s0 of a [B, S, nh, dh] tensor, head hd
-__device__ __forceinline__ size_t row_at(const Args& a, int b, int s0, int r, int hd) {
-  return ((static_cast<size_t>(b) * a.S + s0 + r) * a.nh + hd) * a.dh;
+// the offset of row s0 of a [B, S, nh, dh] tensor, head hd
+__device__ __forceinline__ size_t row_at(const Args& a, int b, int s0, int hd) {
+  return ((static_cast<size_t>(b) * a.S + s0) * a.nh + hd) * a.dh;
 }
 
 __device__ __forceinline__ size_t row_scalar(const Args& a, int which, int b, int c,
@@ -111,170 +141,249 @@ __device__ __forceinline__ size_t row_scalar(const Args& a, int which, int b, in
   return (((static_cast<size_t>(which) * a.B + b) * a.chunks + c) * a.nh + hd) * kL;
 }
 
-// dst[r][cc] = scale_r * src(row r, column col0 + cc) of a [B, S, nh, dh]
-// tensor for r < rows, col0 + cc < dh, else 0 (scale may be null).
+// the [dh, dh] (or [dh]) scratch slot `slot` of head (b, hd)
+__device__ __forceinline__ size_t slot_at(const Args& a, int slot, int b, int hd,
+                                          size_t size) {
+  return ((static_cast<size_t>(slot) * a.B + b) * a.nh + hd) * size;
+}
+
+__device__ __forceinline__ int parts(const Args& a) {
+  return (a.fault & kFaultOnePart) ? 1 : scan::bwd::kParts;
+}
+
+// ---- launches 1 and 4: the ordered passes over the kernel chunks ----
 template <typename T>
-__device__ __forceinline__ void load_rows(const Args& a, float* dst, const T* src, int b,
-                                          int s0, int rows, int hd, int col0,
-                                          const float* scale) {
-  for (int i = threadIdx.x; i < kL * kTile; i += kThreads) {
-    const int r = i / kTile, cc = i % kTile;
-    const bool ok = r < rows && col0 + cc < a.dh;
-    const float s = scale ? scale[r] : 1.f;
-    dst[r * kLd + cc] = ok ? s * to_float(src[row_at(a, b, s0, r, hd) + col0 + cc]) : 0.f;
-  }
-}
+struct PassSmem {
+  Opnd<T> a;  // forward: (w^s k) split, [j][d]; reverse: q exact, [i][d]
+  Opnd<T> b;  // forward: v exact, [j][e]; reverse: e^g dy / m split, [i][e]
+  union alignas(16) {
+    T stk[kL][kLdOf<T>];   // forward: the k rows staged
+    float cin[kL][kFLd];   // reverse: C'_in's tile, for <dC'_out, C'_in>
+  } u;
+  alignas(16) float stdy[kL][kFLd];  // reverse: the dy rows staged
+  float sc[kL];  // forward: w^s_j; reverse: e^{g_i} / m_i
+  float sn[kL];  // reverse: e^{g_i} dden_i
+  float red[kPassThreads / 32];
+};
 
-// dst[d][e] = state(d0 + d, e0 + e) of one [dh, dh] state, 0 outside it.
-__device__ __forceinline__ void load_state(const Args& a, float* dst, const float* st,
-                                           int d0, int e0) {
-  for (int i = threadIdx.x; i < kTile * kTile; i += kThreads) {
-    const int d = i / kTile, e = i % kTile;
-    const bool ok = d0 + d < a.dh && e0 + e < a.dh;
-    dst[d * kLd + e] = ok ? st[static_cast<size_t>(d0 + d) * a.dh + e0 + e] : 0.f;
-  }
-}
-
-// ---- launches 1 and 3: the ordered passes over the kernel chunks ----
 // Forward: C(d, e) <- e^{gl} C + sum_j (w^s_j k_j[d]) v_j[e], n likewise
-// against a column of ones, from zero, the state entering each chunk
-// stored.  Reverse: dC <- e^{gl} dC + sum_i (e^{g_i} q_i[d]) dnum_i[e], dn
-// against the column dden, from (dC, dn), the cotangent leaving each chunk
-// stored.  One block per (b, head, d tile, e tile).
+// against a column of ones, from zero over chunks 0 .. n - 2, each result
+// stored as the state entering the next chunk.  Reverse: dC <- e^{gl} dC +
+// sum_i q_i[d] (e^{g_i} dnum_i[e]), dn against the column dden, from (dC,
+// dn) over chunks n - 1 .. 1, each stored as the cotangent leaving the
+// chunk before, and first the chunk's part of <dC'_out, C'_in>.  One
+// block per (b, head, d tile, e tile); warp w holds rows 16 w .. 16 w +
+// 15 of the tile, all 64 columns.
 template <typename T, bool kReverse>
-__global__ void __launch_bounds__(kThreads) mlstm_bwd_pass_kernel(const Args a) {
+__global__ void __launch_bounds__(kPassThreads) mlstm_bwd_pass_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char raw[];
-  float* U = reinterpret_cast<float*>(raw);  // [j][d], weighted
-  float* V = U + kTileF;                     // [j][e]
-  float* ncol = V + kTileF;                  // [j]
-  float* scale = ncol + kL;                  // [j]
+  PassSmem<T>& sm = *reinterpret_cast<PassSmem<T>*>(raw);
   const int bid = blockIdx.x;
   const int et = bid % a.tiles, dt = bid / a.tiles % a.tiles;
   const int hd = bid / (a.tiles * a.tiles) % a.nh, b = bid / (a.tiles * a.tiles * a.nh);
-  const int t = threadIdx.x, r0 = t / 16, c0 = t % 16;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
   const int d0 = dt * kTile, e0 = et * kTile;
-  const size_t head = static_cast<size_t>(b) * a.nh + hd;
-  const size_t stride = static_cast<size_t>(a.B) * a.nh;
-  float* Cout = kReverse ? a.dCo : a.Cin;
-  float* nout = kReverse ? a.dno : a.nin;
-  float h[4][4], hn[4];
+  const size_t dd2 = static_cast<size_t>(a.dh) * a.dh;
+  const size_t ld = static_cast<size_t>(a.nh) * a.dh;
+  const int np = parts(a);
+  const bool ncol = et == 0 && t < kTile && d0 + t < a.dh;  // n's row d0 + t
+  float h[8][4];
+  float hn = 0.f;
+  const float* init = a.dC + slot_at(a, 0, b, hd, dd2);
 #pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int d = d0 + r0 + 16 * x;
-    hn[x] = (kReverse && d < a.dh) ? a.dn[head * a.dh + d] : 0.f;
+  for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int e = e0 + c0 + 16 * y;
-      h[x][y] = (kReverse && d < a.dh && e < a.dh)
-                    ? a.dC[(head * a.dh + d) * a.dh + e]
-                    : 0.f;
+    for (int x = 0; x < 4; ++x) {
+      const int d = d0 + 16 * warp + gq + 8 * (x >> 1), e = e0 + 8 * nt + 2 * tq + (x & 1);
+      h[nt][x] = (kReverse && d < a.dh && e < a.dh) ? init[static_cast<size_t>(d) * a.dh + e]
+                                                   : 0.f;
     }
-  }
-  for (int s = 0; s < a.chunks; ++s) {
+  if (kReverse && ncol) hn = a.dn[slot_at(a, 0, b, hd, a.dh) + d0 + t];
+  for (int s = 0; s + 1 < a.chunks; ++s) {
     const int c = kReverse ? a.chunks - 1 - s : s;
     const int s0 = c * kL, rows = min(kL, a.S - s0);
     const float gl = g_at(a, b, s0 + rows - 1, hd);
-    __syncthreads();  // the chunk before is done with U, V
+    __syncthreads();  // the chunk before is done with the tiles
     if (t < kL) {
       const float gr = g_at(a, b, s0 + t, hd);
       if (kReverse) {
-        scale[t] = t < rows ? expf(gr) : 0.f;
-        ncol[t] = a.rows[row_scalar(a, 1, b, c, hd) + t];  // dden
+        const float eg = t < rows ? expf(gr) : 0.f;
+        sm.sc[t] = eg * a.rows[row_scalar(a, 0, b, c, hd) + t];
+        sm.sn[t] = eg * a.rows[row_scalar(a, 1, b, c, hd) + t];
       } else {
-        scale[t] = t < rows ? expf(gl - gr + li_at(a, b, s0 + t, hd)) : 0.f;
-        ncol[t] = 1.f;
+        sm.sc[t] = t < rows ? expf(gl - gr + li_at(a, b, s0 + t, hd)) : 0.f;
       }
     }
-    __syncthreads();
+    const size_t r0 = row_at(a, b, s0, hd);
     if (kReverse) {
-      load_rows(a, U, static_cast<const T*>(a.q), b, s0, rows, hd, d0, scale);
-      load_rows(a, V, a.dy, b, s0, rows, hd, e0, a.rows + row_scalar(a, 0, b, c, hd));
+      load_tile<T, kLdOf<T>, kPassThreads>(first(sm.a), static_cast<const T*>(a.q) + r0 + d0,
+                                           ld, rows, a.dh - d0, a.vec);
+      load_tile<float, kFLd, kPassThreads>(&sm.stdy[0][0], a.dy + r0 + e0, ld, rows,
+                                           a.dh - e0, a.vec);
+      load_tile<float, kFLd, kPassThreads>(
+          &sm.u.cin[0][0], a.Cin + slot_at(a, c - 1, b, hd, dd2) + static_cast<size_t>(d0) * a.dh + e0,
+          a.dh, a.dh - d0, a.dh - e0, a.vec);
     } else {
-      load_rows(a, U, static_cast<const T*>(a.k), b, s0, rows, hd, d0, scale);
-      load_rows(a, V, static_cast<const T*>(a.v), b, s0, rows, hd, e0, nullptr);
+      load_tile<T, kLdOf<T>, kPassThreads>(&sm.u.stk[0][0], static_cast<const T*>(a.k) + r0 + d0,
+                                           ld, rows, a.dh - d0, a.vec);
+      load_tile<T, kLdOf<T>, kPassThreads>(first(sm.b), static_cast<const T*>(a.v) + r0 + e0,
+                                           ld, rows, a.dh - e0, a.vec);
     }
-    __syncthreads();
-    float* dst = Cout + (static_cast<size_t>(c) * stride + head) * a.dh * a.dh;
-    float part[4][4] = {};
-    mm<true, false>(part, U, V, rows);
-    const float decay = expf(gl);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the tiles, sc, sn
+    if (kReverse) {  // this tile's part of <dC'_out, C'_in> of chunk c
+      float acc = 0.f;
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int d = d0 + r0 + 16 * x;
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int e = e0 + c0 + 16 * y;
-        if (d < a.dh && e < a.dh) dst[static_cast<size_t>(d) * a.dh + e] = h[x][y];
-        h[x][y] = h[x][y] * decay + part[x][y];
-      }
+        for (int x = 0; x < 4; ++x)
+          acc += h[nt][x] * sm.u.cin[16 * warp + gq + 8 * (x >> 1)][8 * nt + 2 * tq + (x & 1)];
+      if (ncol) acc += hn * a.nin[slot_at(a, c - 1, b, hd, a.dh) + d0 + t];
+      acc = warp_sum(acc);
+      if (lane == 0) sm.red[warp] = acc;
+      put_tile<kPassThreads>(sm.b, &sm.stdy[0][0], sm.sc);
+    } else {
+      put_tile<kPassThreads>(sm.a, &sm.u.stk[0][0], sm.sc);
     }
-    if (et == 0 && c0 == 0) {  // n, one more column
+    __syncthreads();  // the operands; red
+    if (kReverse && t == 0) {
+      float tot = 0.f;
+      for (int w = 0; w < kPassThreads / 32; ++w) tot += sm.red[w];
+      a.stp[((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * a.tiles * a.tiles +
+            dt * a.tiles + et] = tot;
+    }
+    const float decay = expf(gl);  // h <- e^{gl} h, then the chunk's products
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) h[nt][x] *= decay;
+    if (kReverse)
+      mma_tile<8, true, true>(h, sm.a, 1, sm.b, np, 16 * warp, 0);
+    else
+      mma_tile<8, true, true>(h, sm.a, np, sm.b, 1, 16 * warp, 0);
+    const int slot = kReverse ? c - 1 : c;
+    float* dst = (kReverse ? a.dCo : a.Cin) + slot_at(a, slot, b, hd, dd2);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
-        const int d = d0 + r0 + 16 * x;
-        float pn = 0.f;
-        for (int r = 0; r < rows; ++r) pn += U[r * kLd + r0 + 16 * x] * ncol[r];
-        if (d < a.dh) nout[(static_cast<size_t>(c) * stride + head) * a.dh + d] = hn[x];
-        hn[x] = hn[x] * decay + pn;
+        const int d = d0 + 16 * warp + gq + 8 * (x >> 1), e = e0 + 8 * nt + 2 * tq + (x & 1);
+        if (d < a.dh && e < a.dh) dst[static_cast<size_t>(d) * a.dh + e] = h[nt][x];
       }
+    if (ncol) {  // n, one more column
+      float pn = 0.f;
+      for (int r = 0; r < kL; ++r)
+        pn += kReverse ? sm.sn[r] * get(sm.a, r, t) : sm.sc[r] * to_float(sm.u.stk[r][t]);
+      hn = hn * decay + pn;
+      (kReverse ? a.dno : a.nin)[slot_at(a, slot, b, hd, a.dh) + d0 + t] = hn;
     }
   }
 }
 
-constexpr size_t kPassSmem = sizeof(float) * (2 * kTileF + 2 * kL);
-
-// ---- launch 2: the rows of each (b, kernel chunk, head) ----
+// ---- launch 2: q k^T, dy v^T, q . n_in, dy . y of one d tile ----
+template <typename T>
 struct RowsSmem {
-  float q[kL][kLd];
-  float k[kL][kLd];
-  float dy[kL][kLd];
-  float v[kL][kLd];
-  float y[kL][kLd];
-  float p[kL][kLd];  // w_ij (q_i . k_j)
-  float a[kL][kLd];  // w_ij (q_i . k_j) D_ij
-  float g[kL], li[kL], qn[kL], dyy[kL], rs[kL], dd[kL], nin[kTile];
+  Opnd<T> q;   // [i][d], exact
+  Opnd<T> k;   // [j][d], exact
+  Opnd<T> v;   // [j][d], exact
+  Opnd<T> dy;  // [i][d], split
+  alignas(16) float st[2][kL][kFLd];  // dy, y rows staged
+  float nin[kTile];
 };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) mlstm_bwd_rows_kernel(const Args a) {
+__global__ void __launch_bounds__(kPassThreads) mlstm_bwd_rows_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char raw[];
-  RowsSmem& sm = *reinterpret_cast<RowsSmem*>(raw);
+  RowsSmem<T>& sm = *reinterpret_cast<RowsSmem<T>*>(raw);
+  const int bid = blockIdx.x;
+  const int dt = bid % a.tiles, hd = bid / a.tiles % a.nh;
+  const int c = bid / (a.tiles * a.nh) % a.chunks, b = bid / (a.tiles * a.nh * a.chunks);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
+  const int s0 = c * kL, rows = min(kL, a.S - s0), d0 = dt * kTile;
+  const size_t ld = static_cast<size_t>(a.nh) * a.dh;
+  const size_t r0 = row_at(a, b, s0, hd) + d0;
+  load_tile<T, kLdOf<T>, kPassThreads>(first(sm.q), static_cast<const T*>(a.q) + r0, ld, rows,
+                                       a.dh - d0, a.vec);
+  load_tile<T, kLdOf<T>, kPassThreads>(first(sm.k), static_cast<const T*>(a.k) + r0, ld, rows,
+                                       a.dh - d0, a.vec);
+  load_tile<T, kLdOf<T>, kPassThreads>(first(sm.v), static_cast<const T*>(a.v) + r0, ld, rows,
+                                       a.dh - d0, a.vec);
+  load_tile<float, kFLd, kPassThreads>(&sm.st[0][0][0], a.dy + r0, ld, rows, a.dh - d0, a.vec);
+  load_tile<float, kFLd, kPassThreads>(&sm.st[1][0][0], a.y + r0, ld, rows, a.dh - d0, a.vec);
+  cp_async_commit();
+  if (t < kTile)  // chunk 0's entering state is zero
+    sm.nin[t] = (c > 0 && d0 + t < a.dh) ? a.nin[slot_at(a, c - 1, b, hd, a.dh) + d0 + t] : 0.f;
+  cp_async_wait<0>();
+  __syncthreads();
+  put_tile<kPassThreads>(sm.dy, &sm.st[0][0][0], nullptr);
+  __syncthreads();
+  float s[8][4] = {}, dv[8][4] = {};
+  mma_tile<8, false, false>(s, sm.q, 1, sm.k, 1, 16 * warp, 0);          // q_i . k_j
+  mma_tile<8, false, false>(dv, sm.dy, parts(a), sm.v, 1, 16 * warp, 0);  // dy_i . v_j
+  const size_t tile = ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * a.tiles + dt;
+  float* P = a.part + tile * 2 * kL * kL;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int hx = 0; hx < 2; ++hx) {
+      const int i = 16 * warp + gq + 8 * hx, j = 8 * nt + 2 * tq;
+      *reinterpret_cast<float2*>(P + i * kL + j) = make_float2(s[nt][2 * hx], s[nt][2 * hx + 1]);
+      *reinterpret_cast<float2*>(P + kL * kL + i * kL + j) =
+          make_float2(dv[nt][2 * hx], dv[nt][2 * hx + 1]);
+    }
+  if (t < kL) {
+    float acc = 0.f;
+    for (int d = 0; d < kTile; ++d) acc += get(sm.q, t, d) * sm.nin[d];
+    a.pv[tile * 2 * kL + t] = acc;
+  } else if (t < 2 * kL) {
+    const int i = t - kL;
+    float acc = 0.f;
+    for (int d = 0; d < kTile; ++d) acc += sm.st[0][i][d] * sm.st[1][i][d];
+    a.pv[tile * 2 * kL + kL + i] = acc;
+  }
+}
+
+// ---- launch 3: the rows of each (b, kernel chunk, head) ----
+struct CombineSmem {
+  float p[kL][kLd];  // w_ij (q_i . k_j)
+  float a[kL][kLd];  // w_ij (q_i . k_j) D_ij
+  float g[kL], li[kL], qn[kL], dyy[kL], rs[kL], dd[kL];
+};
+
+__global__ void __launch_bounds__(kRowsThreads) mlstm_bwd_combine_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  CombineSmem& sm = *reinterpret_cast<CombineSmem*>(raw);
   const int bid = blockIdx.x;
   const int hd = bid % a.nh, c = bid / a.nh % a.chunks, b = bid / (a.nh * a.chunks);
   const int t = threadIdx.x, r0 = t / 16, c0 = t % 16;
   const int s0 = c * kL, rows = min(kL, a.S - s0);
-  const size_t head = static_cast<size_t>(b) * a.nh + hd;
-  const float* nin = a.nin + (static_cast<size_t>(c) * a.B * a.nh + head) * a.dh;
+  const int tiles = (a.fault & kFaultRowsDropTile) ? a.tiles - 1 : a.tiles;
+  const size_t tile0 = ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * a.tiles;
   if (t < kL) {
     sm.g[t] = t < rows ? g_at(a, b, s0 + t, hd) : 0.f;
     sm.li[t] = t < rows ? li_at(a, b, s0 + t, hd) : 0.f;
-    sm.qn[t] = 0.f;
-    sm.dyy[t] = 0.f;
+    float qn = 0.f;
+    for (int tt = 0; tt < tiles; ++tt) qn += a.pv[(tile0 + tt) * 2 * kL + t];
+    sm.qn[t] = qn;
+  } else if (t < 2 * kL) {
+    float dyy = 0.f;
+    for (int tt = 0; tt < tiles; ++tt) dyy += a.pv[(tile0 + tt) * 2 * kL + t];
+    sm.dyy[t - kL] = dyy;
   }
-  float s[4][4] = {}, dv[4][4] = {};
-  for (int dt = 0; dt < a.tiles; ++dt) {
-    const int d0 = dt * kTile;
-    __syncthreads();  // the tile before is done
-    load_rows(a, &sm.q[0][0], static_cast<const T*>(a.q), b, s0, rows, hd, d0, nullptr);
-    load_rows(a, &sm.k[0][0], static_cast<const T*>(a.k), b, s0, rows, hd, d0, nullptr);
-    load_rows(a, &sm.v[0][0], static_cast<const T*>(a.v), b, s0, rows, hd, d0, nullptr);
-    load_rows(a, &sm.dy[0][0], a.dy, b, s0, rows, hd, d0, nullptr);
-    load_rows(a, &sm.y[0][0], a.y, b, s0, rows, hd, d0, nullptr);
-    if (t < kTile) sm.nin[t] = d0 + t < a.dh ? nin[d0 + t] : 0.f;
-    __syncthreads();
-    mm<false, true>(s, &sm.q[0][0], &sm.k[0][0], kTile);    // q_i . k_j
-    mm<false, true>(dv, &sm.dy[0][0], &sm.v[0][0], kTile);  // dy_i . v_j
-    if (t < kL) {
-      float acc = 0.f;
-      for (int d = 0; d < kTile; ++d) acc += sm.q[t][d] * sm.nin[d];
-      sm.qn[t] += acc;
-    } else if (t < 2 * kL) {
-      const int i = t - kL;
-      float acc = 0.f;
-      for (int d = 0; d < kTile; ++d) acc += sm.dy[i][d] * sm.y[i][d];
-      sm.dyy[i] += acc;
-    }
+  float s[4][4] = {}, dv[4][4] = {};  // the d tiles' sums, in order
+  for (int tt = 0; tt < tiles; ++tt) {
+    const float* P = a.part + (tile0 + tt) * 2 * kL * kL;
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+#pragma unroll
+      for (int y = 0; y < 4; ++y) {
+        const int i = r0 + 16 * x, j = c0 + 16 * y;
+        s[x][y] += P[i * kL + j];
+        dv[x][y] += P[kL * kL + i * kL + j];
+      }
   }
+  __syncthreads();  // g, li, qn, dyy
   float w[4][4];
 #pragma unroll
   for (int x = 0; x < 4; ++x)
@@ -322,188 +431,249 @@ __global__ void __launch_bounds__(kThreads) mlstm_bwd_rows_kernel(const Args a) 
   }
 }
 
-// ---- launch 4: dq, dk, dv for 64 columns of d ----
+// ---- launch 5: dq, dk (64 columns of d) and dv (64 columns of e) ----
+template <typename T>
+struct OutLoop {  // the state product: a 64-wide slice of both operands
+  alignas(16) float st[2][kL][kFLd];  // staged (an exact operand as T)
+  Opnd<T> op[2];
+};
+template <typename T>
+struct OutEpi {  // the intra-chunk product and the row sums
+  Opnd<T> w;  // W1, or W2 with its rows scaled by 1 / m_i, split
+  Opnd<T> x;  // dq: k [j][d]; dk: q [i][d]; dv: dy [i][e] split
+  Opnd<T> y;  // dq: q [i][d]; dk: k [j][d]
+};
+template <typename T>
 struct OutSmem {
-  float w1[kL][kLd];
-  float w2[kL][kLd];
-  float k[kL][kLd];    // k_j, this tile's columns (then dnum_i's)
-  float q[kL][kLd];    // q_i, this tile's columns
-  float ci[kTile][kLd];  // Cin [this tile's d][e], then k_j [j][d]
-  float dn[kL][kLd];     // dnum_i [i][e]
-  float dco[kTile][kLd];  // dCo [this tile's d][e], then [d][this tile's e]
-  float vs[kL][kLd];     // v_j [j][e]
-  float g[kL], eg[kL], ws[kL], rs[kL], dd[kL], ra[kL], ca[kL];
-  float nin[kTile], dno[kTile], car[kL], ks[kL];
-  float red[kThreads / 32];
+  union {
+    OutLoop<T> loop;
+    OutEpi<T> epi;
+  } u;
+  float g[kL], eg[kL], ws[kL], rs[kL], dd[kL];
+  float sv[kTile];  // dq: n_in of this d tile; dk: dn_out of it
+  float red[2][kL];
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) mlstm_bwd_out_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char raw[];
-  OutSmem& sm = *reinterpret_cast<OutSmem*>(raw);
+// Block role (bid % 3): 0 dq, 1 dk, 2 dv.  Warp w holds rows 16 (w % 4)
+// .. + 15 and columns 32 (w / 4) .. + 31 of the block's 64 x 64 output.
+template <typename T, int role>
+__device__ __forceinline__ void out_block(const Args& a, OutSmem<T>& sm) {
   const int bid = blockIdx.x;
-  const int tt = bid % a.tiles, hd = bid / a.tiles % a.nh;
-  const int c = bid / (a.tiles * a.nh) % a.chunks, b = bid / (a.tiles * a.nh * a.chunks);
-  const int t = threadIdx.x, r0 = t / 16, c0 = t % 16;
-  const int s0 = c * kL, rows = min(kL, a.S - s0), d0 = tt * kTile;
-  const size_t head = static_cast<size_t>(b) * a.nh + hd;
-  const size_t stride = static_cast<size_t>(a.B) * a.nh;
+  const int tt = bid / 3 % a.tiles, hd = bid / (3 * a.tiles) % a.nh;
+  const int c = bid / (3 * a.tiles * a.nh) % a.chunks, b = bid / (3 * a.tiles * a.nh * a.chunks);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32, gq = lane / 4, tq = lane % 4;
+  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
+  const int s0 = c * kL, rows = min(kL, a.S - s0), c0 = tt * kTile, clim = a.dh - c0;
+  const size_t ld = static_cast<size_t>(a.nh) * a.dh;
+  const size_t dd2 = static_cast<size_t>(a.dh) * a.dh;
+  const size_t r0 = row_at(a, b, s0, hd);
+  const int np = parts(a);
   const int src = (a.fault & kFaultWrongCotangent) ? min(c + 1, a.chunks - 1) : c;
-  const float* Cin = a.Cin + (static_cast<size_t>(c) * stride + head) * a.dh * a.dh;
-  const float* dCo = a.dCo + (static_cast<size_t>(src) * stride + head) * a.dh * a.dh;
-  const size_t r1 = row_scalar(a, 0, b, c, hd);
-  const size_t rstride = static_cast<size_t>(a.B) * a.chunks * a.nh * kL;
-  const float* W1 = a.W1 + ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * kL * kL;
-  const float* W2 = a.W2 + ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * kL * kL;
-  for (int i = t; i < kL * kL; i += kThreads) {
-    sm.w1[i / kL][i % kL] = W1[i];
-    sm.w2[i / kL][i % kL] = W2[i];
-  }
+  const bool last = src == a.chunks - 1;  // its dC'_out is (dC, dn), read in place
+  const float* dCo = last ? a.dC + slot_at(a, 0, b, hd, dd2) : a.dCo + slot_at(a, src, b, hd, dd2);
+  const float* dno = last ? a.dn + slot_at(a, 0, b, hd, a.dh)
+                          : a.dno + slot_at(a, src, b, hd, a.dh);
+  const T* q = static_cast<const T*>(a.q) + r0;
+  const T* k = static_cast<const T*>(a.k) + r0;
+  const T* v = static_cast<const T*>(a.v) + r0;
   if (t < kL) {
     const float g = t < rows ? g_at(a, b, s0 + t, hd) : 0.f;
     const float gl = g_at(a, b, s0 + rows - 1, hd);
+    const size_t r1 = row_scalar(a, 0, b, c, hd);
+    const size_t rstride = static_cast<size_t>(a.B) * a.chunks * a.nh * kL;
     sm.g[t] = g;
     sm.eg[t] = t < rows ? expf(g) : 0.f;
     sm.ws[t] = t < rows ? expf(gl - g + li_at(a, b, s0 + t, hd)) : 0.f;
     sm.rs[t] = a.rows[r1 + t];
     sm.dd[t] = a.rows[r1 + rstride + t];
-    sm.ra[t] = a.rows[r1 + 2 * rstride + t];
-    sm.ca[t] = a.rows[r1 + 3 * rstride + t];
   } else if (t < kL + kTile) {
     const int d = t - kL;
-    const bool ok = d0 + d < a.dh;
-    sm.nin[d] = ok ? a.nin[(static_cast<size_t>(c) * stride + head) * a.dh + d0 + d] : 0.f;
-    sm.dno[d] = ok ? a.dno[(static_cast<size_t>(src) * stride + head) * a.dh + d0 + d] : 0.f;
+    const bool ok = d < clim;
+    sm.sv[d] = role == 0 ? (ok && c > 0 ? a.nin[slot_at(a, c - 1, b, hd, a.dh) + c0 + d] : 0.f)
+                         : (ok ? dno[c0 + d] : 0.f);
   }
-  load_rows(a, &sm.k[0][0], static_cast<const T*>(a.k), b, s0, rows, hd, d0, nullptr);
-  load_rows(a, &sm.q[0][0], static_cast<const T*>(a.q), b, s0, rows, hd, d0, nullptr);
-  __syncthreads();
-  const float gl = sm.g[rows - 1];
 
-  // dq (rows i) and dk (rows j) for this tile's columns d: first the
-  // products with a state over the e tiles, then the intra-chunk ones, one
-  // output at a time (fewer accumulators live at once)
-  float qc[4][4] = {}, kst[4][4] = {};
-  float stp = 0.f;
-  for (int s = 0; s < a.tiles; ++s) {
-    const int e0 = s * kTile;
-    __syncthreads();  // the tile before is done
-    load_state(a, &sm.ci[0][0], Cin, d0, e0);
-    load_state(a, &sm.dco[0][0], dCo, d0, e0);
-    load_rows(a, &sm.dn[0][0], a.dy, b, s0, rows, hd, e0, sm.rs);
-    load_rows(a, &sm.vs[0][0], static_cast<const T*>(a.v), b, s0, rows, hd, e0, nullptr);
-    __syncthreads();
-    mm<false, true>(qc, &sm.dn[0][0], &sm.ci[0][0], kTile);    // sum_e dnum_i[e] Cin[d][e]
-    mm<false, true>(kst, &sm.vs[0][0], &sm.dco[0][0], kTile);  // sum_e v_j[e] dCo[d][e]
-    for (int i = t; i < kTile * kTile; i += kThreads)
-      stp += sm.ci[i / kTile][i % kTile] * sm.dco[i / kTile][i % kTile];
+  // the state product over the 64-wide slices of e (dq, dk) or d (dv):
+  // dq: sum_e dy_i[e] Cin[d][e]; dk: sum_e v_j[e] dCo[d][e]; dv: sum_d
+  // k_j[d] dCo[d][e].  Chunk 0's dq has none (its C'_in is zero).
+  const int nit = (role == 0 && c == 0) ? 0 : a.tiles;
+  // slice it: the row operand (dy, v or k rows) and the state's (C_in's
+  // rows of d, dC_out's rows of d, or its columns of e)
+  const float* s1 = role == 0 ? a.Cin + slot_at(a, max(c - 1, 0), b, hd, dd2) : dCo;
+  const size_t s1step = role == 2 ? static_cast<size_t>(kTile) * a.dh : kTile;
+  s1 += role == 2 ? c0 : static_cast<size_t>(c0) * a.dh;
+  const int s1rows = role == 2 ? kTile : clim, s1cols = role == 2 ? clim : kTile;
+  float st[4][4] = {};
+  if (nit > 0) {
+    if (role == 0)
+      load_tile<float, kFLd, kOutThreads>(&sm.u.loop.st[0][0][0], a.dy + r0, ld, rows, a.dh,
+                                          a.vec);
+    else
+      load_tile<T, kLdOf<T>, kOutThreads>(reinterpret_cast<T*>(&sm.u.loop.st[0][0][0]),
+                                          role == 1 ? v : k, ld, rows, a.dh, a.vec);
+    load_tile<float, kFLd, kOutThreads>(&sm.u.loop.st[1][0][0], s1, a.dh,
+                                        min(s1rows, a.dh), min(s1cols, a.dh), a.vec);
   }
-  if (t < kTile) stp += sm.dno[t] * sm.nin[t];
+  cp_async_commit();
+  for (int it = 0; it < nit; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // slice it landed; slice it - 1 is done with op
+    if (role == 0)
+      put_tile<kOutThreads>(sm.u.loop.op[0], &sm.u.loop.st[0][0][0], nullptr);
+    else
+      put_tile<kOutThreads>(sm.u.loop.op[0],
+                            reinterpret_cast<const T*>(&sm.u.loop.st[0][0][0]), nullptr);
+    put_tile<kOutThreads>(sm.u.loop.op[1], &sm.u.loop.st[1][0][0], nullptr);
+    __syncthreads();  // op; the staging is free
+    if (it + 1 < nit) {  // slice it + 1 arrives while it is multiplied
+      const int k0 = (it + 1) * kTile;
+      if (role == 0)
+        load_tile<float, kFLd, kOutThreads>(&sm.u.loop.st[0][0][0], a.dy + r0 + k0, ld, rows,
+                                            a.dh - k0, a.vec);
+      else
+        load_tile<T, kLdOf<T>, kOutThreads>(reinterpret_cast<T*>(&sm.u.loop.st[0][0][0]),
+                                            (role == 1 ? v : k) + k0, ld, rows, a.dh - k0,
+                                            a.vec);
+      load_tile<float, kFLd, kOutThreads>(&sm.u.loop.st[1][0][0], s1 + (it + 1) * s1step, a.dh,
+                                          role == 2 ? a.dh - k0 : clim,
+                                          role == 2 ? clim : a.dh - k0, a.vec);
+    }
+    cp_async_commit();
+    if (role == 0)
+      mma_tile<4, false, false>(st, sm.u.loop.op[0], np, sm.u.loop.op[1], np, m0, n0);
+    else if (role == 1)
+      mma_tile<4, false, false>(st, sm.u.loop.op[0], 1, sm.u.loop.op[1], np, m0, n0);
+    else
+      mma_tile<4, false, true>(st, sm.u.loop.op[0], 1, sm.u.loop.op[1], np, m0, n0);
+  }
+  __syncthreads();  // the loop's tiles are free; g, rs, sv
+
+  // the intra-chunk product: dq: sum_j W1_ij k_j[d]; dk: sum_i W1_ij
+  // q_i[d]; dv: sum_i W2_ij dnum_i[e]
   {
-    float aq[4][4] = {};
-    mm<false, false>(aq, &sm.w1[0][0], &sm.k[0][0], rows);  // sum_j W1_ij k_j[d]
+    const float* W = (role == 2 ? a.W2 : a.W1) +
+                     ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * kL * kL;
+    for (int i = t; i < kL * kL / 2; i += kOutThreads) {
+      const int r = i / (kL / 2), cc = i % (kL / 2) * 2;
+      const float2 wv = *reinterpret_cast<const float2*>(W + r * kL + cc);
+      const float sc = role == 2 ? sm.rs[r] : 1.f;
+      put2(sm.u.epi.w, r, cc, sc * wv.x, sc * wv.y);
+    }
+    if (role == 2) {
+      for (int i = t; i < kL * kL / 2; i += kOutThreads) {
+        const int r = i / (kL / 2), cc = i % (kL / 2) * 2;
+        const float* p = a.dy + r0 + static_cast<size_t>(r) * ld + c0 + cc;
+        put2(sm.u.epi.x, r, cc, r < rows && cc < clim ? p[0] : 0.f,
+             r < rows && cc + 1 < clim ? p[1] : 0.f);
+      }
+    } else {
+      load_tile<T, kLdOf<T>, kOutThreads>(first(sm.u.epi.x), (role == 0 ? k : q) + c0, ld, rows,
+                                          clim, a.vec);
+      load_tile<T, kLdOf<T>, kOutThreads>(first(sm.u.epi.y), (role == 0 ? q : k) + c0, ld, rows,
+                                          clim, a.vec);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  float ia[4][4] = {};
+  if (role == 0)
+    mma_tile<4, false, true>(ia, sm.u.epi.w, np, sm.u.epi.x, 1, m0, n0);
+  else if (role == 1)
+    mma_tile<4, true, true>(ia, sm.u.epi.w, np, sm.u.epi.x, 1, m0, n0);
+  else
+    mma_tile<4, true, true>(ia, sm.u.epi.w, np, sm.u.epi.x, np, m0, n0);
+
+  T* out = static_cast<T*>(role == 0 ? a.dq : role == 1 ? a.dk : a.dv) + r0 + c0;
+  float rsum[2] = {0.f, 0.f};  // dq: q . cq; dk: k . (dk's state part)
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
     for (int x = 0; x < 4; ++x) {
-      const int i = r0 + 16 * x;
-      float car = 0.f;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int d = c0 + 16 * y;
-        const float cq = sm.eg[i] * (qc[x][y] + sm.nin[d] * sm.dd[i]);
-        car += sm.q[i][d] * cq;
-        if (i < rows && d0 + d < a.dh)
-          static_cast<T*>(a.dq)[row_at(a, b, s0, i, hd) + d0 + d] =
-              from_float<T>(aq[x][y] + cq);
+      const int hx = x >> 1, r = m0 + gq + 8 * hx, cc = n0 + 8 * nt + 2 * tq + (x & 1);
+      float o;
+      if (role == 0) {
+        const float cq = sm.eg[r] * (sm.rs[r] * st[nt][x] + sm.sv[cc] * sm.dd[r]);
+        o = ia[nt][x] + cq;
+        rsum[hx] += get(sm.u.epi.y, r, cc) * cq;
+      } else if (role == 1) {
+        const float dks = sm.ws[r] * (st[nt][x] + sm.sv[cc]);
+        o = ia[nt][x] + dks;
+        rsum[hx] += get(sm.u.epi.y, r, cc) * dks;
+      } else {
+        o = ia[nt][x] + sm.ws[r] * st[nt][x];
       }
-      car = row_sum16(car);
-      if (c0 == 0) sm.car[i] = car;
+      if (r < rows && cc < clim) out[static_cast<size_t>(r) * ld + cc] = from_float<T>(o);
     }
-  }
-  {
-    float ak[4][4] = {};
-    mm<true, false>(ak, &sm.w1[0][0], &sm.q[0][0], rows);   // sum_i W1_ij q_i[d]
+  if (role < 2) {  // this d tile's part of dg and dli
 #pragma unroll
-    for (int x = 0; x < 4; ++x) {
-      const int i = r0 + 16 * x;
-      float ks = 0.f;
-#pragma unroll
-      for (int y = 0; y < 4; ++y) {
-        const int d = c0 + 16 * y;
-        const float dks = sm.ws[i] * (kst[x][y] + sm.dno[d]);
-        ks += sm.k[i][d] * dks;
-        if (i < rows && d0 + d < a.dh)
-          static_cast<T*>(a.dk)[row_at(a, b, s0, i, hd) + d0 + d] =
-              from_float<T>(ak[x][y] + dks);
-      }
-      ks = row_sum16(ks);
-      if (c0 == 0) sm.ks[i] = ks;
+    for (int hx = 0; hx < 2; ++hx) {
+      const float v2 = quad_sum(rsum[hx]);
+      if (tq == 0) sm.red[warp >> 2][m0 + gq + 8 * hx] = v2;
     }
-  }
-  stp = warp_sum(stp);
-  if (t % 32 == 0) sm.red[t / 32] = stp;
-  __syncthreads();  // car, ks, red; k's tile is free
-
-  // dv (rows j) for this tile's columns e = d0 + ...
-  load_rows(a, &sm.k[0][0], a.dy, b, s0, rows, hd, d0, sm.rs);  // dnum_i, these e
-  float av[4][4] = {}, vst[4][4] = {};
-  for (int s = 0; s < a.tiles; ++s) {
-    const int e0 = s * kTile;  // here the rows of d
     __syncthreads();
-    load_rows(a, &sm.ci[0][0], static_cast<const T*>(a.k), b, s0, rows, hd, e0, nullptr);
-    load_state(a, &sm.dco[0][0], dCo, e0, d0);
-    __syncthreads();
-    mm<false, false>(vst, &sm.ci[0][0], &sm.dco[0][0], kTile);  // sum_d k_j[d] dCo[d][e]
-    if (s == 0) mm<true, false>(av, &sm.w2[0][0], &sm.k[0][0], rows);  // sum_i W2_ij dnum_i[e]
-  }
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int j = r0 + 16 * x;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int e = c0 + 16 * y;
-      if (j < rows && d0 + e < a.dh)
-        static_cast<T*>(a.dv)[row_at(a, b, s0, j, hd) + d0 + e] =
-            from_float<T>(av[x][y] + sm.ws[j] * vst[x][y]);
-    }
-  }
-  if (t < kL) {  // this tile's part of dg and dli
-    float pg = sm.car[t] - sm.ks[t], pl = sm.ks[t];
-    if (tt == 0) {
-      pg += sm.ra[t];
-      pl += sm.ca[t];
-    }
-    if (t == rows - 1) {
-      float st = 0.f, kss = 0.f;
-      for (int w = 0; w < kThreads / 32; ++w) st += sm.red[w];
-      for (int j = 0; j < rows; ++j) kss += sm.ks[j];
-      pg += expf(gl) * st + kss;
-    }
-    const size_t at =
-        (((static_cast<size_t>(b) * a.chunks + c) * a.tiles + tt) * kL + t) * a.nh + hd;
-    a.pg[at] = t < rows ? pg : 0.f;
-    a.pli[at] = t < rows ? pl : 0.f;
+    if (t < kL)
+      (role == 0 ? a.pq : a.pk)[(((static_cast<size_t>(b) * a.chunks + c) * a.tiles + tt) * kL +
+                                 t) * a.nh + hd] = sm.red[0][t] + sm.red[1][t];
   }
 }
 
-// ---- launch 5: dg, dli, the tiles' parts summed in order ----
-__global__ void __launch_bounds__(kThreads) mlstm_bwd_gates_kernel(const Args a) {
-  const size_t total = static_cast<size_t>(a.B) * a.chunks * kL * a.nh;
-  const size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int hd = i % a.nh;
-  const size_t bcr = i / a.nh;
-  const int r = bcr % kL, c = bcr / kL % a.chunks, b = bcr / (static_cast<size_t>(kL) * a.chunks);
-  const int tiles = (a.fault & kFaultDropTile) ? a.tiles - 1 : a.tiles;
-  float sg = 0.f, sl = 0.f;
-  for (int tt = 0; tt < tiles; ++tt) {
-    const size_t at =
-        (((static_cast<size_t>(b) * a.chunks + c) * a.tiles + tt) * kL + r) * a.nh + hd;
-    sg += a.pg[at];
-    sl += a.pli[at];
+template <typename T>
+__global__ void __launch_bounds__(kOutThreads, 2) mlstm_bwd_out_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  OutSmem<T>& sm = *reinterpret_cast<OutSmem<T>*>(raw);
+  switch (blockIdx.x % 3) {  // one role's code a branch
+    case 0:
+      out_block<T, 0>(a, sm);
+      break;
+    case 1:
+      out_block<T, 1>(a, sm);
+      break;
+    default:
+      out_block<T, 2>(a, sm);
   }
-  a.dg[i] = sg;
-  const int row = c * kL + r;
-  if (row < a.S) a.dli[(static_cast<size_t>(b) * a.S + row) * a.nh + hd] = sl;
+}
+
+// ---- launch 6: dg, dli of one (b, kernel chunk, head), a thread a row:
+// the tiles' parts summed in order ----
+__global__ void __launch_bounds__(kL) mlstm_bwd_gates_kernel(const Args a) {
+  __shared__ float sks[kL];
+  __shared__ float sst;
+  const int bid = blockIdx.x;
+  const int hd = bid % a.nh, c = bid / a.nh % a.chunks, b = bid / (a.nh * a.chunks);
+  const int r = threadIdx.x, rows = min(kL, a.S - c * kL);
+  const int tiles = (a.fault & kFaultDropTile) ? a.tiles - 1 : a.tiles;
+  // part (tt, row) of this (b, c, hd) at base + (tt kL + row) nh
+  const size_t base = (static_cast<size_t>(b) * a.chunks + c) * a.tiles * kL * a.nh + hd;
+  const size_t r1 = row_scalar(a, 0, b, c, hd) + r;
+  const size_t rstride = static_cast<size_t>(a.B) * a.chunks * a.nh * kL;
+  float sq = 0.f, sk = 0.f;
+  for (int tt = 0; tt < tiles; ++tt) {
+    sq += a.pq[base + (static_cast<size_t>(tt) * kL + r) * a.nh];
+    sk += a.pk[base + (static_cast<size_t>(tt) * kL + r) * a.nh];
+  }
+  sks[r] = r < rows ? sk : 0.f;
+  if (r == 0) {  // <dC'_out, C'_in> (chunk 0's C'_in is zero)
+    float st = 0.f;
+    if (c > 0) {
+      const int n = a.tiles * a.tiles - ((a.fault & kFaultStateDropTile) ? 1 : 0);
+      const float* p = a.stp + ((static_cast<size_t>(b) * a.chunks + c) * a.nh + hd) * a.tiles *
+                                   a.tiles;
+      for (int u = 0; u < n; ++u) st += p[u];
+    }
+    sst = st;
+  }
+  __syncthreads();
+  float dg = a.rows[r1 + 2 * rstride] + sq - sk;
+  if (r == rows - 1) {  // the state terms
+    float kss = 0.f;
+    for (int j = 0; j < rows; ++j) kss += sks[j];
+    dg += expf(g_at(a, b, c * kL + r, hd)) * sst + kss;
+  }
+  a.dg[((static_cast<size_t>(b) * a.chunks + c) * kL + r) * a.nh + hd] = r < rows ? dg : 0.f;
+  if (r < rows)
+    a.dli[(static_cast<size_t>(b) * a.S + c * kL + r) * a.nh + hd] =
+        a.rows[r1 + 3 * rstride] + sk;
 }
 
 template <typename K>
@@ -513,47 +683,73 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, const float* cumf, float* dcumf, int Q, cudaStream_t stream) {
   static const cudaError_t attr = [] {  // once
-    cudaError_t e = allow_smem(mlstm_bwd_rows_kernel<T>, sizeof(RowsSmem));
-    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_out_kernel<T>, sizeof(OutSmem));
+    cudaError_t e = allow_smem(mlstm_bwd_pass_kernel<T, false>, sizeof(PassSmem<T>));
+    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_pass_kernel<T, true>, sizeof(PassSmem<T>));
+    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_rows_kernel<T>, sizeof(RowsSmem<T>));
+    if (e == cudaSuccess) e = allow_smem(mlstm_bwd_out_kernel<T>, sizeof(OutSmem<T>));
     return e;
   }();
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int pass_blocks = a.B * a.nh * a.tiles * a.tiles;
-  mlstm_bwd_pass_kernel<T, false><<<pass_blocks, kThreads, kPassSmem, stream>>>(a);
+  const size_t gsize = static_cast<size_t>(a.B) * a.chunks * kL * a.nh;
+  scan::bwd::rebase_kernel<<<static_cast<unsigned>((gsize + 255) / 256), 256, 0, stream>>>(
+      cumf, const_cast<float*>(a.g), a.B, a.S, Q, a.nh, a.chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_rows_kernel<T><<<a.B * a.chunks * a.nh, kThreads, sizeof(RowsSmem), stream>>>(a);
+  if (a.chunks > 1) {
+    mlstm_bwd_pass_kernel<T, false><<<pass_blocks, kPassThreads, sizeof(PassSmem<T>), stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mlstm_bwd_rows_kernel<T><<<a.B * a.chunks * a.nh * a.tiles, kPassThreads, sizeof(RowsSmem<T>),
+                             stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_pass_kernel<T, true><<<pass_blocks, kThreads, kPassSmem, stream>>>(a);
+  mlstm_bwd_combine_kernel<<<a.B * a.chunks * a.nh, kRowsThreads, sizeof(CombineSmem), stream>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  mlstm_bwd_out_kernel<T><<<a.B * a.chunks * a.nh * a.tiles, kThreads, sizeof(OutSmem),
+  if (a.chunks > 1) {
+    mlstm_bwd_pass_kernel<T, true><<<pass_blocks, kPassThreads, sizeof(PassSmem<T>), stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  mlstm_bwd_out_kernel<T><<<a.B * a.chunks * a.nh * a.tiles * 3, kOutThreads, sizeof(OutSmem<T>),
                             stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t total = static_cast<size_t>(a.B) * a.chunks * kL * a.nh;
-  mlstm_bwd_gates_kernel<<<static_cast<unsigned>((total + kThreads - 1) / kThreads), kThreads,
-                           0, stream>>>(a);
+  mlstm_bwd_gates_kernel<<<a.B * a.chunks * a.nh, kL, 0, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t rows = static_cast<size_t>(a.B) * a.S * a.nh;
+  scan::bwd::rebase_adjoint_kernel<<<static_cast<unsigned>((rows + 255) / 256), 256, 0,
+                                     stream>>>(a.dg, dcumf, a.B, a.S, Q, a.nh, a.chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scratch: Cin, dCo [chunks, B, nh, dh, dh], nin, dno [chunks, B, nh, dh],
-// W1, W2 [B, chunks, nh, 64, 64], rows [4, B, chunks, nh, 64], pg, pli [B,
-// chunks, tiles, 64, nh] fp32 (the wrapper's torch.empty; nothing is
-// allocated here); g and dg [B, chunks * 64, nh].  `chunks` must be
-// ceil(S / 64), `tiles` ceil(dh / 64).
+// cumf [B, S, nh] is the caller's forget-gate log cumsum (restarted every
+// Q rows), dcumf its gradient; scratch (the wrapper's torch.empty; nothing
+// is allocated here): g and dg [B, chunks * 64, nh] (cumf rebased per
+// kernel chunk, and its gradient), Cin, dCo
+// [chunks - 1, B, nh, dh, dh], nin, dno [chunks - 1, B, nh, dh], part [B,
+// chunks, nh, tiles, 2, 64, 64], pv [B, chunks, nh, tiles, 2, 64], W1, W2
+// [B, chunks, nh, 64, 64], rows [4, B, chunks, nh, 64], stp [B, chunks, nh,
+// tiles^2], pq, pk [B, chunks, tiles, 64, nh] fp32.  `chunks` must be
+// ceil(S / 64), `tiles` ceil(dh / 64); `vec`
+// says every row of q, k, v, y, dy, dC and the scratch states starts 16
+// bytes aligned and dh fills whole 16-byte pieces (else plain loads).
 extern "C" int mlstm_chunk_scan_backward_launch(
-    const void* q, const void* k, const void* v, const void* g, const void* li,
-    const void* y, const void* dy, const void* dC, const void* dn, void* Cin, void* nin,
-    void* dCo, void* dno, void* W1, void* W2, void* rows, void* pg, void* pli, void* dq,
-    void* dk, void* dv, void* dg, void* dli, int B, int S, int nh, int dh, int chunks,
-    int tiles, int dtype, int fault, void* stream) {
-  if (S < 1 || B < 1 || nh < 1 || dh < 1 || dh > 8 * kTile ||
+    const void* q, const void* k, const void* v, const void* cumf, const void* li,
+    const void* y, const void* dy, const void* dC, const void* dn, void* g, void* Cin,
+    void* nin, void* dCo, void* dno, void* part, void* pv, void* W1, void* W2, void* rows,
+    void* stp, void* pq, void* pk, void* dq, void* dk, void* dv, void* dg, void* dcumf,
+    void* dli, int B, int S, int Q, int nh, int dh, int chunks, int tiles, int dtype, int vec,
+    int fault, void* stream) {
+  if (S < 1 || B < 1 || Q < 1 || S % Q || nh < 1 || dh < 1 || dh > 8 * kTile ||
       chunks != (S + kL - 1) / kL || tiles != (dh + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{q, k, v, static_cast<const float*>(g), static_cast<const float*>(li),
@@ -561,12 +757,16 @@ extern "C" int mlstm_chunk_scan_backward_launch(
                static_cast<const float*>(dC), static_cast<const float*>(dn),
                static_cast<float*>(Cin), static_cast<float*>(nin),
                static_cast<float*>(dCo), static_cast<float*>(dno),
+               static_cast<float*>(part), static_cast<float*>(pv),
                static_cast<float*>(W1), static_cast<float*>(W2),
-               static_cast<float*>(rows), static_cast<float*>(pg),
-               static_cast<float*>(pli), dq, dk, dv, static_cast<float*>(dg),
-               static_cast<float*>(dli), B, S, nh, dh, chunks, tiles, fault};
+               static_cast<float*>(rows), static_cast<float*>(stp),
+               static_cast<float*>(pq), static_cast<float*>(pk), dq, dk, dv,
+               static_cast<float*>(dg), static_cast<float*>(dli), B, S, nh, dh, chunks, tiles,
+               vec, fault};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32) return launch<float>(a, s);
-  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, s);
+  const float* cf = static_cast<const float*>(cumf);
+  float* dcf = static_cast<float*>(dcumf);
+  if (dtype == kFloat32) return launch<float>(a, cf, dcf, Q, s);
+  if (dtype == kBFloat16) return launch<__nv_bfloat16>(a, cf, dcf, Q, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -196,41 +196,299 @@ __host__ __device__ constexpr size_t cmax(size_t a, size_t b) {
   return a > b ? a : b;
 }
 
-// ---- the backward kernels' 64 x 64 tiles (mamba_scan_backward.cu,
-// mlstm_scan_backward.cu): blocks of kTileThreads threads, fp32 tiles in
-// shared memory at row stride kLd, each thread holding a 4 x 4 share of a
-// 64 x 64 product (rows t / 16 + 16 x, columns t % 16 + 16 y).
-constexpr int kTileThreads = 256;
-constexpr int kLd = kL + 1;
+// ---- the backward kernels' products on the tensor cores
+// (mamba_scan_backward.cu, mlstm_scan_backward.cu) ----
+namespace bwd {
 
-// acc[x][y] += sum_{k < K} A(r0 + 16 x, k) B(k, c0 + 16 y) (r0 = t / 16,
-// c0 = t % 16); A(r, k) at A[r kLd + k] (at A[k kLd + r] with kAT), B(k,
-// c) at B[k kLd + c] (at B[c kLd + k] with kBT), all in shared memory.
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void mm(float (&acc)[4][4], const float* A, const float* Bt,
-                                   int K) {
-  const int r0 = threadIdx.x / 16, c0 = threadIdx.x % 16;
-  for (int k = 0; k < K; ++k) {
-    float av[4], bv[4];
+// bf16 parts of a split fp32 operand (kernels/mamba_scan.py
+// BACKWARD_PARTS): one part fails the bf16 limit the backwards are held
+// to, two meet it at every product.
+constexpr int kParts = 2;
+constexpr int kPLd = kL + 8;   // bf16 tile row stride (144-byte rows: the
+                               // eight rows of an ldmatrix hit 32 banks)
+constexpr int kFLd = kL + 4;   // fp32 tile row stride (272-byte rows)
+
+// The row stride of a 64-row tile of T (a staged input, or an exact
+// operand's first part).
+template <typename T>
+constexpr int kLdOf = sizeof(T) == 2 ? kPLd : kFLd;
+
+// One 64 x 64 operand of a product: with bf16 inputs kParts bf16 tiles
+// (an fp32 operand split, an exact bf16 one in the first alone), with
+// fp32 inputs one fp32 tile (split into TF32 parts as it is read).
+template <typename T>
+struct Opnd;
+template <>
+struct Opnd<__nv_bfloat16> {
+  __nv_bfloat16 p[kParts][kL][kPLd];
+};
+template <>
+struct Opnd<float> {
+  float f[kL][kFLd];
+};
+
+__device__ __forceinline__ __nv_bfloat16* first(Opnd<__nv_bfloat16>& o) {
+  return &o.p[0][0][0];
+}
+__device__ __forceinline__ float* first(Opnd<float>& o) { return &o.f[0][0]; }
+
+__device__ __forceinline__ float get(const Opnd<__nv_bfloat16>& o, int r,
+                                     int c) {
+  return __bfloat162float(o.p[0][r][c]);
+}
+__device__ __forceinline__ float get(const Opnd<float>& o, int r, int c) {
+  return o.f[r][c];
+}
+
+// The value an operand holds at (r, c): its parts summed (bf16), or as
+// it is (fp32).
+__device__ __forceinline__ float get_all(const Opnd<__nv_bfloat16>& o, int r,
+                                         int c) {
+  float v = 0.f;
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
-      av[x] = kAT ? A[k * kLd + r0 + 16 * x] : A[(r0 + 16 * x) * kLd + k];
+  for (int s = 0; s < kParts; ++s) v += __bfloat162float(o.p[s][r][c]);
+  return v;
+}
+__device__ __forceinline__ float get_all(const Opnd<float>& o, int r, int c) {
+  return o.f[r][c];
+}
+
+// o(r, c) = x0, o(r, c + 1) = x1 (c even): split into kParts bf16 parts,
+// each the rounding of what the ones before leave (as split_bf16x2), or
+// stored as they are.
+__device__ __forceinline__ void put2(Opnd<__nv_bfloat16>& o, int r, int c,
+                                     float x0, float x1) {
 #pragma unroll
-    for (int y = 0; y < 4; ++y)
-      bv[y] = kBT ? Bt[(c0 + 16 * y) * kLd + k] : Bt[k * kLd + c0 + 16 * y];
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-#pragma unroll
-      for (int y = 0; y < 4; ++y) acc[x][y] += av[x] * bv[y];
+  for (int s = 0; s < kParts; ++s) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    const float2 hf = __bfloat1622float2(h);
+    *reinterpret_cast<__nv_bfloat162*>(&o.p[s][r][c]) = h;
+    x0 -= hf.x;
+    x1 -= hf.y;
+  }
+}
+__device__ __forceinline__ void put2(Opnd<float>& o, int r, int c, float x0,
+                                     float x1) {
+  *reinterpret_cast<float2*>(&o.f[r][c]) = make_float2(x0, x1);
+}
+
+// The rows r < rows, columns c < cols of src (row stride ld elements)
+// into the 64 x 64 tile dst (row stride LD), zeros elsewhere: by cp.async,
+// 16 bytes a copy, where `vec` (cols a multiple of 16 bytes, src rows
+// 16-byte aligned), else by plain loads.  The caller commits and waits.
+template <typename T, int LD, int NTHR>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, size_t ld,
+                                          int rows, int cols, bool vec) {
+  constexpr int E = 16 / sizeof(T), PER = kL / E;
+  if (vec) {
+    for (int i = threadIdx.x; i < kL * PER; i += NTHR) {
+      const int r = i / PER, c = i % PER * E;
+      const bool ok = r < rows && c < cols;
+      cp_async16(dst + r * LD + c, ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kL * kL; i += NTHR) {
+      const int r = i / kL, c = i % kL;
+      dst[r * LD + c] = (r < rows && c < cols) ? src[r * ld + c]
+                                               : from_float<T>(0.f);
+    }
   }
 }
 
-// The sum over the 16 threads that share a row of mm's layout (one half
-// of a warp), in a fixed order.
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// o(r, c) = rs[r] st[r][c] over the tile (rs null: 1), st a staged tile
+// of S at row stride kLdOf<S>.
+template <int NTHR, typename T, typename S>
+__device__ __forceinline__ void put_tile(Opnd<T>& o, const S* st,
+                                         const float* rs) {
+  constexpr int LD = kLdOf<S>;
+  for (int i = threadIdx.x; i < kL * kL / 2; i += NTHR) {
+    const int r = i / (kL / 2), c = i % (kL / 2) * 2;
+    const float sc = rs ? rs[r] : 1.f;
+    put2(o, r, c, sc * to_float(st[r * LD + c]),
+         sc * to_float(st[r * LD + c + 1]));
+  }
 }
+
+// ldmatrix row addresses (lane l) of a 16 x 16 A block at (m0, k0) stored
+// [m][k] (frag_a) or [k][m] (frag_akm, read transposed), and of the two
+// 16 x 8 B blocks at (k0, n0 .. n0 + 15) stored [n][k] (frag_bnk) or
+// [k][n] (frag_bkn, read transposed), in mma.m16n8k16's fragment order.
+__device__ __forceinline__ const __nv_bfloat16* frag_a(
+    const __nv_bfloat16* t, int m0, int k0, int l) {
+  return t + (m0 + (l & 7) + ((l >> 3) & 1) * 8) * kPLd + k0 + (l >> 4) * 8;
+}
+__device__ __forceinline__ const __nv_bfloat16* frag_akm(
+    const __nv_bfloat16* t, int m0, int k0, int l) {
+  return t + (k0 + (l & 7) + (l >> 4) * 8) * kPLd + m0 + ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const __nv_bfloat16* frag_bnk(
+    const __nv_bfloat16* t, int k0, int n0, int l) {
+  return t + (n0 + (l & 7) + (l >> 4) * 8) * kPLd + k0 + ((l >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const __nv_bfloat16* frag_bkn(
+    const __nv_bfloat16* t, int k0, int n0, int l) {
+  return t + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * kPLd + n0 + (l >> 4) * 8;
+}
+
+// acc += A B over k < 64 for the warp's 16 x 8 NT tile at (m0, n0), in
+// mma.m16n8k16's accumulator layout (acc[nt][0..1]: row m0 + lane / 4,
+// columns n0 + 8 nt + 2 (lane % 4) + {0, 1}; acc[nt][2..3]: 8 rows
+// down).  A(m, k) at A[m][k] (at A[k][m] with kAkm), B(k, n) at B[n][k]
+// (at B[k][n] with kBkn).  bf16: part i of A against part j of B for i <
+// na, j < nb, i + j < max(na, nb) (an exact operand has na or nb 1; two
+// split ones keep hi hi + hi lo + lo hi), on the tensor cores; fp32: see
+// below.
+template <int NT, bool kAkm, bool kBkn>
+__device__ __forceinline__ void mma_tile(float (&acc)[NT][4],
+                                         const Opnd<__nv_bfloat16>& A,
+                                         int na,
+                                         const Opnd<__nv_bfloat16>& B,
+                                         int nb, int m0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int n = na > nb ? na : nb;
+#pragma unroll
+  for (int ks = 0; ks < kL / 16; ++ks) {
+#pragma unroll
+    for (int i = 0; i < kParts; ++i) {
+      if (i >= na) break;
+      unsigned af[4];
+      if (kAkm)
+        ldmatrix_x4_trans(af, frag_akm(&A.p[i][0][0], m0, 16 * ks, lane));
+      else
+        ldmatrix_x4(af, frag_a(&A.p[i][0][0], m0, 16 * ks, lane));
+#pragma unroll
+      for (int j = 0; j < kParts; ++j) {
+        if (j >= nb || i + j >= n) break;
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          unsigned bf[4];
+          if (kBkn)
+            ldmatrix_x4_trans(bf, frag_bkn(&B.p[j][0][0], 16 * ks,
+                                           n0 + 16 * np, lane));
+          else
+            ldmatrix_x4(bf, frag_bnk(&B.p[j][0][0], 16 * ks, n0 + 16 * np,
+                                     lane));
+          mma_bf16_16816(acc[2 * np], af, bf[0], bf[1]);
+          mma_bf16_16816(acc[2 * np + 1], af, bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+// fp32 operands: three TF32 products (hi hi + hi lo + lo hi, each
+// operand as a TF32 value and the TF32 rounding of what it leaves, about
+// 2^-21 relative) by mma.m16n8k8 on the tensor cores.
+__device__ __forceinline__ unsigned to_tf32(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)[4],
+                                              unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// o.f[r][c], or o.f[c][r] with kT
+template <bool kT>
+__device__ __forceinline__ float elem(const Opnd<float>& o, int r, int c) {
+  return kT ? o.f[c][r] : o.f[r][c];
+}
+template <int NT, bool kAkm, bool kBkn>
+__device__ __forceinline__ void mma_tile(float (&acc)[NT][4],
+                                         const Opnd<float>& A, int,
+                                         const Opnd<float>& B, int, int m0,
+                                         int n0) {
+  const int lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kL; k0 += 8) {
+    // A fragment: rows gq, gq + 8; columns tq, tq + 4
+    const float av[4] = {elem<kAkm>(A, m0 + gq, k0 + tq), elem<kAkm>(A, m0 + gq + 8, k0 + tq),
+                         elem<kAkm>(A, m0 + gq, k0 + tq + 4),
+                         elem<kAkm>(A, m0 + gq + 8, k0 + tq + 4)};
+    unsigned ah[4], al[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      ah[x] = to_tf32(av[x]);
+      al[x] = to_tf32(av[x] - __uint_as_float(ah[x]));
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // B fragment: rows (k) tq, tq + 4; column gq
+      const int n = n0 + 8 * nt + gq;
+      const float b0 = elem<!kBkn>(B, k0 + tq, n), b1 = elem<!kBkn>(B, k0 + tq + 4, n);
+      const unsigned bh0 = to_tf32(b0), bh1 = to_tf32(b1);
+      const unsigned bl0 = to_tf32(b0 - __uint_as_float(bh0));
+      const unsigned bl1 = to_tf32(b1 - __uint_as_float(bh1));
+      mma_tf32_1688(acc[nt], al, bh0, bh1);
+      mma_tf32_1688(acc[nt], ah, bl0, bl1);
+      mma_tf32_1688(acc[nt], ah, bh0, bh1);
+    }
+  }
+}
+
+// The sum over the four lanes of a quad (one row of a fragment), in a
+// fixed order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The backward's rebase (kernels/mamba_scan.py:rebase): the caller's
+// log-decay cumsum cum [B, S, nh], restarted every Q rows, as g [B, chunks
+// * kL, nh], restarted every kernel chunk, 0 past S.  One thread a (b,
+// kernel row, head): g_t = cum_t - cum_{s0 - 1} (if the chunk starts
+// inside a caller chunk) + the last cum of every caller chunk that ends in
+// [s0, t), summed in row order.
+static __global__ void __launch_bounds__(256) rebase_kernel(const float* __restrict__ cum,
+                                                     float* __restrict__ g, int B,
+                                                     int S, int Q, int nh, int chunks) {
+  const size_t total = static_cast<size_t>(B) * chunks * kL * nh;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= total) return;
+  const int hd = i % nh;
+  const size_t bt = i / nh;
+  const int t = bt % (static_cast<size_t>(chunks) * kL), b = bt / (static_cast<size_t>(chunks) * kL);
+  const int s0 = t / kL * kL;
+  const float* c = cum + static_cast<size_t>(b) * S * nh + hd;
+  float v = 0.f;
+  if (t < S) {
+    v = c[static_cast<size_t>(t) * nh] - (s0 % Q ? c[static_cast<size_t>(s0 - 1) * nh] : 0.f);
+    for (int u = s0; u < t; ++u)
+      if (u % Q == Q - 1) v += c[static_cast<size_t>(u) * nh];
+  }
+  g[i] = v;
+}
+
+// Its adjoint (kernels/mamba_scan.py:rebase_adjoint): dg [B, chunks * kL,
+// nh] (rows past S ignored) -> dcum [B, S, nh].  Row u takes its own dg,
+// the dg of every later row of its kernel chunk where u ends a caller
+// chunk, less the whole dg of the kernel chunk that starts at u + 1 inside
+// a caller chunk; each sum in row order.
+static __global__ void __launch_bounds__(256) rebase_adjoint_kernel(const float* __restrict__ dg,
+                                                             float* __restrict__ dcum, int B,
+                                                             int S, int Q, int nh, int chunks) {
+  const size_t total = static_cast<size_t>(B) * S * nh;
+  const size_t i = static_cast<size_t>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= total) return;
+  const int hd = i % nh;
+  const size_t bu = i / nh;
+  const int u = bu % S, b = bu / S;
+  const float* d = dg + static_cast<size_t>(b) * chunks * kL * nh + hd;
+  const int s0 = u / kL * kL, end = min(s0 + kL, S);
+  float v = d[static_cast<size_t>(u) * nh];
+  if (u % Q == Q - 1)
+    for (int t = u + 1; t < end; ++t) v += d[static_cast<size_t>(t) * nh];
+  if (u + 1 == s0 + kL && u + 1 < S && (u + 1) % Q) {
+    float base = 0.f;
+    for (int t = u + 1; t < min(u + 1 + kL, S); ++t) base += d[static_cast<size_t>(t) * nh];
+    v -= base;
+  }
+  dcum[i] = v;
+}
+
+}  // namespace bwd
 
 }  // namespace scan

@@ -27,11 +27,16 @@ mamba_scan_backward.cu``) is registered as the op's autograd.  The TPU
 kernel has no backward (the reference differentiates its pure-JAX
 ``ssm.py`` scan); this one is the port's own.  The forward keeps its
 schema and saves nothing, so the backward recomputes the state entering
-each kernel chunk by the forward's ordered pass and runs the same pass
-backwards for the cotangent of the state leaving it, then per (b,
-kernel chunk, head) forms dx̄, the head's share of dB and dC, and dg,
-and sums the heads' shares in order; fp32 on the CUDA cores.  The
-rebase is the wrapper's (``rebase``, and ``rebase_adjoint`` for dcum).
+each kernel chunk but the first by the forward's ordered pass and runs
+the same pass backwards for the cotangent of the state leaving each but
+the last, then per (b, kernel chunk, group of heads,
+``plan_scan_backward``) forms dx̄, dg and the group's share of dB and
+dC, and sums the shares in order.  bf16 B and C run every product on
+the tensor cores, each fp32 operand split into ``BACKWARD_PARTS`` bf16
+parts; fp32 ones as three TF32 products (3xTF32).  The rebase and its adjoint are
+launches of the kernel too (``rebase``, ``rebase_adjoint`` are their
+plain versions).  ``mamba_chunk_scan_backward_staged`` is its plan and
+rounding in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -145,15 +150,41 @@ def unchunked(t: torch.Tensor, nc: int, Q: int) -> torch.Tensor:
         B, nc, Q, *t.shape[3:])
 
 
-def split_bf16(x: torch.Tensor, *, fault: int = 0) -> torch.Tensor:
-    """x as the kernels' bf16 products see an fp32 operand: three bf16
-    parts, each the rounding of what the ones before leave (x to ~2^-26),
-    summed in fp32; only the first with FAULT_SPLIT_LOW."""
-    out = torch.zeros_like(x)
-    for _ in range(1 if fault & FAULT_SPLIT_LOW else SPLIT_PARTS):
-        part = (x - out).to(torch.bfloat16).float()
-        out = out + part
+def split_bf16(x: torch.Tensor, *, fault: int = 0,
+               parts: int = SPLIT_PARTS) -> torch.Tensor:
+    """x as the kernels' bf16 products see an fp32 operand: ``parts`` bf16
+    parts (the forwards' three: x to ~2^-26), each the rounding of what
+    the ones before leave, summed in fp32; only the first with
+    FAULT_SPLIT_LOW."""
+    return sum(bf16_parts(x, 1 if fault & FAULT_SPLIT_LOW else parts))
+
+
+def bf16_parts(x: torch.Tensor, parts: int) -> list:
+    """x as ``parts`` bf16 values (held in x's dtype), each the rounding of
+    what the ones before leave (``scan::split_bf16x2``)."""
+    out, rest = [], x
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).to(x.dtype)
+        out.append(part)
+        rest = rest - part
     return out
+
+
+def split_product(eq: str, a: torch.Tensor, b: torch.Tensor,
+                  parts) -> torch.Tensor:
+    """``torch.einsum(eq, a, b)`` as the bf16 backward kernels form it
+    (``scan::mma_parts``): each operand as ``parts`` bf16 parts, part i of
+    a against part j of b where i + j < parts, in fp32.  An operand that
+    is a bf16 input has one part that is not zero, so a product with one
+    fp32 operand takes all of that operand's parts, and one of two fp32
+    operands keeps the cross terms down to the same order (for two
+    parts: hi·hi + hi·lo + lo·hi).  ``parts`` None: the plain fp32
+    product."""
+    if parts is None:
+        return torch.einsum(eq, a, b)
+    A, Bp = bf16_parts(a, parts), bf16_parts(b, parts)
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(A)
+               for j, y in enumerate(Bp) if i + j < parts)
 
 
 def last_rows(g: torch.Tensor, S: int) -> torch.Tensor:
@@ -339,9 +370,34 @@ mamba_chunk_scan.launches = 0    # kernel launches (CUDA path only)
 # ------------------------------------------------------------- backward --
 BACKWARD_SOURCE = "src/repro_torch/csrc/mamba_scan_backward.cu"
 BACKWARD_MAX_P = 64     # csrc/mamba_scan_backward.cu: one block holds all P
+# bf16 parts of a split operand in both scans' backward kernels (csrc/
+# scan.cuh kBwdParts): one part fails the bf16 limit, two meet it
+BACKWARD_PARTS = 2
 # planted faults of the backward (csrc kFault*), for the checks only
 FAULT_WRONG_COTANGENT = 1   # chunk c reads the cotangent leaving c + 1
-FAULT_DROP_HEAD = 2         # the head sum of dB drops the last head
+FAULT_DROP_GROUP = 2        # dB's sum of the head groups drops the last
+FAULT_ONE_PART = 4          # every split operand cut to its first part
+
+
+class BackwardPlan(NamedTuple):
+    """The SSD backward's chunk blocks: each walks ``group`` heads of one
+    (b, kernel chunk), B and C loaded once for them, and writes one share
+    of dB and dC; launch 3 sums the ``groups`` shares in order."""
+    group: int
+    groups: int
+
+
+@functools.lru_cache(maxsize=512, typed=True)
+def plan_scan_backward(B: int, chunks: int, nh: int,
+                       sms: int) -> BackwardPlan:
+    """From shapes and the SM count only: the most heads a block (8, 4, 2
+    or 1) that still give every SM a block (a train step's 8 rows of two
+    kernel chunks on 132 SMs: groups of 4, 256 blocks; a 300-token
+    prompt's five kernel chunks: groups of 2, 160 blocks)."""
+    g = 8
+    while g > 1 and B * chunks * -(-nh // g) < sms:
+        g //= 2
+    return BackwardPlan(g, -(-nh // g))
 
 
 def _last_put(dg: torch.Tensor, S: int, add: torch.Tensor) -> torch.Tensor:
@@ -418,6 +474,77 @@ def mamba_chunk_scan_backward_plain(xbar, B_c, C_c, cum, dy, dstate=None):
             rebase_adjoint(dg, plan, nc, Q).to(cum.dtype))
 
 
+def mamba_chunk_scan_backward_staged(xbar, B_c, C_c, cum, dy, dstate=None, *,
+                                     parts=None, group: int = 4,
+                                     fault: int = 0):
+    """The backward kernel's plan and stages in plain PyTorch, in fp32.
+    Launch 1's passes store only what is read: the state entering chunks
+    1..n−1 (chunk 0's is zero) and the cotangent leaving chunks 0..n−2
+    (the last chunk's is ``dstate``), so neither forms the product of the
+    chunk it ends on.  Launch 2 walks ``group`` heads per (b, kernel
+    chunk), C Bᵀ formed once for them, and sums their dB and dC into the
+    group's share; launch 3 sums the shares in group order.  With
+    ``parts`` every product with an fp32 operand sees it as the bf16
+    kernel does (``split_product``); C Bᵀ is exact either way.  Same
+    arguments and results as ``mamba_chunk_scan_backward_plain``;
+    ``fault`` plants the kernel's faults."""
+    B, nc, Q, nh, P = xbar.shape
+    plan = plan_scan(nc, Q)
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    if parts and fault & FAULT_ONE_PART:
+        parts = 1
+    sp = lambda eq, a, b: split_product(eq, a, b, parts)
+    g = rebase(cum.float(), plan)                        # [B,n,L,nh]
+    gl = last_rows(g, S)                                 # [B,n,nh]
+    x, dyc = chunked(xbar.float(), plan), chunked(dy.float(), plan)
+    Bm, Cm = chunked(B_c.float(), plan), chunked(C_c.float(), plan)
+    rows = _valid_rows(plan, S, g.device)                # [n,L]
+    valid = rows[None, :, :, None]
+    ws = torch.exp(gl[:, :, None] - g) * valid           # e^{gl - g_j}
+    eg = torch.exp(g) * valid                            # e^{g_i}
+    decay = torch.exp(gl)                                # [B,n,nh]
+    zero = x.new_zeros(B, nh, P, Bm.shape[-1])
+    hin, dho = [zero] * n, [None] * n
+    for c in range(n - 1):                               # forward blocks
+        hin[c + 1] = hin[c] * decay[:, c, :, None, None] + sp(
+            "bjhp,bjn->bhpn", ws[:, c, ..., None] * x[:, c], Bm[:, c])
+    dho[n - 1] = zero if dstate is None else dstate.float()
+    for c in range(n - 1, 0, -1):                        # reverse blocks
+        dho[c - 1] = dho[c] * decay[:, c, :, None, None] + sp(
+            "bihp,bin->bhpn", eg[:, c, ..., None] * dyc[:, c], Cm[:, c])
+    src = [min(c + 1, n - 1) if fault & FAULT_WRONG_COTANGENT else c
+           for c in range(n)]
+    H = torch.stack(hin, 1)                              # [B,n,nh,P,N]
+    Dh = torch.stack([dho[c] for c in src], 1)
+    keep = (_causal(L, 0, g.device)[None] & rows[:, :, None])[
+        None, ..., None]
+    e = torch.where(keep, torch.exp(g[:, :, :, None] - g[:, :, None, :]),
+                    0.0)                                 # [B,n,i,j,nh]
+    M = torch.einsum("bcin,bcjn->bcij", Cm, Bm)[..., None] * e
+    Dd = sp("bcihp,bcjhp->bcijh", dyc, x)                # dy_i · x̄_j
+    Ap, A = e * Dd, M * Dd
+    dxs = ws[..., None] * sp("bchpn,bcjn->bcjhp", Dh, Bm)
+    dx = sp("bcijh,bcihp->bcjhp", M, dyc) + dxs
+    dBh = sp("bcijh,bcin->bcjhn", Ap, Cm) + ws[..., None] * sp(
+        "bcjhp,bchpn->bcjhn", x, Dh)
+    car = eg[..., None] * sp("bcihp,bchpn->bcihn", dyc, H)
+    dCh = sp("bcijh,bcjn->bcihn", Ap, Bm) + car
+    shares = lambda t: [t[:, :, :, h0:h0 + group].sum(3)
+                        for h0 in range(0, nh, group)]
+    bs, cs = shares(dBh), shares(dCh)
+    dB = sum(bs[:-1] if fault & FAULT_DROP_GROUP else bs,
+             torch.zeros_like(bs[0]))
+    dC = sum(cs)
+    xd = (x * dxs).sum(-1)                               # [B,n,L,nh]
+    dg = A.sum(3) - A.sum(2) + torch.einsum("bcihn,bcin->bcih", car, Cm) \
+        - xd
+    dg = _last_put(dg, S, decay * (Dh * H).sum((-1, -2)) + xd.sum(2))
+    return (unchunked(dx, nc, Q).to(xbar.dtype),
+            unchunked(dB, nc, Q).to(B_c.dtype),
+            unchunked(dC, nc, Q).to(C_c.dtype),
+            rebase_adjoint(dg, plan, nc, Q).to(cum.dtype))
+
+
 @torch.library.custom_op("repro_torch::mamba_chunk_scan_backward",
                          mutates_args=())
 def _scan_bwd_op(xbar: torch.Tensor, B_c: torch.Tensor, C_c: torch.Tensor,
@@ -439,18 +566,20 @@ def _scan_bwd_fake(xbar, B_c, C_c, cum, dy, dstate):
             torch.empty_like(C_c), torch.empty_like(cum))
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 \
+_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 11 \
     + [ctypes.c_void_p]
 
 
 def _launch_backward(xbar, B_c, C_c, cum, dy, dstate, fault: int = 0):
-    """One run of the backward kernel (three launches) on CUDA tensors,
-    with the rebase and its adjoint around it; ``fault`` plants a fault
-    for the checks only.  Scratch: the state entering and the cotangent
-    leaving each kernel chunk, nh·P·N·4 bytes each a kernel chunk and
-    batch row (1 MiB at zamba2-1.2b: 32 MiB for a train step's batch 8 of
-    two kernel chunks), and each head's share of dB and dC (as much
-    again)."""
+    """One run of the backward kernel on CUDA tensors: six launches (four
+    with one kernel chunk), the rebase of cum first and its adjoint last
+    (``rebase``, ``rebase_adjoint``); ``fault`` plants a fault for the
+    checks only.  Scratch: the rebased cum and its gradient, the state
+    entering each kernel chunk but the first and the cotangent leaving
+    each but the last (the last chunk's is ``dstate``, read in place),
+    nh·P·N·4 bytes each a kernel chunk and batch row (1 MiB at
+    zamba2-1.2b: 16 MiB for a train step's batch 8 of two kernel chunks),
+    and each head group's share of dB and dC (``plan_scan_backward``)."""
     B, nc, Q, nh, P = xbar.shape
     N = B_c.shape[-1]
     f32 = torch.float32
@@ -479,22 +608,25 @@ def _launch_backward(xbar, B_c, C_c, cum, dy, dstate, fault: int = 0):
     dx, dB, dC = (torch.empty_like(t) for t in (xbar, B_c, C_c))
     if xbar.numel() == 0:
         return dx, dB.zero_(), dC.zero_(), torch.zeros_like(cum)
-    g = rebase(cum, plan).contiguous()                   # [B,n,L,nh]
-    hin = xbar.new_empty(n, B, nh, P, N)
-    dho = xbar.new_empty(n, B, nh, P, N)
-    dBh = xbar.new_empty(B, n, nh, L, N)
-    dCh = xbar.new_empty(B, n, nh, L, N)
-    dg = torch.empty_like(g)
+    bp = plan_scan_backward(B, n, nh, _build.sm_count(xbar.device))
+    g, dg = xbar.new_empty(B, n, L, nh), xbar.new_empty(B, n, L, nh)
+    hin = xbar.new_empty(n - 1, B, nh, P, N)
+    dho = xbar.new_empty(n - 1, B, nh, P, N)
+    dBg = xbar.new_empty(B, n, bp.groups, L, N)
+    dCg = xbar.new_empty(B, n, bp.groups, L, N)
+    dcum = torch.empty_like(cum)
+    # 16-byte rows: cp.async; else the kernel's plain loads
+    vec = int(P % 4 == 0 and N * B_c.element_size() % 16 == 0 and N % 4 == 0
+              and all(t.data_ptr() % 16 == 0
+                      for t in (xbar, dy, B_c, C_c, dstate, hin, dho)))
     fn = _build.entry("mamba_chunk_scan_backward_launch", _BWD_ARGTYPES)
-    _build.check(fn(xbar.data_ptr(), B_c.data_ptr(), C_c.data_ptr(),
-                    g.data_ptr(), dy.data_ptr(), dstate.data_ptr(),
-                    hin.data_ptr(), dho.data_ptr(), dx.data_ptr(),
-                    dB.data_ptr(), dC.data_ptr(), dBh.data_ptr(),
-                    dCh.data_ptr(), dg.data_ptr(), B, nc * Q, nh, P, N, n,
-                    _build.DTYPE_CODES[B_c.dtype], fault,
+    ptrs = (xbar, B_c, C_c, cum, dy, dstate, g, hin, dho, dx, dB, dC, dBg,
+            dCg, dg, dcum)
+    _build.check(fn(*(t.data_ptr() for t in ptrs), B, nc * Q, Q, nh, P, N,
+                    n, bp.group, _build.DTYPE_CODES[B_c.dtype], vec, fault,
                     _build.stream_handle(xbar)),
                  "mamba_chunk_scan_backward")
-    return dx, dB, dC, rebase_adjoint(dg, plan, nc, Q)
+    return dx, dB, dC, dcum
 
 
 @_scan_bwd_op.register_kernel("cuda")

@@ -29,10 +29,15 @@ mlstm_scan_backward.cu``) is registered as the op's autograd.  The TPU
 kernel has no backward (the reference differentiates its pure-JAX
 ``xlstm.py`` scan); this one is the port's own.  The forward keeps its
 schema and saves only y, so the backward recomputes the state (C, n)
-entering each kernel chunk and the normaliser, runs the ordered pass
-backwards for the state's cotangent, then per (b, kernel chunk, head, 64
-columns of d) forms dq, dk, dv and its part of dg and dli, summed over
-the column tiles in order; fp32 on the CUDA cores.
+entering each kernel chunk but the first and the normaliser, runs the
+ordered pass backwards for the cotangent of the state leaving each but
+the last, then per (b, kernel chunk, head, 64 columns) forms dq, dk and
+dv and their parts of dg and dli, summed over the column tiles in order.
+bf16 inputs run every product on the tensor cores, each fp32 operand
+split into ``mamba_scan.BACKWARD_PARTS`` bf16 parts; fp32 inputs as
+three TF32 products (3xTF32).  The rebase of cumf and its adjoint are launches of the
+kernel too.  ``mlstm_chunk_scan_backward_staged`` is its plan and
+rounding in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -43,12 +48,13 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import plain_float
-from repro_torch.kernels.mamba_scan import (FAULT_WRONG_COTANGENT,
+from repro_torch.kernels.mamba_scan import (FAULT_ONE_PART,
+                                            FAULT_WRONG_COTANGENT,
                                             FAULT_WRONG_STATE, MAX_Q, _causal,
                                             _last_put, _valid_rows, chunked,
                                             last_rows, plan_scan, rebase,
                                             rebase_adjoint, split_bf16,
-                                            unchunked)
+                                            split_product, unchunked)
 
 SOURCE = "src/repro_torch/csrc/mlstm_scan.cu"
 REPLACES = "src/repro/kernels/mlstm.py:54"
@@ -245,9 +251,128 @@ mlstm_chunk_scan.launches = 0    # kernel launches (CUDA path only)
 
 # ------------------------------------------------------------- backward --
 BACKWARD_SOURCE = "src/repro_torch/csrc/mlstm_scan_backward.cu"
-# planted fault of the backward (csrc kFaultDropTile), for the checks only;
-# FAULT_WRONG_COTANGENT is the SSD backward's
+BACKWARD_TILE = 64      # columns of d a block of launches 2 to 4 owns
+# planted faults of the backward (csrc kFault*), for the checks only;
+# FAULT_WRONG_COTANGENT (1) and FAULT_ONE_PART (4) are the SSD backward's
 FAULT_DROP_TILE = 2     # the sum of dg's column-tile parts drops the last
+FAULT_ROWS_DROP_TILE = 8     # launch 2's sum of the d tiles' scores drops
+                             # the last tile
+FAULT_STATE_DROP_TILE = 16   # the sum of <dC'_out, C'_in>'s tile parts
+                             # drops the last tile
+
+
+def _tile_parts(x: torch.Tensor, T: int) -> torch.Tensor:
+    """x [..., dh] -> [..., T]: the sums over each 64-column tile."""
+    x = torch.nn.functional.pad(x, (0, T * BACKWARD_TILE - x.shape[-1]))
+    return x.reshape(*x.shape[:-1], T, BACKWARD_TILE).sum(-1)
+
+
+def mlstm_chunk_scan_backward_staged(q, k, v, cumf, li, y, dy, dC=None,
+                                     dn=None, *, parts=None, fault: int = 0):
+    """The backward kernel's plan and stages in plain PyTorch, in fp32.
+    Launches 1 and 3, the ordered passes, store only what is read: the
+    state entering chunks 1..n−1 (chunk 0's is zero) and the cotangent
+    leaving chunks 0..n−2 (the last chunk's is (dC, dn)), so neither forms
+    the product of the chunk it ends on; launch 3 also forms <dC'_out,
+    C'_in> of each chunk from its 64 x 64 tiles.  Launch 2 forms q kᵀ,
+    dy vᵀ, q·n_in and dy·y per 64 columns of d and sums the tiles in
+    order.  Launch 4 forms dq, dk (per 64 columns of d) and dv (per 64
+    columns of e), each with its part of dg and dli, which launch 5 sums
+    over the tiles in order.  With ``parts`` every product with an fp32
+    operand sees it as the bf16 kernel does (``split_product``); q kᵀ is
+    exact either way.  Same arguments and results as
+    ``mlstm_chunk_scan_backward_plain``; ``fault`` plants the kernel's
+    faults."""
+    B, nc, Q, nh, dh = q.shape
+    plan = plan_scan(nc, Q)
+    S, L, n = nc * Q, plan.chunk, plan.chunks
+    T = -(-dh // BACKWARD_TILE)
+    if parts and fault & FAULT_ONE_PART:
+        parts = 1
+    sp = lambda eq, a, b: split_product(eq, a, b, parts)
+    g = rebase(cumf.float(), plan)                       # [B,n,L,nh]
+    gl = last_rows(g, S)                                 # [B,n,nh]
+    qc, kc, vc, yc, dyc = (chunked(t.float(), plan)
+                           for t in (q, k, v, y, dy))
+    lic = chunked(li.float(), plan)
+    rows = _valid_rows(plan, S, g.device)                # [n,L]
+    valid = rows[None, :, :, None]
+    ws = torch.exp(gl[:, :, None] - g + lic) * valid     # e^{gl-g_j+li_j}
+    eg = torch.exp(g) * valid                            # e^{g_i}
+    decay = torch.exp(gl)                                # [B,n,nh]
+    zero = qc.new_zeros(B, nh, dh, dh)
+    Cin, nin = [zero] * n, [zero[..., 0]] * n
+    for c in range(n - 1):                               # launch 1
+        kw = ws[:, c, ..., None] * kc[:, c]
+        Cin[c + 1] = Cin[c] * decay[:, c, :, None, None] + sp(
+            "bjhd,bjhe->bhde", kw, vc[:, c])
+        nin[c + 1] = nin[c] * decay[:, c, :, None] + kw.sum(1)
+    Cin, nin = torch.stack(Cin, 1), torch.stack(nin, 1)  # [B,n,nh,dh(,dh)]
+    # launch 2: the d tiles' q kᵀ, dy vᵀ, q·n_in, dy·y summed in order
+    drop = bool(fault & FAULT_ROWS_DROP_TILE)
+    tiles = lambda f: sum((f(slice(BACKWARD_TILE * t, BACKWARD_TILE * (t + 1)))
+                           for t in range(T - 1 if drop else T)),
+                          torch.zeros_like(f(slice(0, 0))))
+    Sc = tiles(lambda s: torch.einsum("bcihd,bcjhd->bcijh", qc[..., s],
+                                      kc[..., s]))
+    Dv = tiles(lambda s: sp("bcihd,bcjhd->bcijh", dyc[..., s], vc[..., s]))
+    qn = tiles(lambda s: (qc[..., s] * nin[:, :, None, :, s]).sum(-1))
+    dyy = tiles(lambda s: (dyc[..., s] * yc[..., s]).sum(-1))
+    keep = (_causal(L, 0, g.device)[None] & rows[:, :, None])[
+        None, ..., None]                                 # [1,n,L,L,1]
+    w = torch.where(keep, torch.exp(g[:, :, :, None] - g[:, :, None, :]
+                                    + lic[:, :, None]), 0.0)
+    den = (w * Sc).sum(3) + eg * qn
+    m = torch.clamp_min(den.abs(), 1.0)
+    rs = 1.0 / m
+    dden = torch.where(den.abs() > 1.0, -torch.sign(den) * dyy / m, 0.0)
+    W1 = w * (rs[:, :, :, None] * Dv + dden[:, :, :, None])
+    W2 = w * Sc
+    A = W1 * Sc
+    # launch 3: the cotangent leaving each chunk, from (dC, dn) backwards
+    dCo = [None] * n
+    dno = [None] * n
+    dCo[n - 1] = zero if dC is None else dC.float()
+    dno[n - 1] = zero[..., 0] if dn is None else dn.float()
+    for c in range(n - 1, 0, -1):
+        dCo[c - 1] = dCo[c] * decay[:, c, :, None, None] + sp(
+            "bihd,bihe->bhde", qc[:, c],
+            (eg * rs)[:, c, ..., None] * dyc[:, c])
+        dno[c - 1] = dno[c] * decay[:, c, :, None] + torch.einsum(
+            "bih,bihd->bhd", (eg * dden)[:, c], qc[:, c])
+    dCo, dno = torch.stack(dCo, 1), torch.stack(dno, 1)
+    st_tiles = torch.nn.functional.pad(
+        dCo * Cin, (0, T * BACKWARD_TILE - dh, 0, T * BACKWARD_TILE - dh))
+    st_tiles = st_tiles.reshape(B, n, nh, T, BACKWARD_TILE, T,
+                                BACKWARD_TILE).sum((4, 6)).flatten(3)
+    st_tiles[..., ::T] += _tile_parts(dno * nin, T)      # n: e tile 0's
+    st = sum((st_tiles[..., i] for i in range(
+        T * T - 1 if fault & FAULT_STATE_DROP_TILE else T * T)),
+        torch.zeros_like(st_tiles[..., 0]))
+    src = [min(c + 1, n - 1) if fault & FAULT_WRONG_COTANGENT else c
+           for c in range(n)]
+    dCs, dns = dCo[:, src], dno[:, src]
+    # launch 4: dq, dk per d tile, dv per e tile
+    cq = eg[..., None] * (rs[..., None] * sp("bcihe,bchde->bcihd", dyc, Cin)
+                          + nin[:, :, None] * dden[..., None])
+    dq = sp("bcijh,bcjhd->bcihd", W1, kc) + cq
+    dks = ws[..., None] * (sp("bcjhe,bchde->bcjhd", vc, dCs)
+                           + dns[:, :, None])
+    dk = sp("bcijh,bcihd->bcjhd", W1, qc) + dks
+    dv = sp("bcijh,bcihe->bcjhe", rs[:, :, :, None] * W2, dyc) + \
+        ws[..., None] * sp("bcjhd,bchde->bcjhe", kc, dCs)
+    # launch 5: dg, dli from the tiles' parts in order
+    kept = T - 1 if fault & FAULT_DROP_TILE else T
+    car = _tile_parts(qc * cq, T)[..., :kept].sum(-1)   # [B,n,L,nh]
+    ks = _tile_parts(kc * dks, T)[..., :kept].sum(-1)
+    dg = A.sum(3) - A.sum(2) + car - ks
+    dg = _last_put(dg, S, decay * st + ks.sum(2))
+    dli = A.sum(2) + ks
+    return (unchunked(dq, nc, Q).to(q.dtype), unchunked(dk, nc, Q).to(k.dtype),
+            unchunked(dv, nc, Q).to(v.dtype),
+            rebase_adjoint(dg, plan, nc, Q).to(cumf.dtype),
+            unchunked(dli, nc, Q).to(li.dtype))
+
 
 
 def mlstm_chunk_scan_backward_plain(q, k, v, cumf, li, y, dy, dC=None,
@@ -359,18 +484,22 @@ def _scan_bwd_fake(q, k, v, cumf, li, y, dy, dC, dn):
     return tuple(torch.empty_like(t) for t in (q, k, v, cumf, li))
 
 
-_BWD_ARGTYPES = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 8 \
+_BWD_ARGTYPES = [ctypes.c_void_p] * 28 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p]
 
 
 def _launch_backward(q, k, v, cumf, li, y, dy, dC, dn, fault: int = 0):
-    """One run of the backward kernel (five launches) on CUDA tensors,
-    with the rebase and its adjoint around it; ``fault`` plants a fault
-    for the checks only.  Scratch: the state entering and the cotangent
-    leaving each kernel chunk, nh·dh·(dh + 1)·4 bytes each a kernel chunk
-    and batch row (4 MiB at xlstm-350m: 128 MiB for a train step's batch 8
-    of two kernel chunks), two [64, 64] weight matrices per (b, kernel
-    chunk, head) and dg's parts per 64 columns of d."""
+    """One run of the backward kernel on CUDA tensors: eight launches
+    (six with one kernel chunk), the rebase of cumf first and its adjoint
+    last (``rebase``, ``rebase_adjoint``); ``fault`` plants a fault for
+    the checks only.  Scratch: the rebased cumf and its gradient, the state
+    entering each kernel chunk but the first and the cotangent leaving
+    each but the last (the last chunk's is (dC, dn), read in place),
+    nh·dh·(dh + 1)·4 bytes each a kernel chunk and batch row (4 MiB at
+    xlstm-350m: 64 MiB for a train step's batch 8 of two kernel chunks);
+    per (b, kernel chunk, head) each 64-column tile's q kᵀ and dy vᵀ (2
+    MiB at dh 512) and the two weighted [64, 64] matrices; dg's parts per
+    64 columns of d and <dC'_out, C'_in>'s per state tile."""
     B, nc, Q, nh, dh = q.shape
     f32 = torch.float32
     _build.require(q.dtype in _build.DTYPE_CODES and k.dtype == q.dtype
@@ -393,26 +522,31 @@ def _launch_backward(q, k, v, cumf, li, y, dy, dC, dn, fault: int = 0):
                    f"mlstm_chunk_scan_backward: Q={Q}, dh={dh} not supported")
     plan = plan_scan(nc, Q)
     L, n = plan.chunk, plan.chunks
-    T = -(-dh // 64)
+    T = -(-dh // BACKWARD_TILE)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv, torch.zeros_like(cumf), torch.zeros_like(li)
-    g = rebase(cumf, plan).contiguous()                  # [B,n,L,nh]
     new = lambda *s: q.new_empty(*s, dtype=f32)
-    Cin, dCo = new(n, B, nh, dh, dh), new(n, B, nh, dh, dh)
-    nin, dno = new(n, B, nh, dh), new(n, B, nh, dh)
+    g, dg = new(B, n, L, nh), new(B, n, L, nh)           # cumf rebased
+    Cin, dCo = new(n - 1, B, nh, dh, dh), new(n - 1, B, nh, dh, dh)
+    nin, dno = new(n - 1, B, nh, dh), new(n - 1, B, nh, dh)
+    part, pv = new(B, n, nh, T, 2, L, L), new(B, n, nh, T, 2, L)
     W1, W2 = new(B, n, nh, L, L), new(B, n, nh, L, L)
     rows = new(4, B, n, nh, L)          # 1 / m, dden, rowA - colA, colA
-    pg, pli = new(B, n, T, L, nh), new(B, n, T, L, nh)
-    dg, dli = torch.empty_like(g), torch.empty_like(li)
+    stp = new(B, n, nh, T * T)
+    pq, pk = new(B, n, T, L, nh), new(B, n, T, L, nh)
+    dcumf, dli = torch.empty_like(cumf), torch.empty_like(li)
+    # 16-byte rows: cp.async; else the kernel's plain loads
+    vec = int(dh * q.element_size() % 16 == 0 and dh % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (q, k, v, y, dy, dC, Cin, dCo)))
     fn = _build.entry("mlstm_chunk_scan_backward_launch", _BWD_ARGTYPES)
-    ptrs = (q, k, v, g, li, y, dy, dC, dn, Cin, nin, dCo, dno, W1, W2, rows,
-            pg, pli, dq, dk, dv, dg, dli)
-    _build.check(fn(*(t.data_ptr() for t in ptrs), B, nc * Q, nh, dh, n, T,
-                    _build.DTYPE_CODES[q.dtype], fault,
+    ptrs = (q, k, v, cumf, li, y, dy, dC, dn, g, Cin, nin, dCo, dno, part,
+            pv, W1, W2, rows, stp, pq, pk, dq, dk, dv, dg, dcumf, dli)
+    _build.check(fn(*(t.data_ptr() for t in ptrs), B, nc * Q, Q, nh, dh, n,
+                    T, _build.DTYPE_CODES[q.dtype], vec, fault,
                     _build.stream_handle(q)),
                  "mlstm_chunk_scan_backward")
-    return dq, dk, dv, rebase_adjoint(dg, plan, nc, Q), dli
+    return dq, dk, dv, dcumf, dli
 
 
 @_scan_bwd_op.register_kernel("cuda")

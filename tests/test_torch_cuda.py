@@ -1020,18 +1020,23 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
 
 # ------------------------------------------------------ scan backwards ----
 # (B, Q, nc): a train step's rows of zamba2-1.2b and xlstm-350m (batch 8 of
-# seq 128), the 300-token prompt's two chunks of 150, and 70 chunks of one
-# row (kernel chunks of 64 and 6 across the caller chunks)
-SCAN_BWD_CASES = [(8, 128, 1), (1, 150, 2), (2, 1, 70)]
+# seq 128), the 300-token prompt's two chunks of 150, 70 chunks of one
+# row (kernel chunks of 64 and 6 across the caller chunks), 200 rows (four
+# kernel chunks, the last of 8: the middle ones have a nonzero entering
+# state and a nonzero leaving cotangent), three full kernel chunks across
+# two caller chunks of 96, and one row
+SCAN_BWD_CASES = [(8, 128, 1), (1, 150, 2), (2, 1, 70), (1, 200, 1),
+                  (2, 96, 2), (1, 1, 1)]
 SCAN_BWDS = {"mamba": (K.mamba_chunk_scan_backward,
                        K.mamba_chunk_scan_backward_plain),
              "mlstm": (K.mlstm_chunk_scan_backward,
                        K.mlstm_chunk_scan_backward_plain)}
 
 
-def _scan_bwd_args(dev, which, B, Q, nc, dt):
+def _scan_bwd_args(dev, which, B, Q, nc, dt, decay=1.0):
     """The forward's inputs at full width with ``dt`` for B, C or q, k, v,
-    y (mLSTM) and nonzero cotangents of every output."""
+    y (mLSTM) and nonzero cotangents of every output; ``decay`` scales the
+    mLSTM's log forget gates."""
     rn = _randn(dev, 21)
     if which == "mamba":                 # nh = P = N = 64
         ins = (rn(B, nc, Q, 64, 64) * 0.5, (rn(B, nc, Q, 64) * 0.5).to(dt),
@@ -1041,7 +1046,7 @@ def _scan_bwd_args(dev, which, B, Q, nc, dt):
         return (*ins, *(rn(*o.shape) for o in outs))
     ins = (*((rn(B, nc, Q, 4, 512) * 512 ** -0.25).to(dt)  # nh 4, dh 512
              for _ in range(2)), rn(B, nc, Q, 4, 512).to(dt),
-           torch.cumsum(-rn(B, nc, Q, 4).abs() * 0.2, 2),
+           torch.cumsum(-rn(B, nc, Q, 4).abs() * 0.2, 2) * decay,
            torch.clamp_max(rn(B, nc, Q, 4), 8.0))
     outs = K.mlstm_chunk_scan(*ins)
     return (*ins, outs[0], *(rn(*o.shape) for o in outs))
@@ -1077,17 +1082,54 @@ def test_scan_backwards_match_plain(cuda, which, B, Q, nc, dt):
     assert all(torch.equal(g, h) for g, h in zip(got, again))
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", sorted(SCAN_BWDS))
+def test_scan_backwards_take_rows_off_16_bytes(cuda, which, dt):
+    """Widths whose rows are not whole 16-byte pieces (the mLSTM's dh 36,
+    the SSD's P 6 and N 12; the forwards refuse some of them, so y comes
+    from the plain forward) take the kernels' plain loads: every gradient
+    against the plain backward, three kernel chunks."""
+    rn = _randn(cuda, 23)
+    B, nc, Q = 1, 2, 80
+    if which == "mamba":
+        a = (rn(B, nc, Q, 3, 6) * 0.5, (rn(B, nc, Q, 12) * 0.5).to(dt),
+             (rn(B, nc, Q, 12) * 0.5).to(dt),
+             torch.cumsum(-rn(B, nc, Q, 3).abs() * 0.1, 2),
+             rn(B, nc, Q, 3, 6), rn(B, 3, 6, 12))
+    else:
+        ins = (*((rn(B, nc, Q, 2, 36) * 36 ** -0.25).to(dt)
+                 for _ in range(2)), rn(B, nc, Q, 2, 36).to(dt),
+               torch.cumsum(-rn(B, nc, Q, 2).abs() * 0.2, 2),
+               torch.clamp_max(rn(B, nc, Q, 2), 8.0))
+        y = K.mlstm_chunk_scan_plain(*ins)[0]
+        a = (*ins, y, rn(*y.shape), rn(B, 2, 36, 36), rn(B, 2, 36))
+    run, plain = SCAN_BWDS[which]
+    for g, w in zip(run(*a), plain(*a)):
+        assert g.dtype == w.dtype
+        if dt == torch.float32:
+            _close_scaled(g, w, TOL[dt])
+        else:
+            _close(g, w, TOL[dt])
+
+
 @pytest.mark.parametrize("which", sorted(SCAN_BWDS))
 def test_scan_backward_tolerance_rejects_planted_faults(cuda, which):
     """At a train step's rows (two kernel chunks): a chunk reading the
-    state cotangent of the chunk after it, and the SSD's head sum of dB
-    without its last head or the mLSTM's sum of dg's column tiles without
-    its last, each fail the check the kernel passes."""
+    state cotangent of the chunk after it; the SSD's sum of dB over the
+    head groups without its last group; the mLSTM's sum of dg's column
+    tiles without its last, and its sum of the d tiles' scores without the
+    last; with bf16 inputs every split cut to one part; and, with the
+    mLSTM's forget gates near 1 (where e^{gl} <dC'_out, C'_in> counts),
+    the sum of that term's state tiles without the last: each fails the
+    check the kernel passes."""
     mod = importlib.import_module(
         f"repro_torch.kernels.{'mamba_scan' if which == 'mamba' else 'mlstm'}")
     _, plain = SCAN_BWDS[which]
-    for dt in (torch.float32, torch.bfloat16):
-        a = _scan_bwd_args(cuda, which, 8, 128, 1, dt)
+    cases = [(dt, 1.0) for dt in (torch.float32, torch.bfloat16)]
+    if which == "mlstm":
+        cases += [(dt, 0.01) for dt in (torch.float32, torch.bfloat16)]
+    for dt, decay in cases:
+        a = _scan_bwd_args(cuda, which, 8, 128, 1, dt, decay)
         ref = plain(*a)
         # each gradient scaled as test_scan_backwards_match_plain holds it
         # (fp32: by its largest |reference|, at least 1): the check passes
@@ -1098,9 +1140,16 @@ def test_scan_backward_tolerance_rejects_planted_faults(cuda, which):
                                      for t, s in zip(ts, scales)])
         want = flat(ref)
         assert _agree(flat(mod._launch_backward(*a)), want, TOL[dt])
-        last = mod.FAULT_DROP_HEAD if which == "mamba" else \
-            mod.FAULT_DROP_TILE
-        for fault in (mod.FAULT_WRONG_COTANGENT, last):
+        if decay != 1.0:
+            faults = [mod.FAULT_STATE_DROP_TILE]
+        elif which == "mamba":
+            faults = [mod.FAULT_WRONG_COTANGENT, mod.FAULT_DROP_GROUP]
+        else:
+            faults = [mod.FAULT_WRONG_COTANGENT, mod.FAULT_DROP_TILE,
+                      mod.FAULT_ROWS_DROP_TILE]
+        if dt == torch.bfloat16 and decay == 1.0:
+            faults.append(mod.FAULT_ONE_PART)
+        for fault in faults:
             assert not _agree(flat(mod._launch_backward(*a, fault=fault)),
                               want, TOL[dt]), fault
 
