@@ -40,15 +40,19 @@ Phases, each of which raises (exit code != 0) when it fails:
            reading its neighbour's weights, a stale tile in moe_gmm's
            ring, its last 8-row group dropped, its plan one work item
            short, an rmsnorm row summed over its first warp's share) must
-           be rejected; the four backward kernels (rmsnorm's at the train
+           be rejected; the five backward kernels (rmsnorm's at the train
            step's [1024, 2048], two launches by ``plan_rmsnorm_backward``:
            a block per SM over groups of rows, then the partial rows
            summed in column tiles; flash's, two launches by
            ``plan_flash_backward`` with wgmma at hd 64 to 128 and launch
            B's walk of the group split over a cluster of blocks, at its q
            [8,128,16,128], at zamba2-1.2b's shared attention
-           [8,128,32,64] (G = 1) and at phi-3-vision's and whisper's
-           shapes; the two scans' at
+           [8,128,32,64] (G = 1), at phi-3-vision's and whisper's
+           shapes and at deepseek's MLA train step (q, k [8,128,16,192],
+           v [8,128,16,128]); moe_gmm's, two launches (dx, dw) by
+           ``plan_gmm_backward``, at deepseek-v2-lite-16b's train row (x
+           [64,128,2048] @ w [64,2048,1408], and w2's) and mixtral-8x22b's
+           [8,320,6144] @ [8,6144,16384], each launch's device ms; the two scans' at
            zamba2-1.2b's and xlstm-350m's train step rows [8,1,128,...]
            and at the 300-token prompt's [1,2,150,...]) against their
            plain versions in both dtypes, timed beside the library's
@@ -59,7 +63,9 @@ Phases, each of which raises (exit code != 0) when it fails:
            last; the mLSTM's sums of dg's column tiles and of its scores'
            d tiles without the last, and of <dC'_out, C'_in>'s state
            tiles without the last (with forget gates near 1); a scan
-           backward's bf16 splits cut to one part), the scans' two runs
+           backward's bf16 splits cut to one part; moe_gmm's launch dx
+           with each w stage holding the step before's F tile, its
+           launch dw without R's last 8-row group), the scans' two runs
            bit-equal, each scan backward's device time by launch;
   train    training through the backward kernels: (a) qwen2.5-3b cut to 2
            layers at full width, one fp32 train step on the card against
@@ -78,7 +84,13 @@ Phases, each of which raises (exit code != 0) when it fails:
            ``train`` in bf16 at full width and depth for 3 steps at batch
            8, seq 128 (finite losses, every master leaf moved, 36 + 36
            SSD scans and 20 + 20 mLSTM scans a step), ms per step,
-           tokens/s, peak memory and one more step profiled;
+           tokens/s, peak memory and one more step profiled; (e)
+           deepseek-v2-lite-16b (moe: MLA and routed experts): one fp32
+           step at full width and 2 layers (seq 128, batch 2) on the card
+           against the CPU, then ``train`` in bf16 at full width and 4
+           layers for 3 steps at batch 8, seq 128 (13 + 13 rmsnorm, 4 + 4
+           flash at hd 192 / hd_v 128 and 9 + 9 moe_gmm a step), ms per
+           step, tokens/s, peak memory and one more step profiled;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -312,7 +324,7 @@ def _kernel_names(mangled):
 
 
 PTXAS_KEYS = ("flash_attention", "decode_attention", "moe_gmm", "rmsnorm",
-              "mamba_scan", "mlstm_scan", "mamba_bwd", "mlstm_bwd")
+              "mamba_scan", "mlstm_scan", "mamba_bwd", "mlstm_bwd", "gmm_bwd")
 
 
 def _ptxas_report(text, keys=PTXAS_KEYS):
@@ -441,7 +453,8 @@ def phase_kernels(state):
                args_list, K.rmsnorm, K.rmsnorm_plain, lib,
                2 * R * D * esz + 4 * D, 4 * R * D, "float32")
     _rmsnorm_kernels(randn, record, tols)
-    _backward_kernels(randn, record, tols)
+    _backward_kernels(randn, record, tols, state)
+    _gmm_backward_kernels(randn, record, tols)
     _scan_backward_kernels(randn, record)
 
     _attention_rows(randn, record, tols, state)
@@ -502,8 +515,14 @@ class FlashRow(NamedTuple):
     causal: bool = True
     window: int = 0
     role: str = ""       # "main": the kernel's row of the kernels line;
-    #                      "families": a sub-row, launched in phase families
+    #                      "families": a sub-row, launched in phase families;
+    #                      "moe": a sub-row, launched in phase train's (e)
     faults: tuple = ()   # planted, must fail: "window+1", "short_tiles"
+    hd_v: int = 0        # v's head dim where it is not hd (MLA)
+
+    @property
+    def dv(self):
+        return self.hd_v or self.hd
 
     @property
     def key(self):
@@ -740,17 +759,23 @@ BWD_FLASH_ROWS = (
     # G = 1 at hd 64: 6 runs a train step
     FlashRow("zamba2 shared attention train step", 8, 128, 128, 32, 32, 64),
     FlashRow("phi-3, 576 image + 128 text rows", 1, 704, 704, 32, 32, 96),
-    FlashRow("whisper encoder", 2, 1500, 1500, 20, 20, 64, causal=False))
+    FlashRow("whisper encoder", 2, 1500, 1500, 20, 20, 64, causal=False),
+    # MLA (hd 192 = 128 + 64 rope, hd_v 128, G = 1): deepseek-v2-lite-16b's
+    # train step, one run a layer in phase train's (e)
+    FlashRow("deepseek MLA train step", 8, 128, 128, 16, 16, 192,
+             role="moe", faults=("short_tiles",), hd_v=128))
 
 
-def _backward_kernels(randn, record, tols):
+def _backward_kernels(randn, record, tols, state):
     """The two backward kernels against their plain versions in bf16 and
     fp32, timed beside the plain version, the library's backward (its
     forward + backward through autograd less its forward) and the bound:
     rmsnorm's at BWD_RMSNORM_ROWS (bytes: x, g read, dx written; ~12
     flops an element), flash's at BWD_FLASH_ROWS (five products over the
-    visible pairs, 2.5 times the forward's); with the planted faults (a
-    row's sums over its first warp's share; launch A one K tile short)."""
+    visible pairs, 2.5 times the forward's at hd_v = hd: S, dQ and dK over
+    hd, dP and dV over hd_v); with the planted faults (a row's sums over
+    its first warp's share; launch A one K tile short).  The MLA row is
+    kept in ``state["moe_kernel_rows"]``."""
     import importlib
     import torch
     import torch.nn.functional as F
@@ -823,17 +848,20 @@ def _backward_kernels(randn, record, tols):
             return torch.autograd.grad(y, ins, do.transpose(1, 2))
         for dname, dt in dts.items():
             esz = torch.finfo(dt).bits // 8
-            nbytes = 4 * (r.Sq * r.H + r.Sk * r.Hkv) * r.B * r.hd * esz
+            # q, out, dout, dq and k, v, dk, dv each moved once
+            nbytes = 2 * (r.Sq * r.H + r.Sk * r.Hkv) * r.B * (r.hd + r.dv) \
+                * esz
 
             def make(r=r, dt=dt, kw=kw):
                 q, k, v = (randn(r.B, r.Sq, r.H, r.hd, dt=dt),
                            randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt),
-                           randn(r.B, r.Sk, r.Hkv, r.hd, dt=dt))
+                           randn(r.B, r.Sk, r.Hkv, r.dv, dt=dt))
                 return (q, k, v, K.flash_attention(q, k, v, **kw),
-                        randn(r.B, r.Sq, r.H, r.hd, dt=dt))
+                        randn(r.B, r.Sq, r.H, r.dv, dt=dt))
             args_list = cold_copies(make, nbytes)
             q, k, v, o, do = args_list[0]
-            case = (f"{r.label}: q {list(q.shape)} k {list(k.shape)} "
+            vs = f" v {list(v.shape)}" if r.hd_v else ""
+            case = (f"{r.label}: q {list(q.shape)} k {list(k.shape)}{vs} "
                     f"{kind} {dname}")
             want = plain(q, k, v, o, do)
             err = max(_check(f"flash_attention_backward {case} {name}", a,
@@ -846,11 +874,82 @@ def _backward_kernels(randn, record, tols):
                 _reject(f"flash_attention_backward {case}, launch A one K "
                         f"tile short", torch.cat([t.flatten() for t in bad]),
                         torch.cat([t.flatten() for t in want]), tols[dname])
-            record("flash_attention_backward", case,
-                   r.role == "main" and dname == "bfloat16", err, args_list,
-                   run, plain, lib, nbytes, 10 * r.hd * r.H * pairs, dname,
-                   library_minus=lib_fwd)
+            row = record("flash_attention_backward", case,
+                         r.role == "main" and dname == "bfloat16", err,
+                         args_list, run, plain, lib, nbytes,
+                         2 * (3 * r.hd + 2 * r.dv) * r.H * pairs, dname,
+                         library_minus=lib_fwd)
+            if r.role == "moe" and dname == "bfloat16":
+                state.setdefault("moe_kernel_rows", {})[
+                    "flash_attention_backward"] = row
             del args_list, q, k, v, o, do, want
+
+
+# moe_gmm's backward (E, R, D, F): deepseek-v2-lite-16b's train row (batch
+# 8 x seq 128: four groups of 256 tokens, C = 32, so R = 128 rows an
+# expert) for w1/w3 (the kernels line's row) and for w2; mixtral-8x22b's
+# (E 8, C 320; bf16)
+BWD_GMM_ROWS = (("deepseek train w1/w3", 64, 128, 2048, 1408),
+                ("deepseek train w2", 64, 128, 1408, 2048),
+                ("mixtral train", 8, 320, 6144, 16384))
+
+
+def _gmm_backward_kernels(randn, record, tols):
+    """moe_gmm's backward against its plain version in bf16 and fp32 at
+    BWD_GMM_ROWS (mixtral: bf16), timed beside the plain version, the
+    library's two ``torch.bmm`` calls (dy wᵀ and xᵀ dy) and the bound
+    (bytes: x, w, dy read once, dx, dw written once; 4 E R D F
+    operations), with each launch's device ms (dx, dw); and, at the first
+    row in both dtypes, the planted faults: launch dx with each w stage
+    holding the step before's F tile, launch dw with R's last 8-row group
+    left out of the sum."""
+    import importlib
+    import torch
+    from repro_torch import kernels as K
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def lib(x, w, dy):
+        return torch.bmm(dy, w.transpose(1, 2)), torch.bmm(x.transpose(1, 2),
+                                                           dy)
+    for i, (label, E, R, D, F_) in enumerate(BWD_GMM_ROWS):
+        for dname, dt in dts.items():
+            if E == 8 and dname == "float32":
+                continue
+            esz = torch.finfo(dt).bits // 8
+            nbytes = (2 * E * R * D + 2 * E * D * F_ + E * R * F_) * esz
+
+            def make(E=E, R=R, D=D, F_=F_, dt=dt):
+                return ((randn(E, R, D, dt=torch.float32) * D ** -0.5).to(dt),
+                        randn(E, D, F_, dt=dt), randn(E, R, F_, dt=dt))
+            args_list = cold_copies(make, nbytes)
+            x, w, dy = args_list[0]
+            case = f"{label}: x [{E},{R},{D}] w [{E},{D},{F_}] {dname}"
+            want = K.moe_gmm_backward_plain(x, w, dy)
+            err = max(_check(f"moe_gmm_backward {case} {name}", a, b,
+                             tols[dname])
+                      for name, a, b in zip(("dx", "dw"),
+                                            K.moe_gmm_backward(x, w, dy),
+                                            want))
+            if i == 0:
+                _reject(f"moe_gmm_backward {case}, launch dx's w stages "
+                        f"holding the step before's F tile",
+                        MG._launch_backward(
+                            x, w, dy, fault=MG.FAULT_STALE_TILE)[0],
+                        want[0], tols[dname])
+                _reject(f"moe_gmm_backward {case}, launch dw without R's "
+                        f"last 8-row group",
+                        MG._launch_backward(
+                            x, w, dy, fault=MG.FAULT_DROP_ROW_GROUP)[1],
+                        want[1], tols[dname])
+            record("moe_gmm_backward", case, i == 0 and dname == "bfloat16",
+                   err, args_list, K.moe_gmm_backward,
+                   K.moe_gmm_backward_plain, lib, nbytes,
+                   4 * E * R * D * F_, dname)
+            split = _launch_split(K.moe_gmm_backward, args_list)
+            log(f"kernels: moe_gmm_backward {case} device ms by launch: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            del args_list, x, w, dy, want
 
 
 # the scan backwards' cases (B, Q, nc): a train step's rows (batch 8 of
@@ -3665,6 +3764,14 @@ TRAIN_OPT = dict(warmup_steps=1, decay_steps=10)
 TRAIN_RECURRENT = ("zamba2-1.2b", "xlstm-350m")
 TRAIN_RECURRENT_SMALL = dict(num_layers=6, batch=2, seq=128)
 TRAIN_RECURRENT_SHAPES = dict(steps=3, batch=8, seq=128)
+# (e) the moe family: deepseek-v2-lite-16b's parity step at full width and
+# 2 layers (1 mla_dense + 1 mla_moe, 1.09 B params; T = 256 is one
+# group), then train() at full width and 4 layers for 3 steps at
+# launch/train.py's batch and seq.  At full depth its AdamW state (15.7 B
+# params, ~250 GB) does not fit one card; 4 layers are 2.25 B.
+TRAIN_MOE = "deepseek-v2-lite-16b"
+TRAIN_MOE_SMALL = dict(num_layers=2, batch=2, seq=128)
+TRAIN_MOE_SHAPES = dict(num_layers=4, steps=3, batch=8, seq=128)
 
 
 def _train_launches(cfg):
@@ -3672,12 +3779,27 @@ def _train_launches(cfg):
     every forward launch): dense, rmsnorm's 2 L + 1 and flash's L; hybrid,
     2 L + 2 (L / shared_every) + 1 rmsnorm, a flash per shared block and
     an SSD scan per layer; ssm, 2 L + 1 rmsnorm and an mLSTM scan per
-    layer but the sLSTM ones."""
+    layer but the sLSTM ones; moe, from ``models/model.py:build_stages``:
+    every layer's ln1 and ln2, MLA's kv_norm a layer
+    (``models/layers.py:_mla_latent``) and the final norm, so 3 L + 1
+    rmsnorm with MLA (deepseek) and 2 L + 1 without (mixtral), a flash a
+    layer (``mla_attention`` or ``attention``), and three moe_gmm a routed
+    layer (``models/moe.py:apply_moe``: w1, w3, w2; deepseek's first
+    layer is dense)."""
+    from repro_torch.models import model as M
     L_ = cfg.num_layers
     want = dict.fromkeys(("rmsnorm_backward", "flash_attention_backward",
                           "mamba_chunk_scan_backward",
-                          "mlstm_chunk_scan_backward"), 0)
-    if cfg.family == "hybrid":
+                          "mlstm_chunk_scan_backward", "moe_gmm_backward"),
+                         0)
+    if cfg.family == "moe":
+        stages = M.build_stages(cfg)
+        mla = sum(st.n for st in stages if st.kind in M.MLA_KINDS)
+        routed = sum(st.n for st in stages if st.kind in M.MOE_KINDS)
+        want.update(rmsnorm_backward=2 * L_ + mla + 1,
+                    flash_attention_backward=L_,
+                    moe_gmm_backward=3 * routed)
+    elif cfg.family == "hybrid":
         shared = L_ // cfg.shared_every
         want.update(rmsnorm_backward=2 * L_ + 2 * shared + 1,
                     flash_attention_backward=shared,
@@ -3825,10 +3947,10 @@ def _train_profile(step, state, batch):
         torch.cuda.synchronize()
     busy, n_kern = _device_busy(prof)
     kinds = {"custom backward": ("flash_bwd", "rmsnorm_bwd", "mamba_bwd",
-                                 "mlstm_bwd"),
+                                 "mlstm_bwd", "gmm_bwd"),
              "custom forward": ("flash_attention_mma", "rmsnorm_warp",
                                 "rmsnorm_block", "mamba_scan_",
-                                "mlstm_scan_"),
+                                "mlstm_scan_", "moe_gmm_"),
              "matrix products": ("nvjet", "gemm", "xmma", "cutlass")}
     ms = dict.fromkeys(list(kinds) + ["other"], 0.0)
     by_name, backward = {}, {}
@@ -4003,6 +4125,38 @@ def _train_recurrent(state, arch):
     torch.cuda.empty_cache()
 
 
+def _train_moe(state):
+    """(e) deepseek-v2-lite-16b: the fp32 parity step at TRAIN_MOE_SMALL,
+    then launch/train.py's ``train`` in bf16 at full width and
+    TRAIN_MOE_SHAPES' depth (``_train_checked``: a moe_gmm backward run
+    per moe_gmm launch, a flash backward at (hd 192, hd_v 128) a layer)."""
+    import dataclasses as dc
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+
+    _train_parity(TRAIN_MOE, TRAIN_MOE_SMALL, "(e)")
+    torch.cuda.empty_cache()
+    layers, steps, B, S = (TRAIN_MOE_SHAPES[k] for k in ("num_layers",
+                                                          "steps", "batch",
+                                                          "seq"))
+    cfg = dc.replace(get_config(TRAIN_MOE), num_layers=layers)
+    init = [p.to("cpu") for p in pytree.tree_leaves(
+        L.to_tree(M.init_params(cfg, 0, device="cuda")))]
+    torch.cuda.empty_cache()
+    run, ms, peak, busy, bwd, bwd_ms = _train_checked(state, cfg, steps, B,
+                                                      S, init, "(e)")
+    state["moe_train_launches"] = dict(bwd)
+    state.setdefault("train_launches", {})["moe_gmm_backward"] = \
+        bwd["moe_gmm_backward"]
+    state["train_moe"] = dict(ms=ms, peak_gb=peak, tok_s=B * S * 1000 / ms,
+                              busy_ms=busy, custom_backward_ms=bwd_ms)
+    del run, init
+    torch.cuda.empty_cache()
+
+
 def phase_train(state):
     import torch
     cfg, tree, _ = _train_parity()
@@ -4013,6 +4167,7 @@ def phase_train(state):
     torch.cuda.empty_cache()
     for arch in TRAIN_RECURRENT:
         _train_recurrent(state, arch)
+    _train_moe(state)
 
 
 def main(argv=None) -> int:
@@ -4071,6 +4226,20 @@ def main(argv=None) -> int:
                 "name": k.__name__, "route": "cuda",
                 "source": mod.BACKWARD_SOURCE, "replaces": mod.REPLACES,
                 "launches": state["train_launches"][k.__name__],
+                **{key: row[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "case")}})
+        # the flash backward at MLA's (192, 128), with its launches in
+        # phase train's (e)
+        modules = {k.__name__: sys.modules[k.__module__]
+                   for k in K.BACKWARD_KERNELS}
+        for kernel, row in (state.get("moe_kernel_rows", {}).items()
+                            if "train" in phases else ()):
+            mod = modules[kernel]
+            summary.append({
+                "name": kernel, "route": "cuda",
+                "source": mod.BACKWARD_SOURCE, "replaces": mod.REPLACES,
+                "launches": state["moe_train_launches"][kernel],
                 **{key: row[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "case")}})

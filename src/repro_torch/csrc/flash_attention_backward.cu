@@ -1,11 +1,12 @@
 // Gradient of GQA prefill attention (csrc/flash_attention.cu): given q, k,
 // v, the forward's out and dout = dL/dout, it writes dq, dk and dv.
 //
-//   q, dq [B, Sq, H, hd]; k, v, dk, dv [B, Sk, Hkv, hd]; out, dout
-//   [B, Sq, H, hd]; all contiguous, one dtype (fp32 or bf16).  Query i sits
-//   at position pq = i + q_offset, key j at pk = j; causal keeps pq >= pk,
-//   a window keeps pq - pk < window; query head h reads KV head
-//   h / (H / Hkv).  hd is 16, 32, 64, 96 or 128 (hd_v = hd).
+//   q, dq [B, Sq, H, hd]; k, dk [B, Sk, Hkv, hd]; v, dv [B, Sk, Hkv,
+//   hd_v]; out, dout [B, Sq, H, hd_v]; all contiguous, one dtype (fp32 or
+//   bf16).  Query i sits at position pq = i + q_offset, key j at pk = j;
+//   causal keeps pq >= pk, a window keeps pq - pk < window; query head h
+//   reads KV head h / (H / Hkv).  hd is 16, 32, 64, 96 or 128 with hd_v =
+//   hd, or MLA's hd 192 (128 + 64 rope) with hd_v 128.
 //
 // The port's own: the TPU kernel repro/kernels/flash_attention.py has no
 // backward, and the reference differentiates repro/models/layers.py:
@@ -27,7 +28,7 @@
 // latency of each block's chain of loads and products, not bytes; over
 // whisper's 1,500 frames the tensor cores.  It does five products over the
 // visible pairs where the forward does two (and pass 1's sixth).
-//   * bf16, hd 64, 96 and 128 (the trained path): every product by wgmma
+//   * bf16, hd 64, 96, 128 and 192 (the trained path): every product by wgmma
 //     (m64nNk16, bf16 in, fp32 accumulate), one warpgroup a block, on
 //     64-row tiles swizzled by 128 B in shared memory, loaded by cp.async
 //     through a ring of two stages: a step issues its first products,
@@ -54,7 +55,13 @@
 //     griddepcontrol.wait.  The masks are two compares against per-thread
 //     bounds, skipped on tiles every pair of which is visible; outputs go
 //     through shared memory so device memory sees 16-byte stores.  At hd
-//     64 the register bound holds three blocks an SM.
+//     64 the register bound holds three blocks an SM.  MLA's (192, 128)
+//     runs the products over q and k (S = Q K^T, dQ, dK) at 192, three
+//     64-column blocks a tile, and those over v and dO (dP = dO V^T, dV)
+//     at 128; its K [64][192] and V [64][128] tiles with the ring's two Q /
+//     dO stages take 124 KB of shared memory, one block an SM, and launch
+//     B's dK and dV accumulators 160 registers a thread.  Its group is one
+//     head (H = Hkv), so launch B is never split.
 //   * bf16, hd 16 and 32 (smoke widths, where a 64-row wgmma tile does not
 //     pay): mma.sync m16n8k16 with ldmatrix fragments, launch A 4 warps of
 //     16 query rows, launch B 2 warps of 16 keys over all G heads.
@@ -137,7 +144,7 @@ __device__ __forceinline__ void stage(float* sm, const T* base, int first,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(A_WARPS * 32)
     flash_bwd_dq_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ out,
@@ -146,18 +153,21 @@ __global__ void __launch_bounds__(A_WARPS * 32)
                         int Sq, int Sk, int H, int Hkv, int causal,
                         int window, float scale, int q_offset,
                         int short_tiles) {
-  constexpr int DPL = (HD + 31) / 32;
+  constexpr int DPL = (HD + 31) / 32, DPLV = (HDV + 31) / 32;
+  // at (192, 128): 24.6 + 16.4 KB, under the 48 KB of static shared memory
   __shared__ float ks[BK * HD];
-  __shared__ float vs[BK * HD];
+  __shared__ float vs[BK * HDV];
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hkv);
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int i0 = blockIdx.x * A_ROWS;
   const size_t qstride = static_cast<size_t>(H) * HD;
+  const size_t ostride = static_cast<size_t>(H) * HDV;
   const size_t kstride = static_cast<size_t>(Hkv) * HD;
+  const size_t vstride = static_cast<size_t>(Hkv) * HDV;
   const T* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
-  const T* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
+  const T* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * HDV;
 
-  float qr[A_RPW][DPL], dor[A_RPW][DPL], dqr[A_RPW][DPL];
+  float qr[A_RPW][DPL], dor[A_RPW][DPLV], dqr[A_RPW][DPL];
   float m[A_RPW], l[A_RPW], lr[A_RPW], dl[A_RPW];
   int pq[A_RPW];
   bool live[A_RPW];
@@ -168,16 +178,20 @@ __global__ void __launch_bounds__(A_WARPS * 32)
     pq[r] = i + q_offset;
     m[r] = kNegInf, l[r] = 0.f, dl[r] = 0.f;
 #pragma unroll
-    for (int t = 0; t < DPL; ++t) qr[r][t] = dor[r][t] = dqr[r][t] = 0.f;
+    for (int t = 0; t < DPL; ++t) qr[r][t] = dqr[r][t] = 0.f;
+#pragma unroll
+    for (int t = 0; t < DPLV; ++t) dor[r][t] = 0.f;
     if (live[r]) {
       const size_t off = (static_cast<size_t>(b) * Sq + i) * qstride + h * HD;
-      float outr[DPL];
+      const size_t ooff =
+          (static_cast<size_t>(b) * Sq + i) * ostride + h * HDV;
+      float outr[DPLV];
       load_row<T, HD>(q + off, lane, qr[r]);
-      load_row<T, HD>(dout + off, lane, dor[r]);
-      load_row<T, HD>(out + off, lane, outr);
+      load_row<T, HDV>(dout + ooff, lane, dor[r]);
+      load_row<T, HDV>(out + ooff, lane, outr);
       float s = 0.f;
 #pragma unroll
-      for (int t = 0; t < DPL; ++t) s += dor[r][t] * outr[t];
+      for (int t = 0; t < DPLV; ++t) s += dor[r][t] * outr[t];
       dl[r] = s;
     }
     dl[r] = warp_sum(dl[r]);
@@ -219,7 +233,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
     const int n = min(BK, hi - j0);
     __syncthreads();
     stage<T, HD>(ks, kb, j0, n, BK, kstride);
-    stage<T, HD>(vs, vb, j0, n, BK, kstride);
+    stage<T, HDV>(vs, vb, j0, n, BK, vstride);
     __syncthreads();
 #pragma unroll 2
     for (int jj = 0; jj < n; ++jj) {
@@ -228,7 +242,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
 #pragma unroll
       for (int r = 0; r < A_RPW; ++r) {
         s[r] = warp_sum(lane_dot<HD>(qr[r], kr, lane)) * scale;
-        dp[r] = warp_sum(lane_dot<HD>(dor[r], vs + jj * HD, lane));
+        dp[r] = warp_sum(lane_dot<HDV>(dor[r], vs + jj * HDV, lane));
       }
 #pragma unroll
       for (int r = 0; r < A_RPW; ++r) {
@@ -257,7 +271,7 @@ __global__ void __launch_bounds__(A_WARPS * 32)
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 __global__ void __launch_bounds__(B_WARPS * 32)
     flash_bwd_dkdv_f32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
@@ -267,23 +281,28 @@ __global__ void __launch_bounds__(B_WARPS * 32)
                           T* __restrict__ dk, T* __restrict__ dv, int Sq,
                           int Sk, int H, int Hkv, int causal, int window,
                           float scale, int q_offset) {
-  constexpr int DPL = (HD + 31) / 32;
+  constexpr int DPL = (HD + 31) / 32, DPLV = (HDV + 31) / 32;
   __shared__ float qs[BQ * HD];
-  __shared__ float dos[BQ * HD];
+  __shared__ float dos[BQ * HDV];
   __shared__ float ls[BQ], dls[BQ];
   const int b = blockIdx.y / Hkv, hk = blockIdx.y % Hkv, G = H / Hkv;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int j0 = blockIdx.x * B_WARPS, j = j0 + warp;
   const bool live = j < Sk;
   const size_t qstride = static_cast<size_t>(H) * HD;
+  const size_t ostride = static_cast<size_t>(H) * HDV;
   const size_t koff = (static_cast<size_t>(b) * Sk + j) * Hkv * HD + hk * HD;
+  const size_t voff =
+      (static_cast<size_t>(b) * Sk + j) * Hkv * HDV + hk * HDV;
 
-  float kr[DPL], vr[DPL], dkr[DPL], dvr[DPL];
+  float kr[DPL], vr[DPLV], dkr[DPL], dvr[DPLV];
 #pragma unroll
-  for (int t = 0; t < DPL; ++t) kr[t] = vr[t] = dkr[t] = dvr[t] = 0.f;
+  for (int t = 0; t < DPL; ++t) kr[t] = dkr[t] = 0.f;
+#pragma unroll
+  for (int t = 0; t < DPLV; ++t) vr[t] = dvr[t] = 0.f;
   if (live) {
     load_row<T, HD>(k + koff, lane, kr);
-    load_row<T, HD>(v + koff, lane, vr);
+    load_row<T, HDV>(v + voff, lane, vr);
   }
   // the query rows that can see some key of the block
   const int j1 = min(Sk, j0 + B_WARPS);
@@ -293,13 +312,13 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     const T* qb = q + static_cast<size_t>(b) * Sq * qstride + h * HD;
-    const T* dob = dout + static_cast<size_t>(b) * Sq * qstride + h * HD;
+    const T* dob = dout + static_cast<size_t>(b) * Sq * ostride + h * HDV;
     const size_t sb = (static_cast<size_t>(b) * H + h) * Sq;
     for (int i0 = i_lo; i0 < i_hi; i0 += BQ) {
       const int n = min(BQ, i_hi - i0);
       __syncthreads();
       stage<T, HD>(qs, qb, i0, n, BQ, qstride);
-      stage<T, HD>(dos, dob, i0, n, BQ, qstride);
+      stage<T, HDV>(dos, dob, i0, n, BQ, ostride);
       if (threadIdx.x < BQ) {
         ls[threadIdx.x] = threadIdx.x < n ? lse[sb + i0 + threadIdx.x] : 0.f;
         dls[threadIdx.x] = threadIdx.x < n ? delta[sb + i0 + threadIdx.x] : 0.f;
@@ -308,20 +327,22 @@ __global__ void __launch_bounds__(B_WARPS * 32)
 #pragma unroll 2
       for (int ii = 0; ii < n; ++ii) {
         const float* qrow = qs + ii * HD;
-        const float* drow = dos + ii * HD;
+        const float* drow = dos + ii * HDV;
         const float s = warp_sum(lane_dot<HD>(kr, qrow, lane)) * scale;
-        const float dp = warp_sum(lane_dot<HD>(vr, drow, lane));
+        const float dp = warp_sum(lane_dot<HDV>(vr, drow, lane));
         if (live && visible(i0 + ii + q_offset, j, causal, window)) {
           const float p = expf(s - ls[ii]);
           const float pv = to_float(from_float<T>(p));  // P_v, as in the forward
           const float ds = p * (dp - dls[ii]);
 #pragma unroll
+          for (int t = 0; t < DPLV; ++t) {
+            const int d = lane + 32 * t;
+            if (HDV % 32 == 0 || d < HDV) dvr[t] += pv * drow[d];
+          }
+#pragma unroll
           for (int t = 0; t < DPL; ++t) {
             const int d = lane + 32 * t;
-            if (HD % 32 == 0 || d < HD) {
-              dvr[t] += pv * drow[d];
-              dkr[t] += ds * qrow[d];
-            }
+            if (HD % 32 == 0 || d < HD) dkr[t] += ds * qrow[d];
           }
         }
       }
@@ -329,7 +350,7 @@ __global__ void __launch_bounds__(B_WARPS * 32)
   }
   if (live) {
     store_row<T, HD>(dk + koff, lane, dkr, scale);
-    store_row<T, HD>(dv + koff, lane, dvr, 1.f);
+    store_row<T, HDV>(dv + voff, lane, dvr, 1.f);
   }
 }
 
@@ -808,9 +829,11 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
               1023);
 }
 
-template <int HD>
+// Q and dO, W_STAGES (K, V) stages, D, and 1 KB to align to 1024 B
+template <int HD, int HDV>
 constexpr int dq_wgmma_smem() {
-  return (2 + 2 * W_STAGES) * WTile<HD>::BYTES + W_ROWS * 4 + 1024;
+  return (1 + W_STAGES) * (WTile<HD>::BYTES + WTile<HDV>::BYTES) +
+         W_ROWS * 4 + 1024;
 }
 
 // Launch A in bf16 by wgmma: the warpgroup owns query rows q0 + [0, 64)
@@ -821,8 +844,9 @@ constexpr int dq_wgmma_smem() {
 // (n_tiles <= W_STAGES, as at the train step's 128 keys) they are loaded
 // once, K and V together, and both passes read them there.  Pass 1:
 // S = Q K^T for each row's max and sum; pass 2: S, dP = dO V^T, dS =
-// P (dP - D) in fp32 and dQ += dS K with dS from the registers.
-template <int HD>
+// P (dP - D) in fp32 and dQ += dS K with dS from the registers.  The
+// products over q and k run at HD, those over v and dO at HDV.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
                               const bf16* __restrict__ k,
@@ -834,22 +858,26 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
                               int H, int Hkv, int causal, int window,
                               float scale, int q_offset, int short_tiles) {
   using TL = WTile<HD>;
-  constexpr int T = TL::BYTES;
+  using TV = WTile<HDV>;
+  constexpr int T = TL::BYTES, TVB = TV::BYTES;
   extern __shared__ __align__(16) unsigned char fbw_smem[];
   unsigned char* sQ = align1024(fbw_smem);
   unsigned char* sDO = sQ + T;
-  unsigned char* ring = sDO + T;
-  float* sD = reinterpret_cast<float*>(ring + W_STAGES * 2 * T);
+  unsigned char* ring = sDO + TVB;
+  float* sD = reinterpret_cast<float*>(ring + W_STAGES * (T + TVB));
 
   trigger_dependents();  // launch B may take SMs as this launch's free up
   const int b = blockIdx.y / H, h = blockIdx.y % H, hk = h / (H / Hkv);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int q0 = blockIdx.x * W_ROWS;
   const size_t qstride = static_cast<size_t>(H) * HD;
+  const size_t ostride = static_cast<size_t>(H) * HDV;
   const size_t kstride = static_cast<size_t>(Hkv) * HD;
+  const size_t vstride = static_cast<size_t>(Hkv) * HDV;
   const size_t qhead = (static_cast<size_t>(b) * Sq * H + h) * HD;
+  const size_t ohead = (static_cast<size_t>(b) * Sq * H + h) * HDV;
   const bf16* kb = k + (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
-  const bf16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
+  const bf16* vb = v + (static_cast<size_t>(b) * Sk * Hkv + hk) * HDV;
 
   // the keys some row of the block can see, in whole tiles
   const int first_pos = q0 + q_offset;
@@ -866,18 +894,18 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
   // load step s: pass 1 reads K tile s, pass 2 K and V tile s - n
   auto slot = [&](int s) {
     const int j = s < n ? s : s - n;
-    return ring + (resident ? j : s % W_STAGES) * 2 * T;
+    return ring + (resident ? j : s % W_STAGES) * (T + TVB);
   };
   auto load = [&](int s) {
     const int kt0 = (t_lo + (s < n ? s : s - n)) * W_ROWS;
     unsigned char* st = slot(s);
     stage_sw<HD>(st, kb, kstride, kt0, k_lo, k_hi, tid);
     if (resident || s >= n)
-      stage_sw<HD>(st + T, vb, kstride, kt0, k_lo, k_hi, tid);
+      stage_sw<HDV>(st + T, vb, vstride, kt0, k_lo, k_hi, tid);
   };
 
   stage_sw<HD>(sQ, q + qhead, qstride, q0, 0, Sq, tid);
-  stage_sw<HD>(sDO, dout + qhead, qstride, q0, 0, Sq, tid);
+  stage_sw<HDV>(sDO, dout + ohead, ostride, q0, 0, Sq, tid);
 #pragma unroll
   for (int s = 0; s < W_STAGES - 1; ++s) {
     if (s < n_loads) load(s);
@@ -887,9 +915,9 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     const int r = tid / 2, half = tid % 2;
     float acc = 0.f;
     if (q0 + r < Sq) {
-      const size_t off = qhead + (q0 + r) * qstride + half * (HD / 2);
+      const size_t off = ohead + (q0 + r) * ostride + half * (HDV / 2);
 #pragma unroll
-      for (int d = 0; d < HD / 2; d += 8) {
+      for (int d = 0; d < HDV / 2; d += 8) {
         const Vec<bf16, 8> x = load_vec<bf16, 8>(dout + off + d);
         const Vec<bf16, 8> y = load_vec<bf16, 8>(out + off + d);
 #pragma unroll
@@ -953,7 +981,7 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
       wgmma_ss<64>(sa, desc_k(sQ, kk), desc_k(sK, kk), kk > 0);
     if (pass2) {
 #pragma unroll
-      for (int kk = 0; kk < TL::KS; ++kk)
+      for (int kk = 0; kk < TV::KS; ++kk)
         wgmma_ss<64>(dp, desc_k(sDO, kk), desc_k(sV, kk), kk > 0);
     }
     wgmma_commit();
@@ -1059,19 +1087,20 @@ constexpr int red_bytes() {
   return 2 * RECV_ROWS * (WTile<HD>::HDP + 4) * 4;
 }
 
-template <int HD>
+template <int HD, int HDV>
 constexpr int dkdv_ring_bytes() {
-  return W_STAGES * (2 * WTile<HD>::BYTES + 2 * W_ROWS * 4);
+  return W_STAGES * (WTile<HD>::BYTES + WTile<HDV>::BYTES + 2 * W_ROWS * 4);
 }
 
 // dynamic shared memory of launch B: K, V and the ring, or, where the
-// group is split, the larger of the ring and the sum's buffers
-template <int HD>
+// group is split (hd_v = hd only), the larger of the ring and the sum's
+// buffers
+template <int HD, int HDV>
 constexpr int dkdv_wgmma_smem(bool split) {
-  return 2 * WTile<HD>::BYTES +
-         (split && red_bytes<HD>() > dkdv_ring_bytes<HD>()
+  return WTile<HD>::BYTES + WTile<HDV>::BYTES +
+         (split && red_bytes<HD>() > dkdv_ring_bytes<HD, HDV>()
               ? red_bytes<HD>()
-              : dkdv_ring_bytes<HD>()) +
+              : dkdv_ring_bytes<HD, HDV>()) +
          1024;
 }
 
@@ -1087,8 +1116,10 @@ constexpr int dkdv_wgmma_smem(bool split) {
 // gridDim.x blocks of a unit form a thread block cluster: each writes its
 // fp32 dK and dV to its shared memory, and block c sums its share of the
 // rows over the cluster's blocks in block order (distributed shared
-// memory), so the split needs neither atomics nor a third launch.
-template <int HD>
+// memory), so the split needs neither atomics nor a third launch; it is
+// taken only where hd_v = hd.  The products over q and k run at HD, those
+// over v and dO at HDV.
+template <int HD, int HDV>
 __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     flash_bwd_dkdv_wgmma_kernel(const bf16* __restrict__ q,
                                 const bf16* __restrict__ k,
@@ -1101,12 +1132,14 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
                                 int window, float scale, int q_offset,
                                 int heads_per) {
   using TL = WTile<HD>;
-  constexpr int T = TL::BYTES, ND = TL::HDP / 2;
+  using TV = WTile<HDV>;
+  constexpr int T = TL::BYTES, TVB = TV::BYTES;
+  constexpr int ND = TL::HDP / 2, NDV = TV::HDP / 2;
   extern __shared__ __align__(16) unsigned char fbw_smem[];
   unsigned char* sK = align1024(fbw_smem);
   unsigned char* sV = sK + T;
-  unsigned char* ring = sV + T;
-  float* sLD = reinterpret_cast<float*>(ring + W_STAGES * 2 * T);
+  unsigned char* ring = sV + TVB;
+  float* sLD = reinterpret_cast<float*>(ring + W_STAGES * (T + TVB));
 
   const int G = H / Hkv, split = gridDim.x;
   const int g0 = min(G, static_cast<int>(blockIdx.x) * heads_per);
@@ -1115,8 +1148,11 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int k0 = blockIdx.y * W_ROWS, k1 = min(Sk, k0 + W_ROWS);
   const size_t qstride = static_cast<size_t>(H) * HD;
+  const size_t ostride = static_cast<size_t>(H) * HDV;
   const size_t kstride = static_cast<size_t>(Hkv) * HD;
+  const size_t vstride = static_cast<size_t>(Hkv) * HDV;
   const size_t khead = (static_cast<size_t>(b) * Sk * Hkv + hk) * HD;
+  const size_t vhead = (static_cast<size_t>(b) * Sk * Hkv + hk) * HDV;
   // the query rows that can see some key of the block
   const int i_lo = causal ? max(0, k0 - q_offset) : 0;
   const int i_hi = window > 0 ? min(Sq, k1 - 1 + window - q_offset) : Sq;
@@ -1125,10 +1161,11 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
 
   auto load = [&](int s) {
     const int h = hk * G + g0 + s / nq, i0 = i_lo + (s % nq) * W_ROWS;
-    unsigned char* st = ring + (s % W_STAGES) * 2 * T;
+    unsigned char* st = ring + (s % W_STAGES) * (T + TVB);
     const size_t qhead = (static_cast<size_t>(b) * Sq * H + h) * HD;
+    const size_t ohead = (static_cast<size_t>(b) * Sq * H + h) * HDV;
     stage_sw<HD>(st, q + qhead, qstride, i0, 0, Sq, tid);
-    stage_sw<HD>(st + T, dout + qhead, qstride, i0, 0, Sq, tid);
+    stage_sw<HDV>(st + T, dout + ohead, ostride, i0, 0, Sq, tid);
     // lse (threads 0-63) and D (64-127) of the tile's rows; zeros past Sq
     const int row = i0 + tid % W_ROWS;
     const float* src = (tid < W_ROWS ? lse : delta) +
@@ -1138,7 +1175,7 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
   };
 
   stage_sw<HD>(sK, k + khead, kstride, k0, 0, Sk, tid);
-  stage_sw<HD>(sV, v + khead, kstride, k0, 0, Sk, tid);
+  stage_sw<HDV>(sV, v + vhead, vstride, k0, 0, Sk, tid);
   cp_async_commit();
   // launch A's lse and D are written from here on (K and V, which it does
   // not write, are already on their way)
@@ -1159,9 +1196,11 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     rhi[r] = key >= Sk ? rlo[r]
                        : window > 0 ? min(Sq, key - q_offset + window) : Sq;
   }
-  float dka[ND], dva[ND];
+  float dka[ND], dva[NDV];
 #pragma unroll
-  for (int i = 0; i < ND; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < ND; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NDV; ++i) dva[i] = 0.f;
   unsigned pa[4][4], da[4][4];  // the last step's P_v and dS, still read
 
   for (int s = 0; s < steps; ++s) {
@@ -1173,7 +1212,7 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     fence_regs(dva);
     fence_proxy_async();
     __syncthreads();
-    const unsigned char* sQ = ring + (s % W_STAGES) * 2 * T;
+    const unsigned char* sQ = ring + (s % W_STAGES) * (T + TVB);
     const unsigned char* sDO = sQ + T;
     const float* sL = sLD + (s % W_STAGES) * 2 * W_ROWS;
     const int i0 = i_lo + (s % nq) * W_ROWS;
@@ -1189,7 +1228,7 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     for (int kk = 0; kk < TL::KS; ++kk)
       wgmma_ss<64>(st, desc_k(sK, kk), desc_k(sQ, kk), kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < TL::KS; ++kk)
+    for (int kk = 0; kk < TV::KS; ++kk)
       wgmma_ss<64>(dpt, desc_k(sV, kk), desc_k(sDO, kk), kk > 0);
     wgmma_commit();
     // the next tile loads under this one's products
@@ -1223,7 +1262,7 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs_tb<TL::HDP>(dva, pa[kk], desc_mn(sDO, kk));
+      wgmma_rs_tb<TV::HDP>(dva, pa[kk], desc_mn(sDO, kk));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       wgmma_rs_tb<TL::HDP>(dka, da[kk], desc_mn(sQ, kk));
@@ -1237,24 +1276,28 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
   cp_async_wait<0>();
 
   __syncthreads();  // every warp is past its last read of the ring
-  if (split == 1) {  // dK and dV through shared memory, as launch A's dQ
+  if (HD != HDV || split == 1) {  // dK and dV through shared memory, as
+                                  // launch A's dQ
     bf16* tk = reinterpret_cast<bf16*>(ring);
     bf16* tv = tk + W_ROWS * (HD + 8);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const int at = (key0 + 8 * r - k0) * (HD + 8) + 2 * (lane & 3);
+      const int key = key0 + 8 * r - k0;
+      const int at = 2 * (lane & 3);
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
-        *reinterpret_cast<unsigned*>(tk + at + 8 * j) = pack_bf16x2(
-            dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
-        *reinterpret_cast<unsigned*>(tv + at + 8 * j) =
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<unsigned*>(tk + key * (HD + 8) + at + 8 * j) =
+            pack_bf16x2(dka[4 * j + 2 * r] * scale,
+                        dka[4 * j + 2 * r + 1] * scale);
+#pragma unroll
+      for (int j = 0; j < HDV / 8; ++j)
+        *reinterpret_cast<unsigned*>(tv + key * (HDV + 8) + at + 8 * j) =
             pack_bf16x2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
-      }
     }
     __syncthreads();
     const int rows = min(W_ROWS, Sk - k0);
     copy_rows_out<HD>(dk + khead + k0 * kstride, kstride, tk, rows, tid);
-    copy_rows_out<HD>(dv + khead + k0 * kstride, kstride, tv, rows, tid);
+    copy_rows_out<HDV>(dv + vhead + k0 * vstride, vstride, tv, rows, tid);
     return;
   }
   // The split's sum: block c of the cluster owns rows [c rp, (c + 1) rp)
@@ -1320,20 +1363,20 @@ __global__ void __launch_bounds__(W_THREADS, HD <= 64 ? 3 : 2)
   }
 }
 
-template <int HD>
+template <int HD, int HDV>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
                  const void* dout, void* dq, void* dk, void* dv, void* lse,
                  void* delta, int B, int Sq, int Sk, int H, int Hkv,
                  int causal, int window, float scale, int q_offset,
                  int short_tiles, int heads_per, cudaStream_t s) {
-  constexpr int smem_a = dq_wgmma_smem<HD>();
-  constexpr int smem_b = dkdv_wgmma_smem<HD>(true);
+  constexpr int smem_a = dq_wgmma_smem<HD, HDV>();
+  constexpr int smem_b = dkdv_wgmma_smem<HD, HDV>(HD == HDV);
   // above 48 KB only by request, made once before the first launch
   static const cudaError_t attr_a = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<HD>,
+      flash_bwd_dq_wgmma_kernel<HD, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
   static const cudaError_t attr_b = cudaFuncSetAttribute(
-      flash_bwd_dkdv_wgmma_kernel<HD>,
+      flash_bwd_dkdv_wgmma_kernel<HD, HDV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_b);
   if (attr_a != cudaSuccess) return static_cast<int>(attr_a);
   if (attr_b != cudaSuccess) return static_cast<int>(attr_b);
@@ -1341,9 +1384,10 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   if (heads_per < 1 || heads_per > G)
     return static_cast<int>(cudaErrorInvalidValue);
   const int split = (G + heads_per - 1) / heads_per;
-  if (split > BWD_MAX_SPLIT) return static_cast<int>(cudaErrorInvalidValue);
+  if (split > BWD_MAX_SPLIT || (HD != HDV && split > 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 ga((Sq + W_ROWS - 1) / W_ROWS, B * H);
-  flash_bwd_dq_wgmma_kernel<HD><<<ga, W_THREADS, smem_a, s>>>(
+  flash_bwd_dq_wgmma_kernel<HD, HDV><<<ga, W_THREADS, smem_a, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(out),
       static_cast<const bf16*>(dout), static_cast<bf16*>(dq),
@@ -1354,7 +1398,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (Sk + W_ROWS - 1) / W_ROWS, B * Hkv);
   cfg.blockDim = dim3(W_THREADS);
-  cfg.dynamicSmemBytes = dkdv_wgmma_smem<HD>(split > 1);
+  cfg.dynamicSmemBytes = dkdv_wgmma_smem<HD, HDV>(split > 1);
   cfg.stream = s;
   // programmatic stream serialization: launch B's blocks may start (and
   // load K and V) while launch A's last blocks run; a split's blocks form
@@ -1369,7 +1413,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   cfg.attrs = attrs;
   cfg.numAttrs = split > 1 ? 2 : 1;
   const cudaError_t err_b = cudaLaunchKernelEx(
-      &cfg, flash_bwd_dkdv_wgmma_kernel<HD>, static_cast<const bf16*>(q),
+      &cfg, flash_bwd_dkdv_wgmma_kernel<HD, HDV>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk),
@@ -1379,23 +1423,24 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int HDV>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
            void* delta, int B, int Sq, int Sk, int H, int Hkv, int causal,
            int window, float scale, int q_offset, int short_tiles,
            int heads_per, cudaStream_t s) {
   if constexpr (sizeof(T) == 2 && HD >= 64) {
-    return launch_wgmma<HD>(q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                            Sq, Sk, H, Hkv, causal, window, scale, q_offset,
-                            short_tiles, heads_per, s);
+    return launch_wgmma<HD, HDV>(q, k, v, out, dout, dq, dk, dv, lse, delta, B,
+                                 Sq, Sk, H, Hkv, causal, window, scale,
+                                 q_offset, short_tiles, heads_per, s);
   } else if constexpr (sizeof(T) == 2) {
+    static_assert(HD == HDV, "mma.sync backward: hd_v = hd");
     return launch_mma<HD>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, Sq,
                           Sk, H, Hkv, causal, window, scale, q_offset,
                           short_tiles, s);
   } else {
     const dim3 ga((Sq + A_ROWS - 1) / A_ROWS, B * H);
-    flash_bwd_dq_f32_kernel<T, HD><<<ga, A_WARPS * 32, 0, s>>>(
+    flash_bwd_dq_f32_kernel<T, HD, HDV><<<ga, A_WARPS * 32, 0, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(out),
         static_cast<const T*>(dout), static_cast<T*>(dq),
@@ -1404,7 +1449,7 @@ int launch(const void* q, const void* k, const void* v, const void* out,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 gb((Sk + B_WARPS - 1) / B_WARPS, B * Hkv);
-    flash_bwd_dkdv_f32_kernel<T, HD><<<gb, B_WARPS * 32, 0, s>>>(
+    flash_bwd_dkdv_f32_kernel<T, HD, HDV><<<gb, B_WARPS * 32, 0, s>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -1415,26 +1460,24 @@ int launch(const void* q, const void* k, const void* v, const void* out,
 }
 
 template <typename T>
-int launch_hd(int hd, const void* q, const void* k, const void* v,
+int launch_hd(int hd, int hd_v, const void* q, const void* k, const void* v,
               const void* out, const void* dout, void* dq, void* dk,
               void* dv, void* lse, void* delta, int B, int Sq, int Sk, int H,
               int Hkv, int causal, int window, float scale, int q_offset,
               int short_tiles, int heads_per, cudaStream_t s) {
-#define REPRO_FLASH_BWD(HD)                                                  \
-  case HD:                                                                   \
-    return launch<T, HD>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, Sq, \
-                         Sk, H, Hkv, causal, window, scale, q_offset,        \
-                         short_tiles, heads_per, s);
-  switch (hd) {
-    REPRO_FLASH_BWD(16)
-    REPRO_FLASH_BWD(32)
-    REPRO_FLASH_BWD(64)
-    REPRO_FLASH_BWD(96)
-    REPRO_FLASH_BWD(128)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+#define REPRO_FLASH_BWD(HD, HDV)                                             \
+  if (hd == HD && hd_v == HDV)                                               \
+    return launch<T, HD, HDV>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, \
+                              Sq, Sk, H, Hkv, causal, window, scale,        \
+                              q_offset, short_tiles, heads_per, s);
+  REPRO_FLASH_BWD(16, 16)
+  REPRO_FLASH_BWD(32, 32)
+  REPRO_FLASH_BWD(64, 64)
+  REPRO_FLASH_BWD(96, 96)
+  REPRO_FLASH_BWD(128, 128)
+  REPRO_FLASH_BWD(192, 128)
 #undef REPRO_FLASH_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1442,24 +1485,24 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
 // lse, delta: [B, H, Sq] fp32 scratch (written by launch A, read by
 // launch B).  bf16 tensors start on 16-byte boundaries (cp.async).
 // heads_per: the query heads of a group one launch-B block walks (bf16 at
-// hd >= 64; the plan's, 1 to G, at most 8 blocks a group).  short_tiles >
-// 0 only plants a fault for the checks: launch A then walks that many
-// fewer K tiles.
+// hd >= 64; the plan's, 1 to G, at most 8 blocks a group; G where hd_v !=
+// hd).  short_tiles > 0 only plants a fault for the checks: launch A then
+// walks that many fewer K tiles.
 extern "C" int flash_attention_backward_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    int B, int Sq, int Sk, int H, int Hkv, int hd, int causal, int window,
-    float scale, int q_offset, int short_tiles, int heads_per, int dtype,
-    void* stream) {
+    int B, int Sq, int Sk, int H, int Hkv, int hd, int hd_v, int causal,
+    int window, float scale, int q_offset, int short_tiles, int heads_per,
+    int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Hkv < 1 || H % Hkv != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == kFloat32)
-    return launch_hd<float>(hd, q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                            Sq, Sk, H, Hkv, causal, window, scale, q_offset,
-                            short_tiles, heads_per, s);
+    return launch_hd<float>(hd, hd_v, q, k, v, out, dout, dq, dk, dv, lse,
+                            delta, B, Sq, Sk, H, Hkv, causal, window, scale,
+                            q_offset, short_tiles, heads_per, s);
   if (dtype == kBFloat16)
-    return launch_hd<bf16>(hd, q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                           Sq, Sk, H, Hkv, causal, window, scale, q_offset,
-                           short_tiles, heads_per, s);
+    return launch_hd<bf16>(hd, hd_v, q, k, v, out, dout, dq, dk, dv, lse,
+                           delta, B, Sq, Sk, H, Hkv, causal, window, scale,
+                           q_offset, short_tiles, heads_per, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

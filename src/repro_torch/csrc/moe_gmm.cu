@@ -67,91 +67,15 @@
 // 16-byte aligned) is masked with zeros in all three; nothing needs
 // divisibility.  Where rows are not 16-byte aligned the bf16 kernels
 // stage that operand through registers instead of cp.async.
-#include "common.cuh"
+#include "gmm.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-// n_valid elements of a row segment starting at p (zeros past n_valid);
-// one 16-byte load when the segment is whole and aligned.
-template <typename T, int V>
-__device__ __forceinline__ Vec<T, V> load_seg(const T* p, int n_valid,
-                                              bool vec) {
-  if (vec && n_valid >= V) return load_vec<T, V>(p);
-  Vec<T, V> t;
-#pragma unroll
-  for (int i = 0; i < V; ++i) t.v[i] = i < n_valid ? p[i] : from_float<T>(0.f);
-  return t;
-}
+using namespace gmm;
 
 // planted faults, for the checks only (repro_torch/kernels/moe_gmm.py)
 constexpr int kStaleTile = 1;     // each w stage holds the step before's tile
 constexpr int kDropRowGroup = 2;  // the last 8-row group of R left out
-
-// cp_async16 for data read once (w, where no row tile reads it again):
-// the line is fetched 256 bytes at a time and is first to leave L2.
-__device__ __forceinline__ void cp_async16_once(void* smem, const void* gmem,
-                                                bool pred) {
-  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  unsigned long long pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(pol));
-  asm volatile(
-      "cp.async.cg.shared.global.L2::cache_hint.L2::256B [%0], [%1], 16, %2, "
-      "%3;\n" ::"r"(sa), "l"(gmem), "r"(pred ? 16 : 0), "l"(pol));
-}
-
-// One 16-byte chunk of n_valid elements at src into dst: cp.async (the
-// read-once form with ONCE) when `vec`, else through registers (zeros
-// past n_valid); `safe` is any readable address.  ONCE is a template
-// argument: as a runtime flag, its branch in the per-step loader measured
-// slower at decode.
-template <bool ONCE>
-__device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* src,
-                                            const bf16* safe, int n_valid,
-                                            bool vec) {
-  const bool ok = n_valid > 0;
-  if (vec && ONCE)
-    cp_async16_once(dst, ok ? src : safe, ok);
-  else if (vec)
-    cp_async16(dst, ok ? src : safe, ok);
-  else
-    store_vec<bf16, 8>(dst, load_seg<bf16, 8>(src, n_valid, false));
-}
-
-// Where a block stands in its walk: its j-th item (expert e, first
-// column f0, first row r0) at depth step ks; moved on one item at a time,
-// with the only divisions at an item's start.
-struct Cursor {
-  int j, ks, e, f0, r0;
-
-  __device__ __forceinline__ void seek(int item, int f_tiles, int r_tiles,
-                                       int BF, int BR) {
-    const int rest = item / r_tiles;
-    r0 = (item % r_tiles) * BR;
-    f0 = (rest % f_tiles) * BF;
-    e = rest / f_tiles;
-  }
-  // past step ks of the block's items b, b + grid, ...: true when that
-  // step ended an item (the cursor is then at the next one's start)
-  __device__ __forceinline__ bool step(int k_steps, int grid, int f_tiles,
-                                       int r_tiles, int BF, int BR) {
-    if (++ks < k_steps) return false;
-    ks = 0;
-    ++j;
-    seek(blockIdx.x + j * grid, f_tiles, r_tiles, BF, BR);
-    return true;
-  }
-};
-
-// the block's items and ring steps in the strided walk
-__device__ __forceinline__ int block_steps(int n_items, int k_steps) {
-  const int b = blockIdx.x;
-  return b < n_items ? ((n_items - 1 - b) / static_cast<int>(gridDim.x) + 1) *
-                           k_steps
-                     : 0;
-}
 
 // ------------------------------------------- bf16, R <= 8: mma.sync --
 constexpr int M_BF = 64, M_BR = 8, M_BD = 128, M_STAGES = 5;
@@ -282,11 +206,6 @@ constexpr int G_STAGE = G_X_BYTES + G_W_BYTES;
 // + 1 KB to put the ring on a 1024-byte boundary (the swizzle's period)
 constexpr int G_SMEM_BYTES = G_STAGES * G_STAGE + 1024;
 
-// byte offset of 16-byte chunk c of 128-byte row r, 128-byte swizzled
-__device__ __forceinline__ int sw128(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
-}
-
 // ONCE: one row tile, so w is read once
 template <bool ONCE>
 __global__ void __launch_bounds__(G_THREADS, 1)
@@ -369,7 +288,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
             gmma_desc(st + 64 * wg * 128 + 32 * kk, 16, 1024);
         const unsigned long long db =
             gmma_desc(st + G_X_BYTES + 16 * kk * 128, 8192, 1024);
-        wgmma_bf16_tb<G_BN>(acc, da, db);
+        wgmma_bf16_256<0, 1>(acc, da, db);  // x K-major, w MN-major
       }
       wgmma_commit();
       if (item_end)

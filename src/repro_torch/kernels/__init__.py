@@ -6,11 +6,11 @@
 ``csrc/`` (``_build``), a CPU tensor takes the plain PyTorch version.
 Each wrapper counts its kernel launches in ``.launches``; the two
 attention wrappers count them by their inputs' shapes in ``.by_shape``
-as well.  ``rmsnorm``, ``flash_attention`` and the two chunk scans have
-a registered autograd whose backward is a kernel too
+as well.  ``rmsnorm``, ``flash_attention``, the two chunk scans and
+``moe_gmm`` have a registered autograd whose backward is a kernel too
 (``rmsnorm_backward``, ``flash_attention_backward``: two launches a run;
 ``mamba_chunk_scan_backward``: three; ``mlstm_chunk_scan_backward``:
-five; each run counted once).
+five; ``moe_gmm_backward``: two, dx then dw; each run counted once).
 """
 import torch
 
@@ -26,7 +26,9 @@ from repro_torch.kernels.mlstm import (mlstm_chunk_scan,
                                        mlstm_chunk_scan_backward,
                                        mlstm_chunk_scan_backward_plain,
                                        mlstm_chunk_scan_plain)
-from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_plain
+from repro_torch.kernels.moe_gmm import (moe_gmm, moe_gmm_backward,
+                                         moe_gmm_backward_plain,
+                                         moe_gmm_plain)
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
                                          rmsnorm_backward_plain,
                                          rmsnorm_plain)
@@ -34,9 +36,11 @@ from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
 KERNELS = (rmsnorm, flash_attention, decode_attention, mamba_chunk_scan,
            mlstm_chunk_scan, moe_gmm)
 # the gradients of the kernels a train step runs (dense: the first two;
-# hybrid: the first three; ssm: rmsnorm's and the mLSTM scan's)
+# hybrid: the first three; ssm: rmsnorm's and the mLSTM scan's; moe: the
+# first two and moe_gmm's)
 BACKWARD_KERNELS = (rmsnorm_backward, flash_attention_backward,
-                    mamba_chunk_scan_backward, mlstm_chunk_scan_backward)
+                    mamba_chunk_scan_backward, mlstm_chunk_scan_backward,
+                    moe_gmm_backward)
 
 # atol = rtol of a kernel against its plain version on the same inputs.
 # The largest differences measured on an H100 were 1.6e-6 in fp32 and one
@@ -68,5 +72,6 @@ __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "flash_attention_backward", "flash_attention_backward_plain",
            "mamba_chunk_scan_backward", "mamba_chunk_scan_backward_plain",
            "mlstm_chunk_scan_backward", "mlstm_chunk_scan_backward_plain",
+           "moe_gmm_backward", "moe_gmm_backward_plain",
            "KERNELS", "BACKWARD_KERNELS", "TOLERANCE", "reset_launches",
            "launch_counts"]

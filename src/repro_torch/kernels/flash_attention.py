@@ -44,7 +44,10 @@ heads so that its blocks cover the SMs, a split's blocks summing their dk
 and dv in a fixed order through a thread block cluster's shared memory;
 ``flash_attention_backward_staged`` is that decomposition in plain
 PyTorch, for the CPU tests.  hd 16 and 32 keep ``mma.sync``; fp32, the
-parity path, stays on the CUDA cores.  hd 16 to 128 with hd_v = hd.
+parity path, stays on the CUDA cores.  The backward takes every pair of
+``HEAD_DIM_PAIRS``: at MLA's (192, 128) the products over q and k run at
+192 and those over v and dout at 128 (its group is one head, so launch B
+is not split).
 """
 from __future__ import annotations
 
@@ -234,9 +237,10 @@ def flash_attention_backward_staged(q, k, v, out, dout, *, causal=True,
     dof, of = plain_float(dout), plain_float(out)
     mask = _mask(Sq, Sk, causal, window, q_offset, q.device)
     ft = qf.dtype
+    hd_v = v.shape[-1]
     dq = torch.zeros(B, Sq, H, hd, dtype=ft)
     dk = torch.zeros(B, Sk, Hkv, hd, dtype=ft)
-    dv = torch.zeros(B, Sk, Hkv, hd, dtype=ft)
+    dv = torch.zeros(B, Sk, Hkv, hd_v, dtype=ft)
     lse = torch.full((B, H, Sq), float("inf"), dtype=ft)
     delta = (dof * of).sum(-1).transpose(1, 2)          # [B, H, Sq]
     for h in range(H):
@@ -276,7 +280,7 @@ def flash_attention_backward_staged(q, k, v, out, dout, *, causal=True,
             parts = []
             for c in range(plan.splits):
                 pk = torch.zeros(B, keys.stop - k0, hd, dtype=ft)
-                pv = torch.zeros_like(pk)
+                pv = torch.zeros(B, keys.stop - k0, hd_v, dtype=ft)
                 heads = range(c * plan.heads_per,
                               min(G, (c + 1) * plan.heads_per))
                 for g in heads:
@@ -404,7 +408,7 @@ def _flash_bwd_fake(q, k, v, out, dout, causal, window, scale, q_offset):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                  + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
@@ -424,13 +428,12 @@ def _launch_backward(q, k, v, out, dout, causal, window, scale, q_offset,
                        for t in (q, k, v, out, dout)),
                    "flash_attention_backward: inputs must be contiguous on "
                    "one device")
-    _build.require(hd_v == hd and hd in HEAD_DIMS,
-                   f"flash_attention_backward: hd={hd}, hd_v={hd_v}: the "
-                   f"backward takes hd_v = hd in {HEAD_DIMS} (MLA's (192, "
-                   f"128) waits for the moe_gmm backward, ROADMAP.md Queue "
-                   f"2 item 7)")
-    _build.require(k.shape == (B, Sk, Hkv, hd) and v.shape == k.shape
-                   and out.shape == q.shape and dout.shape == q.shape
+    _build.require((hd, hd_v) in HEAD_DIM_PAIRS,
+                   f"flash_attention_backward: hd={hd}, hd_v={hd_v} not in "
+                   f"{HEAD_DIM_PAIRS}")
+    _build.require(k.shape == (B, Sk, Hkv, hd)
+                   and v.shape == (B, Sk, Hkv, hd_v)
+                   and out.shape == (B, Sq, H, hd_v) and dout.shape == out.shape
                    and H % Hkv == 0 and B * H < 65536,
                    f"flash_attention_backward: shapes {q.shape} {k.shape} "
                    f"{v.shape} {out.shape} {dout.shape}")
@@ -443,13 +446,17 @@ def _launch_backward(q, k, v, out, dout, causal, window, scale, q_offset,
     if plan is None:
         plan = plan_flash_backward(B, Sq, Sk, H, Hkv, hd,
                                    _build.sm_count(q.device))
+    _build.require(hd_v == hd or plan.splits == 1,
+                   f"flash_attention_backward: launch B splits a group of "
+                   f"{H // Hkv} heads only where hd_v = hd (hd={hd}, "
+                   f"hd_v={hd_v}, {plan})")
     lse = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     fn = _build.entry("flash_attention_backward_launch", _BWD_ARGTYPES)
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                     dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                     dv.data_ptr(), lse.data_ptr(), delta.data_ptr(), B, Sq,
-                    Sk, H, Hkv, hd, int(causal), window, scale, q_offset,
+                    Sk, H, Hkv, hd, hd_v, int(causal), window, scale, q_offset,
                     short_tiles, plan.heads_per, _build.DTYPE_CODES[q.dtype],
                     _build.stream_handle(q)),
                  "flash_attention_backward")

@@ -20,6 +20,13 @@ shapes and the SM count only; ``plan_items`` lists the walk the kernel
 makes.  fp32 keeps a CUDA-core
 kernel with the same ownership (a block per 64 columns of one expert).
 No divisibility is required of C, D or F.
+
+The gradient (``moe_gmm_backward``, ``csrc/moe_gmm_backward.cu``) is
+registered as the op's autograd.  The TPU kernel has no backward (the
+reference differentiates the einsums of ``repro/models/moe.py:93-96``);
+this one is the port's own: ``dx = dy wᵀ`` and ``dw = xᵀ dy``, two
+launches of the forward's wgmma kernel in bf16 with each operand read as
+it is stored (``plan_gmm_backward``), and CUDA-core kernels in fp32.
 """
 from __future__ import annotations
 
@@ -30,13 +37,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/moe_gmm.cu"
 REPLACES = "src/repro/kernels/moe_gmm.py:34"
+# the gradient of that kernel; the reference takes jax.grad of the
+# einsums of repro/models/moe.py:93-96 instead
+BACKWARD_SOURCE = "src/repro_torch/csrc/moe_gmm_backward.cu"
 
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may use (227 KB)
 SMEM_PER_SM = 233_472   # bytes an SM holds (228 KB), 1 KB of it per block
-# planted faults (csrc: kStaleTile, kDropRowGroup), for the checks only
+# planted faults (csrc: kStaleTile, kDropRowGroup), for the checks only;
+# in the backward, the first plants in launch dx (each w stage holds the
+# step before's F tile), the second in launch dw (R's last 8-row group
+# left out of the sum)
 FAULT_STALE_TILE = 1
 FAULT_DROP_ROW_GROUP = 2
 
@@ -122,9 +136,55 @@ def plan_items(plan: GmmPlan, block: int) -> list:
     return out
 
 
+class GmmBackwardPlan(NamedTuple):
+    """The bf16 backward's two launches, each a ``GmmPlan`` of the wgmma
+    tile whose "rows" are the product's M and "columns" its N: launch dx
+    (M = R, N = D, the sum over F) and launch dw (M = D, N = F, the sum
+    over R); ``plan_items`` gives a block's walk of either."""
+    dx: GmmPlan
+    dw: GmmPlan
+
+
+@functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
+def plan_gmm_backward(E: int, R: int, D: int, F: int,
+                      sm_count: int) -> GmmBackwardPlan:
+    """The bf16 backward's plan, from shapes only: each launch walks 128 x
+    256 output tiles (the forward's wgmma tile, at any M) with a
+    persistent grid of one block per SM, never more than the items.
+    Takes plain ints, never a tensor (deepseek's train row, E 64, R 128, D
+    2048, F 1408, on 132 SMs: dx 64 x 8 items of 22 ring steps, dw 64 x 6
+    x 16 items of 2)."""
+    for name, v in (("E", E), ("R", R), ("D", D), ("F", F),
+                    ("sm_count", sm_count)):
+        if not isinstance(v, int) or isinstance(v, bool):
+            raise TypeError(f"plan_gmm_backward: {name} must be an int, "
+                            f"not {type(v).__name__}")
+    spec = GMM_TILES[1]
+
+    def walk(M, N):
+        n_tiles, m_tiles = max(1, -(-N // spec.cols)), max(1, -(-M // spec.rows))
+        items = E * n_tiles * m_tiles
+        return GmmPlan(1, n_tiles, m_tiles, items,
+                       max(1, min(items, sm_count)))
+    return GmmBackwardPlan(walk(R, D), walk(D, F))
+
+
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The same function in plain PyTorch (the CPU path and the oracle)."""
-    return torch.einsum("ecd,edf->ecf", x.float(), w.float()).to(x.dtype)
+    """The same function in plain PyTorch (the CPU path and the oracle),
+    summed in fp32 (fp64 for fp64 inputs, which gradcheck takes)."""
+    return torch.einsum("ecd,edf->ecf", plain_float(x),
+                        plain_float(w)).to(x.dtype)
+
+
+def moe_gmm_backward_plain(x: torch.Tensor, w: torch.Tensor,
+                           dy: torch.Tensor):
+    """The gradient in plain PyTorch (the CPU path and the oracle): (dx =
+    dy wᵀ, dw = xᵀ dy) for ``moe_gmm(x, w)``'s gradient ``dy``, summed in
+    fp32 (fp64 for fp64 inputs) and written in x's and w's dtypes."""
+    dyf = plain_float(dy)
+    dx = torch.einsum("ecf,edf->ecd", dyf, plain_float(w))
+    dw = torch.einsum("ecd,ecf->edf", plain_float(x), dyf)
+    return dx.to(x.dtype), dw.to(w.dtype)
 
 
 @torch.library.custom_op("repro_torch::moe_gmm", mutates_args=())
@@ -198,3 +258,93 @@ def moe_gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 moe_gmm.launches = 0    # kernel launches (CUDA path only)
+
+
+# ------------------------------------------------------------- backward --
+@torch.library.custom_op("repro_torch::moe_gmm_backward", mutates_args=())
+def _moe_gmm_bwd_op(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    raise NotImplementedError(
+        f"moe_gmm_backward: no implementation on {x.device}")
+
+
+@_moe_gmm_bwd_op.register_kernel("cpu")
+def _moe_gmm_bwd_cpu(x, w, dy):
+    return moe_gmm_backward_plain(x, w, dy)
+
+
+@_moe_gmm_bwd_op.register_fake
+def _moe_gmm_bwd_fake(x, w, dy):
+    return torch.empty_like(x), torch.empty_like(w)
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
+                 + [ctypes.c_void_p])
+
+
+def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     plan: Optional[GmmBackwardPlan] = None,
+                     fault: int = 0):
+    """One run of the backward (launches dx and dw) on CUDA tensors, by
+    ``plan`` (bf16: ``plan_gmm_backward`` unless given).  A ``fault`` only
+    plants a fault for the checks."""
+    _build.require(x.dim() == 3 and w.dim() == 3 and dy.dim() == 3
+                   and x.shape[0] == w.shape[0] == dy.shape[0]
+                   and x.shape[2] == w.shape[1] and dy.shape[1] == x.shape[1]
+                   and dy.shape[2] == w.shape[2],
+                   f"moe_gmm_backward: shapes x {tuple(x.shape)}, w "
+                   f"{tuple(w.shape)}, dy {tuple(dy.shape)}")
+    _build.require(x.dtype in _build.DTYPE_CODES and w.dtype == x.dtype
+                   and dy.dtype == x.dtype,
+                   f"moe_gmm_backward: dtypes {x.dtype}/{w.dtype}/{dy.dtype}")
+    _build.require(all(t.is_contiguous() and t.device == x.device
+                       for t in (x, w, dy)),
+                   "moe_gmm_backward: x, w and dy must be contiguous on one "
+                   "device")
+    E, R, D = x.shape
+    F = w.shape[2]
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    if x.numel() == 0 or w.numel() == 0:
+        return dx.zero_(), dw.zero_()
+    if plan is None:
+        plan = plan_gmm_backward(E, R, D, F, _build.sm_count(x.device))
+    fn = _build.entry("moe_gmm_backward_launch", _BWD_ARGTYPES)
+    _build.check(fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                    dw.data_ptr(), E, R, D, F, int(_rows_aligned(x)),
+                    int(_rows_aligned(w)), int(_rows_aligned(dy)),
+                    _build.DTYPE_CODES[x.dtype], plan.dx.items,
+                    plan.dx.f_tiles, plan.dx.r_tiles, plan.dx.grid,
+                    plan.dw.items, plan.dw.f_tiles, plan.dw.r_tiles,
+                    plan.dw.grid, fault, _build.stream_handle(x)),
+                 "moe_gmm_backward")
+    return dx, dw
+
+
+@_moe_gmm_bwd_op.register_kernel("cuda")
+def _moe_gmm_bwd_cuda(x, w, dy):
+    grads = _launch_backward(x, w, dy)
+    if x.numel() and w.numel():
+        moe_gmm_backward.launches += 1
+    return grads
+
+
+def moe_gmm_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor):
+    """(dx, dw) of ``moe_gmm(x, w)`` for its gradient ``dy``.  CUDA
+    tensors launch the kernels, CPU tensors take the plain version."""
+    return _moe_gmm_bwd_op(x, w, dy.contiguous())
+
+
+moe_gmm_backward.launches = 0   # kernel runs (CUDA path only)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    return moe_gmm_backward(x, w, dy)
+
+
+torch.library.register_autograd("repro_torch::moe_gmm", _backward,
+                                setup_context=_setup_context)

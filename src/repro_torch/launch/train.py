@@ -10,10 +10,17 @@ Counterpart of ``repro/launch/train.py``, with the same flags and defaults
         --batch 8 --seq 128 --ckpt-dir /tmp/ckpt
     python -m repro_torch.launch.train --arch zamba2-1.2b --steps 4
     python -m repro_torch.launch.train --arch xlstm-350m --device cpu
+    python -m repro_torch.launch.train --arch deepseek-v2-lite-16b --steps 4
 
-Every family but moe trains: dense, vlm, audio, hybrid (zamba2-1.2b,
-through the Mamba2 scan's backward kernel) and ssm (xlstm-350m, through
-the mLSTM scan's).
+Every family trains: dense, vlm, audio, hybrid (zamba2-1.2b, through the
+Mamba2 scan's backward kernel), ssm (xlstm-350m, through the mLSTM
+scan's) and moe (deepseek-v2-lite-16b and mixtral-8x22b, through
+``moe_gmm``'s backward kernel, and for deepseek's MLA the flash backward
+at hd 192, hd_v 128).  At full size deepseek's AdamW state does not fit
+one H100; ``train`` takes it at full width and cut depth:
+
+    train(dataclasses.replace(get_config("deepseek-v2-lite-16b"),
+                              num_layers=4), steps=3)
 
 Wires together: data pipeline -> train step (eager; the custom ops'
 backward kernels on the card) -> AdamW -> async checkpoints -> restore.

@@ -10,10 +10,11 @@ item 15) and is dropped.
 
 A train step differentiates the loss with ``torch.autograd`` through the
 custom ops' registered backwards: on the card ``rmsnorm``,
-``flash_attention`` and the two chunk scans (``mamba_chunk_scan``,
-``mlstm_chunk_scan``) launch their backward kernels, so the dense, vlm,
-audio, hybrid and ssm families train.  ``moe_gmm`` has no backward yet,
-so the moe family does not (``make_train_step`` raises).
+``flash_attention``, the two chunk scans (``mamba_chunk_scan``,
+``mlstm_chunk_scan``) and ``moe_gmm`` launch their backward kernels, so
+every family trains: dense, vlm, audio, hybrid, ssm and moe (the
+routing, dispatch and combine of ``models/moe.py`` differentiate in plain
+PyTorch around ``moe_gmm``).
 """
 from __future__ import annotations
 
@@ -26,10 +27,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
-
-# the families whose kernels have no backward, and the ROADMAP item that
-# brings it
-NO_BACKWARD = {"moe": "moe_gmm (ROADMAP.md Queue 2, item 7)"}
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
@@ -64,13 +61,6 @@ def make_loss_fn(cfg: ModelConfig, remat: str = "full",
     return loss_fn
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    if cfg.family in NO_BACKWARD:
-        raise NotImplementedError(
-            f"make_train_step: {cfg.name} ({cfg.family}) runs "
-            f"{NO_BACKWARD[cfg.family]}, which has no backward yet")
-
-
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
                     remat: str = "full",
                     grad_transform: Optional[Callable] = None):
@@ -78,8 +68,7 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
     the loss over ``state["master"]``, the optional ``grad_transform``
     (e.g. int8 error feedback, whose buffer rides in ``state["ef"]``),
     then AdamW, which updates the state's tensors in place
-    (``optimizer.py``).  Raises for a family with no backward."""
-    _check_trainable(cfg)
+    (``optimizer.py``)."""
     loss_fn = make_loss_fn(cfg, remat)
 
     def train_step(state, batch):

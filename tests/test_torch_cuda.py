@@ -972,10 +972,20 @@ def test_backward_tolerance_rejects_planted_faults(cuda):
 
 def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rn = _randn(cuda, 14)
-    q, k, v = rn(1, 8, 4, 192), rn(1, 8, 4, 192), rn(1, 8, 4, 128)
-    with pytest.raises(ValueError, match="hd_v = hd"):
-        K.flash_attention_backward(q, k, v, rn(1, 8, 4, 128),
-                                   rn(1, 8, 4, 128))
+    q, k, v = rn(1, 8, 4, 192), rn(1, 8, 4, 192), rn(1, 8, 4, 64)
+    with pytest.raises(ValueError, match="not in"):
+        K.flash_attention_backward(q, k, v, rn(1, 8, 4, 64), rn(1, 8, 4, 64))
+    # (192, 128) with a group of 2: launch B splits only where hd_v = hd
+    q, k, v = rn(1, 8, 4, 192), rn(1, 8, 2, 192), rn(1, 8, 2, 128)
+    plan = FA.FlashBackwardPlan(1, 2)
+    with pytest.raises(ValueError, match="only where hd_v = hd"):
+        FA._launch_backward(q, k, v, rn(1, 8, 4, 128), rn(1, 8, 4, 128),
+                            True, 0, 192 ** -0.5, 0, plan=plan)
+    with pytest.raises(ValueError, match="shapes"):
+        K.moe_gmm_backward(rn(2, 4, 8), rn(2, 8, 16), rn(2, 4, 8))
+    with pytest.raises(ValueError, match="dtypes"):
+        K.moe_gmm_backward(rn(2, 4, 8), rn(2, 8, 16),
+                           rn(2, 4, 16, dt=torch.bfloat16))
     with pytest.raises(ValueError, match="multiple of 8"):
         K.rmsnorm_backward(rn(4, 8 * 1024 + 8), rn(8 * 1024 + 8),
                            rn(4, 8 * 1024 + 8))
@@ -1016,6 +1026,127 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
     for a, b in zip(torch.utils._pytree.tree_leaves(s_cpu["master"]),
                     torch.utils._pytree.tree_leaves(s_gpu["master"])):
         _close(a, b.cpu(), 1e-4)
+
+
+# ------------------------------------------------ the moe family's train --
+# (E, R, D, F): deepseek-v2-lite-16b's train row (batch 8 x seq 128: four
+# groups of C = 32), both expert products; mixtral-8x22b's row (E 8, C
+# 320); a 256-token group's R = 32; ragged ones
+GMM_BWD_CASES = [(64, 128, 2048, 1408), (64, 128, 1408, 2048),
+                 (8, 320, 6144, 16384), (64, 32, 2048, 1408), (3, 37, 200, 72),
+                 (3, 5, 131, 67), (2, 150, 96, 300)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,R,D,F", GMM_BWD_CASES)
+def test_moe_gmm_backward_matches_plain(cuda, dt, E, R, D, F):
+    """dx and dw against the plain backward; one counted run (two
+    launches); identical bits on a second run (no atomics)."""
+    rn = _randn(cuda, 21)
+    x, w, dy = rn(E, R, D, dt=dt) * D ** -0.5, rn(E, D, F, dt=dt), \
+        rn(E, R, F, dt=dt)
+    x = x.to(dt)
+    before = K.moe_gmm_backward.launches
+    dx, dw = K.moe_gmm_backward(x, w, dy)
+    torch.cuda.synchronize()
+    assert K.moe_gmm_backward.launches == before + 1
+    wdx, wdw = K.moe_gmm_backward_plain(x, w, dy)
+    assert dx.dtype == dw.dtype == dt
+    _close(dx, wdx, TOL[dt])
+    _close(dw, wdw, TOL[dt])
+    dx2, dw2 = K.moe_gmm_backward(x, w, dy)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_moe_gmm_backward_tolerance_rejects_planted_faults(cuda, dt):
+    """At deepseek's train row: launch dx with each w stage holding the
+    step before's F tile, launch dw with R's last 8-row group left out of
+    the sum; each fails the check its gradient passes."""
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+    rn = _randn(cuda, 22)
+    x, w, dy = (rn(64, 128, 2048) * 2048 ** -0.5).to(dt), \
+        rn(64, 2048, 1408, dt=dt), rn(64, 128, 1408, dt=dt)
+    wdx, wdw = K.moe_gmm_backward_plain(x, w, dy)
+    dx, dw = MG._launch_backward(x, w, dy, fault=MG.FAULT_STALE_TILE)
+    assert not _agree(dx, wdx, TOL[dt]) and _agree(dw, wdw, TOL[dt])
+    dx, dw = MG._launch_backward(x, w, dy, fault=MG.FAULT_DROP_ROW_GROUP)
+    assert _agree(dx, wdx, TOL[dt]) and not _agree(dw, wdw, TOL[dt])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,causal", [(8, 128, True), (1, 37, True),
+                                        (1, 256, True), (2, 70, False)])
+def test_flash_backward_at_mla_head_dims_matches_plain(cuda, dt, B, S,
+                                                       causal):
+    """MLA's (hd 192, hd_v 128) at deepseek's train row [8,128,16,...],
+    a ragged prompt, a 256-token prefill and bidirectional rows: dq, dk
+    and dv within the limit, bit-equal on a second run, and launch A one K
+    tile short rejected."""
+    rn = _randn(cuda, 23)
+    q, k, v = rn(B, S, 16, 192, dt=dt), rn(B, S, 16, 192, dt=dt), \
+        rn(B, S, 16, 128, dt=dt)
+    out = K.flash_attention(q, k, v, causal=causal)
+    dout = rn(B, S, 16, 128, dt=dt)
+    got = K.flash_attention_backward(q, k, v, out, dout, causal=causal)
+    want = K.flash_attention_backward_plain(q, k, v, out, dout,
+                                            causal=causal)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == dt
+        _close(a, b, TOL[dt])
+    again = K.flash_attention_backward(q, k, v, out, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if S > 64 and causal:
+        bad = FA._launch_backward(q, k, v, out, dout, causal, 0,
+                                  192 ** -0.5, 0, short_tiles=1)
+        assert not all(_agree(a, b, TOL[dt]) for a, b in zip(bad, want))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x22b"])
+def test_moe_smoke_train_step_on_card(cuda, arch):
+    """One fp32 train step of the smoke config on the card against the
+    same step on the CPU, with one moe_gmm_backward run per moe_gmm
+    launch (three a MoE layer) and one flash backward a layer; deepseek's
+    MLA at its own head dims (hd 192 = 128 + 64 rope, hd_v 128), which the
+    kernels take where the smoke config's 24 / 16 they do not."""
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+    cfg = smoke_shrink(get_config(arch), dtype="float32")
+    if cfg.mla is not None:
+        cfg = dataclasses.replace(cfg, mla=MLAConfig(
+            kv_lora_rank=32, qk_nope_head_dim=128, qk_rope_head_dim=64,
+            v_head_dim=128))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 128))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    params = L.to_tree(M.init_params(cfg, 0, device="cpu"))
+    step = ST.make_train_step(cfg, AdamWConfig(warmup_steps=1,
+                                               decay_steps=10), remat="none")
+    moe_layers = sum(s.n for s in M.build_stages(cfg) if s.kind in M.MOE_KINDS)
+    got = {}
+    for dev in ("cpu", cuda):
+        state = init_opt_state(
+            torch.utils._pytree.tree_map(lambda t: t.to(dev), params))
+        K.reset_launches()
+        got[str(dev)] = step(state, {k: torch.as_tensor(v, device=dev)
+                                     for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert K.moe_gmm.launches == K.moe_gmm_backward.launches \
+        == 3 * moe_layers
+    assert K.flash_attention_backward.launches == cfg.num_layers
+    (s_cpu, m_cpu), (s_gpu, m_gpu) = got["cpu"], got["cuda"]
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(float(m_cpu[key]) - float(m_gpu[key])) <= \
+            1e-4 * (1 + abs(float(m_cpu[key]))), key
+    # Adam's first step moves an element whose gradient is below fp32's
+    # resolution by a rounding-decided fraction of lr: those are held to
+    # the step's bound only
+    lr = float(m_cpu["lr"])
+    for a, b, m in zip(torch.utils._pytree.tree_leaves(s_cpu["master"]),
+                       torch.utils._pytree.tree_leaves(s_gpu["master"]),
+                       torch.utils._pytree.tree_leaves(s_cpu["m"])):
+        ok = m.abs() / (1 - 0.9) >= 1e-6
+        _close(a[ok], b.cpu()[ok], 1e-4)
+        assert torch.all((a - b.cpu()).abs()[~ok] <= 2 * lr + 1e-4)
 
 
 # ------------------------------------------------------ scan backwards ----

@@ -9,7 +9,9 @@ one wgmma item, and row tiles of 128 above.  The kernel's walk (items in
 ``plan_items`` order, each summed over its 128- or 64-deep ring steps)
 is replayed in plain PyTorch and held to
 ``moe_gmm_plain`` and to the JAX reference (``repro.kernels.ref`` and the
-Pallas kernel in interpret mode) in fp32.  ``plan_rmsnorm``: a warp per
+Pallas kernel in interpret mode) in fp32.  ``plan_gmm_backward``: its two
+launches (dx, dw) walk every 128 x 256 output tile once (``plan_items``), and their walks
+replayed in plain PyTorch give ``moe_gmm_backward_plain``'s gradients.  ``plan_rmsnorm``: a warp per
 row up to 2 KB rows, a block per row above, and every row normalised
 exactly once by the grid-stride walk."""
 import importlib
@@ -194,6 +196,92 @@ def test_gmm_walk_fails_the_check_when_an_item_is_skipped():
     short = _walk(x, w, plan._replace(items=plan.items - 1))
     assert not torch.allclose(short, K.moe_gmm_plain(x, w), atol=1e-4,
                               rtol=1e-4)
+
+
+# (E, R, D, F): deepseek-v2-lite-16b's train row (both expert products),
+# mixtral-8x22b's, and ragged ones
+GMM_BWD_SHAPES = [(64, 128, 2048, 1408), (64, 128, 1408, 2048),
+                  (8, 320, 6144, 16384), (3, 37, 200, 72), (3, 5, 131, 67),
+                  (2, 150, 96, 300)]
+
+
+@pytest.mark.parametrize("sm", SM_COUNTS)
+@pytest.mark.parametrize("E,R,D,F", GMM_BWD_SHAPES)
+def test_gmm_backward_plan_walks_every_tile_once(E, R, D, F, sm):
+    """dx's tiles cover [R, D] and dw's [D, F] of every expert, each
+    walked once, the blocks' shares within one item of each other."""
+    plan = MG.plan_gmm_backward(E, R, D, F, sm)
+    for walk, (M, N) in ((plan.dx, (R, D)), (plan.dw, (D, F))):
+        spec = walk.spec
+        assert spec == MG.GMM_TILES[1]
+        assert walk.f_tiles * spec.cols >= N > (walk.f_tiles - 1) * spec.cols
+        assert walk.r_tiles * spec.rows >= M > (walk.r_tiles - 1) * spec.rows
+        assert walk.items == E * walk.f_tiles * walk.r_tiles
+        assert 1 <= walk.grid <= min(walk.items, sm)
+        walked = [it for b in range(walk.grid)
+                  for it in MG.plan_items(walk, b)]
+        assert sorted(walked) == sorted(
+            (e, nt, mt) for e in range(E) for nt in range(walk.f_tiles)
+            for mt in range(walk.r_tiles))
+        counts = [len(MG.plan_items(walk, b)) for b in range(walk.grid)]
+        assert max(counts) - min(counts) <= 1
+
+
+def test_gmm_backward_plan_reads_only_shapes_and_the_sm_count():
+    params = list(inspect.signature(MG.plan_gmm_backward).parameters)
+    assert params == ["E", "R", "D", "F", "sm_count"]
+    assert MG.plan_gmm_backward(64, 128, 2048, 1408, 132) == \
+        MG.plan_gmm_backward(64, 128, 2048, 1408, 132)
+    for bad in (torch.tensor(128), 128.0, True):
+        with pytest.raises(TypeError):
+            MG.plan_gmm_backward(64, bad, 2048, 1408, 132)
+
+
+def _walk_backward(x, w, dy, plan):
+    """The two launches' algorithm in plain PyTorch, fp32: every block's
+    items in its order, each the sum over its 64-deep ring steps (dx: over
+    F, dw: over R) of the A tile times the B tile, zeros past the edges."""
+    spec = MG.GMM_TILES[1]
+    E, R, D = x.shape
+    F = w.shape[2]
+    # launch dx: A = dy [R][F], B = w^T; launch dw: A = x^T, B = dy
+    ops_ = ((plan.dx, dy, w.transpose(1, 2), R, D, F),
+            (plan.dw, x.transpose(1, 2), dy, D, F, R))
+    outs = []
+    for walk, a, b, M, N, Kd in ops_:
+        out = torch.full((E, M, N), float("nan"))
+        for blk in range(walk.grid):
+            for e, nt, mt in MG.plan_items(walk, blk):
+                m0, n0 = mt * spec.rows, nt * spec.cols
+                acc = torch.zeros(spec.rows, spec.cols)
+                for k0 in range(0, max(Kd, 1), spec.depth):
+                    at = torch.zeros(spec.rows, spec.depth)
+                    bt = torch.zeros(spec.depth, spec.cols)
+                    sa = a[e, m0:m0 + spec.rows, k0:k0 + spec.depth].float()
+                    sb = b[e, k0:k0 + spec.depth, n0:n0 + spec.cols].float()
+                    at[:sa.shape[0], :sa.shape[1]] = sa
+                    bt[:sb.shape[0], :sb.shape[1]] = sb
+                    acc += at @ bt
+                rows, cols = min(spec.rows, M - m0), min(spec.cols, N - n0)
+                out[e, m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+        outs.append(out)
+    return tuple(outs)
+
+
+@pytest.mark.parametrize("sm", [3, 132])
+@pytest.mark.parametrize("E,R,D,F", [(3, 37, 200, 72), (3, 5, 131, 67),
+                                     (2, 150, 96, 300)])
+def test_gmm_backward_walk_matches_plain(E, R, D, F, sm):
+    """Both launches' walks (one and two M tiles, ragged edges, several
+    items a block) against the plain backward in fp32."""
+    rng = np.random.default_rng(E + R + D + F)
+    x = torch.from_numpy(rng.standard_normal((E, R, D)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((E, D, F)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((E, R, F)).astype(np.float32))
+    got = _walk_backward(x, w, dy, MG.plan_gmm_backward(E, R, D, F, sm))
+    for a, b in zip(got, K.moe_gmm_backward_plain(x, w, dy)):
+        assert not torch.isnan(a).any()
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
 
 
 # (rows, D, itemsize): the served shapes of every family and the widest
