@@ -50,9 +50,11 @@ Phases, each of which raises (exit code != 0) when it fails:
            [8,128,32,64] (G = 1), at phi-3-vision's and whisper's
            shapes and at deepseek's MLA train step (q, k [8,128,16,192],
            v [8,128,16,128]); moe_gmm's, two launches (dx, dw) by
-           ``plan_gmm_backward``, at deepseek-v2-lite-16b's train row (x
+           ``plan_gmm_backward`` (warp-specialised TMA kernels, dy resident
+           in dw where R <= 128), at deepseek-v2-lite-16b's train row (x
            [64,128,2048] @ w [64,2048,1408], and w2's) and mixtral-8x22b's
-           [8,320,6144] @ [8,6144,16384], each launch's device ms; the two scans' at
+           [8,320,6144] @ [8,6144,16384], each launch's device ms, and the
+           cp.async kernel (rows not 16-byte aligned) at the train row; the two scans' at
            zamba2-1.2b's and xlstm-350m's train step rows [8,1,128,...]
            and at the 300-token prompt's [1,2,150,...]) against their
            plain versions in both dtypes, timed beside the library's
@@ -65,8 +67,10 @@ Phases, each of which raises (exit code != 0) when it fails:
            tiles without the last (with forget gates near 1); a scan
            backward's bf16 splits cut to one part; moe_gmm's launch dx
            with each w stage holding the step before's F tile, its
-           launch dw without R's last 8-row group), the scans' two runs
-           bit-equal, each scan backward's device time by launch;
+           launch dw without R's last 8-row group, and with a block's
+           later units keeping its first unit's resident dy tile), the
+           scans' two runs bit-equal, each scan backward's device time by
+           launch; kernel and library times are medians of MEDIAN_OF;
   train    training through the backward kernels: (a) qwen2.5-3b cut to 2
            layers at full width, one fp32 train step on the card against
            the CPU (loss, grad norm, every master leaf); (c) the same
@@ -214,6 +218,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -236,10 +241,18 @@ def log(*a):
 
 
 # ------------------------------------------------------------------ timing --
-def device_ms(fn, args_list, replays=5):
+# the kernels phase times each kernel and its library call as the median
+# of this many measurements (one graph capture, each measurement its own
+# ``replays`` replays between events): a single one read the flash
+# backward's SDPA at half its time once
+MEDIAN_OF = 5
+
+
+def device_ms(fn, args_list, replays=5, repeats=1):
     """Mean device time of one ``fn(*args)``: one call per entry of
     ``args_list`` captured once in a CUDA graph (so host overhead does not
-    count), the graph replayed ``replays`` times between CUDA events."""
+    count), the graph replayed ``replays`` times between CUDA events; with
+    ``repeats`` > 1 the median of that many such measurements."""
     import torch
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
@@ -252,14 +265,17 @@ def device_ms(fn, args_list, replays=5):
         for a in args_list:
             fn(*a)
     g.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        g.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * len(args_list))
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (replays * len(args_list)))
+    return statistics.median(times)
 
 
 def cold_copies(make, nbytes):
@@ -369,9 +385,11 @@ def phase_build(state):
             f"{r.get('smem')} B static shared memory, spill stores/loads "
             f"{r.get('spills')} B (dynamic shared memory is set at launch)")
     spilled = {n: r.get("spills") for n, r in report.items()
-               if ("_scan_" in n or n.startswith(("mamba_bwd", "mlstm_bwd")))
+               if ("_scan_" in n or n.startswith(("mamba_bwd", "mlstm_bwd",
+                                                  "gmm_bwd")))
                and r.get("spills") != (0, 0)}
-    assert not spilled, f"build: the scan kernels spill: {spilled}"
+    assert not spilled, \
+        f"build: the scan or moe_gmm backward kernels spill: {spilled}"
 
 
 def _agree(got, want, tol):
@@ -416,18 +434,23 @@ def phase_kernels(state):
     def record(kernel, case, main, err, args_list, run, plain, library,
                nbytes, ops, dname, ms=None, library_minus=None):
         """... ``library_minus``: a call whose time the library's
-        includes and the kernel's does not (a backward's forward)."""
-        ms = device_ms(run, args_list) if ms is None else ms
+        includes and the kernel's does not (a backward's forward).  The
+        kernel and the library: medians of MEDIAN_OF measurements (the
+        scans' ``ms``, from ``_scan_times``, too)."""
+        ms = device_ms(run, args_list, repeats=MEDIAN_OF) if ms is None \
+            else ms
         plain_ms = device_ms(plain, args_list)
-        lib_ms = device_ms(library, args_list) if library else None
+        lib_ms = device_ms(library, args_list, repeats=MEDIAN_OF) \
+            if library else None
         if library_minus is not None:
-            lib_ms -= device_ms(library_minus, args_list)
+            lib_ms -= device_ms(library_minus, args_list, repeats=MEDIAN_OF)
         b_ms, b_by = bound(nbytes, ops, dname)
         lib_txt = "none (no single PyTorch call computes this)" \
             if lib_ms is None else f"{lib_ms:.4f} ms"
         log(f"kernels: {kernel:16s} {case:38s} err {err:.3g}  kernel "
             f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}); kernel and library medians of "
+            f"{MEDIAN_OF}")
         row = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if main:
@@ -899,13 +922,18 @@ def _gmm_backward_kernels(randn, record, tols):
     BWD_GMM_ROWS (mixtral: bf16), timed beside the plain version, the
     library's two ``torch.bmm`` calls (dy wᵀ and xᵀ dy) and the bound
     (bytes: x, w, dy read once, dx, dw written once; 4 E R D F
-    operations), with each launch's device ms (dx, dw); and, at the first
-    row in both dtypes, the planted faults: launch dx with each w stage
-    holding the step before's F tile, launch dw with R's last 8-row group
-    left out of the sum."""
+    operations), with each launch's device ms (dx, dw); at the first row
+    in bf16 the cp.async kernel (``_plan_backward(tma=False)``, which rows
+    that are not 16-byte aligned take) checked and timed beside it; and,
+    at the first row in both dtypes, the planted faults: launch dx with
+    each w stage holding the step before's F tile, launch dw with R's last
+    8-row group left out of the sum, and (bf16: the TMA kernel with dy
+    resident) launch dw with a block's later units keeping its first
+    unit's dy tile."""
     import importlib
     import torch
     from repro_torch import kernels as K
+    from repro_torch.kernels import _build
     MG = importlib.import_module("repro_torch.kernels.moe_gmm")
     dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -942,13 +970,36 @@ def _gmm_backward_kernels(randn, record, tols):
                         MG._launch_backward(
                             x, w, dy, fault=MG.FAULT_DROP_ROW_GROUP)[1],
                         want[1], tols[dname])
+                if dname == "bfloat16":
+                    _reject(f"moe_gmm_backward {case}, launch dw with a "
+                            f"block's later units keeping its first unit's "
+                            f"resident dy tile",
+                            MG._launch_backward(
+                                x, w, dy, fault=MG.FAULT_STALE_RESIDENT)[1],
+                            want[1], tols[dname])
             record("moe_gmm_backward", case, i == 0 and dname == "bfloat16",
                    err, args_list, K.moe_gmm_backward,
                    K.moe_gmm_backward_plain, lib, nbytes,
                    4 * E * R * D * F_, dname)
             split = _launch_split(K.moe_gmm_backward, args_list)
-            log(f"kernels: moe_gmm_backward {case} device ms by launch: "
+            plan = MG.plan_gmm_backward(E, R, D, F_, _build.sm_count(x.device))
+            log(f"kernels: moe_gmm_backward {case} (tma {plan.tma}, dy "
+                f"resident {plan.resident}) device ms by launch: "
                 + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+            if i == 0 and dname == "bfloat16":
+                cpa = MG._plan_backward(E, R, D, F_,
+                                        _build.sm_count(x.device), False)
+                run = lambda x, w, dy: MG._launch_backward(x, w, dy, cpa)
+                err = max(_check(f"moe_gmm_backward {case} cp.async {n}", a,
+                                 b, tols[dname])
+                          for n, a, b in zip(("dx", "dw"), run(x, w, dy),
+                                             want))
+                log(f"kernels: moe_gmm_backward {case} by the cp.async "
+                    f"kernel: err {err:.3g}, "
+                    f"{device_ms(run, args_list, repeats=MEDIAN_OF):.4f} ms "
+                    f"(median of {MEDIAN_OF}); by launch: " + ", ".join(
+                        f"{k} {v:.4f}"
+                        for k, v in _launch_split(run, args_list).items()))
             del args_list, x, w, dy, want
 
 
@@ -1181,7 +1232,8 @@ def _scan_backward_slow_forget(randn, dt, tol):
 
 
 def _sass_mma_counts(keys=("flash_attention", "moe_gmm", "mlstm_scan",
-                           "mamba_scan", "mlstm_bwd", "mamba_bwd")):
+                           "mamba_scan", "mlstm_bwd", "mamba_bwd",
+                           "gmm_bwd")):
     """HMMA/HGMMA instructions in the SASS of each kernel whose name holds
     one of ``keys``, by cuobjdump where the toolkit has it (None where it
     does not)."""
@@ -1329,7 +1381,8 @@ def _attention_sweep(randn, tols, dev):
     else:
         for name, c in sorted(counts.items()):
             log(f"kernels: SASS {name}: {c} HMMA/HGMMA instructions")
-        for key in ("flash_attention_mma", "moe_gmm_mma", "moe_gmm_wgmma"):
+        for key in ("flash_attention_mma", "moe_gmm_mma", "moe_gmm_wgmma",
+                    "gmm_bwd_wgmma", "gmm_bwd_tma"):
             mma = {k: c for k, c in counts.items() if key in k}
             assert mma and all(mma.values()), \
                 f"kernels: the bf16 {key} kernels hold no HMMA: {counts}"
@@ -2065,7 +2118,8 @@ def _scan_times(randn, state):
                 make = lambda: _scan_inputs(randn, which, B, Q, nc, dt)
                 args = cold_copies(make, nbytes) if nc <= 16 \
                     else [make(), make()]
-                times[(which, B, Q, nc, dname)] = device_ms(kernel, args)
+                times[(which, B, Q, nc, dname)] = device_ms(
+                    kernel, args, repeats=MEDIAN_OF)
                 del args
     return times
 

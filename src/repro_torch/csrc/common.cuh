@@ -394,6 +394,184 @@ __device__ __forceinline__ void fence_regs(unsigned (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// ---- the Tensor Memory Accelerator and mbarriers (sm_90) ----
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier in shared memory that completes a phase once `count`
+// arrivals (and every byte an arrive.expect_tx announced) have come.
+__device__ __forceinline__ void mbar_init(unsigned long long* bar,
+                                          unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// the initialised barriers, visible to the async proxy (TMA) as well
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned long long* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// one arrival that also announces `bytes` the TMA will deliver
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar,
+                                               unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed (a barrier starts
+// in phase 0, so parity 1 passes at once).
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar,
+                                          int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// A box of a 3-D tensor map (`map`: the address of a __grid_constant__
+// CUtensorMap) at coordinates {c0, c1, c2}, innermost first, into shared
+// memory at dst; its bytes complete on `bar`.  Out-of-range elements
+// arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            unsigned long long* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same with an L2 eviction policy (createpolicy)
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const void* map,
+                                                 unsigned long long* bar,
+                                                 int c0, int c1, int c2,
+                                                 unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.L2::cache_hint [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+// tma_load_3d into the same shared offset of every block of the cluster
+// named in `mask` (bit r: rank r), completing on each one's barrier at
+// bar's offset
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst,
+                                                      const void* map,
+                                                      unsigned long long* bar,
+                                                      int c0, int c1, int c2,
+                                                      unsigned short mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_u32(bar)),
+      "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+
+// this block's rank in its thread block cluster
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every block of the cluster (its memory ordered)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on the barrier at bar's offset in block `rank` of the
+// cluster.  It orders nothing (a plain arrive): it says a stage's reads
+// are done, and no data of this block is handed over with it; a
+// cluster-scope release on every stage measured 2x slower.
+__device__ __forceinline__ void mbar_arrive_cluster(unsigned long long* bar,
+                                                    unsigned rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// A box of shared memory at src to a 3-D tensor map at {c0, c1, c2}
+// (elements out of range are not written), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<unsigned long long>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same with an L2 eviction policy (createpolicy)
+__device__ __forceinline__ void tma_store_3d_hint(const void* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2,
+                                                  unsigned long long policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0, {%2, %3, %4}], [%1], %5;\n" ::"l"(
+          reinterpret_cast<unsigned long long>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// this thread's bulk stores have read their shared memory (it may be
+// written again)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// this thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Registers a warpgroup gives up or takes (warp specialisation); all its
+// warps run it together.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---- programmatic dependent launch (sm_90) ----
 
 // Lets the next kernel on the stream, launched with programmatic stream

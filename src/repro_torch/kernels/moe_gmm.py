@@ -25,8 +25,11 @@ The gradient (``moe_gmm_backward``, ``csrc/moe_gmm_backward.cu``) is
 registered as the op's autograd.  The TPU kernel has no backward (the
 reference differentiates the einsums of ``repro/models/moe.py:93-96``);
 this one is the port's own: ``dx = dy wᵀ`` and ``dw = xᵀ dy``, two
-launches of the forward's wgmma kernel in bf16 with each operand read as
-it is stored (``plan_gmm_backward``), and CUDA-core kernels in fp32.
+launches in bf16 with each operand read as it is stored
+(``plan_gmm_backward``): where every row is 16-byte aligned, warp-
+specialised kernels fed by TMA (dw keeping dy's tile resident where R <=
+128, its outputs leaving by TMA stores), else the forward's cp.async
+wgmma kernel; CUDA-core kernels in fp32.
 """
 from __future__ import annotations
 
@@ -47,12 +50,14 @@ BACKWARD_SOURCE = "src/repro_torch/csrc/moe_gmm_backward.cu"
 
 SMEM_LIMIT = 232_448    # bytes of shared memory a block may use (227 KB)
 SMEM_PER_SM = 233_472   # bytes an SM holds (228 KB), 1 KB of it per block
-# planted faults (csrc: kStaleTile, kDropRowGroup), for the checks only;
-# in the backward, the first plants in launch dx (each w stage holds the
-# step before's F tile), the second in launch dw (R's last 8-row group
-# left out of the sum)
+# planted faults (csrc: kStaleTile, kDropRowGroup, kStaleResident), for
+# the checks only; in the backward, the first plants in launch dx (each w
+# stage holds the step before's F tile), the second in launch dw (R's last
+# 8-row group left out of the sum), the third in launch dw where dy's tile
+# is resident (a block's later units keep its first unit's dy tile)
 FAULT_STALE_TILE = 1
 FAULT_DROP_ROW_GROUP = 2
+FAULT_STALE_RESIDENT = 3
 
 
 class GmmTile(NamedTuple):
@@ -88,13 +93,19 @@ GMM_TILES = (GmmTile(8, 64, 4, 128, 5, False),
 
 class GmmPlan(NamedTuple):
     """A bf16 call: tile ``GMM_TILES[tile]``; ``items`` = E x f_tiles x
-    r_tiles work items, walked by ``grid`` persistent blocks: block b
-    takes items b, b + grid, b + 2 grid, ..."""
+    r_tiles work items, walked by ``grid`` persistent blocks in chunks of
+    ``chunk`` consecutive items: block b takes chunks b, b + grid, b + 2
+    grid, ... (the forward: chunks of one item).  With ``cluster`` > 1 the
+    blocks form thread block clusters of that many, and cluster k takes
+    chunks k, k + grid / cluster, ..., its block r the chunk's r-th item
+    (the chunk is ``cluster`` row tiles that share an operand)."""
     tile: int
     f_tiles: int
     r_tiles: int
     items: int
     grid: int
+    chunk: int = 1
+    cluster: int = 1
 
     @property
     def spec(self) -> GmmTile:
@@ -125,14 +136,18 @@ def plan_gmm(E: int, R: int, D: int, F: int, sm_count: int) -> GmmPlan:
 
 def plan_items(plan: GmmPlan, block: int) -> list:
     """The (expert, F tile, row tile) items block ``block`` walks, in its
-    order (the kernel's ``Cursor``): row tiles fastest, then F tiles, so
-    the blocks running side by side read neighbouring tiles of the same
-    rows of w."""
+    order (the kernels' walk): row tiles fastest, then F tiles, so the
+    blocks running side by side read neighbouring tiles of the same rows
+    of w; ``plan.chunk`` consecutive items at a time (in a cluster: the
+    block's one item of each chunk)."""
     out = []
-    for item in range(block, plan.items, plan.grid):
-        rest, rt = divmod(item, plan.r_tiles)
-        e, ft = divmod(rest, plan.f_tiles)
-        out.append((e, ft, rt))
+    cl = plan.cluster
+    for c in range(block // cl, -(-plan.items // plan.chunk), plan.grid // cl):
+        items = range(c * plan.chunk, min((c + 1) * plan.chunk, plan.items))
+        for item in items[block % cl::cl] if cl > 1 else items:
+            rest, rt = divmod(item, plan.r_tiles)
+            e, ft = divmod(rest, plan.f_tiles)
+            out.append((e, ft, rt))
     return out
 
 
@@ -140,33 +155,91 @@ class GmmBackwardPlan(NamedTuple):
     """The bf16 backward's two launches, each a ``GmmPlan`` of the wgmma
     tile whose "rows" are the product's M and "columns" its N: launch dx
     (M = R, N = D, the sum over F) and launch dw (M = D, N = F, the sum
-    over R); ``plan_items`` gives a block's walk of either."""
+    over R); ``plan_items`` gives a block's walk of either.  ``tma``: the
+    warp-specialised TMA kernels (``GMM_BWD_TMA``), else the cp.async
+    kernel (``GMM_TILES[1]``); ``resident``: dw keeps dy's [R x 256] tile
+    in shared memory while it walks a unit of items, all the D tiles of
+    one (expert, F tile): ``dw.chunk`` is then the D tiles.  A launch's
+    ``cluster`` > 1 (dx on the TMA path with 2 to 4 row tiles, e.g.
+    mixtral's R = 320): the row tiles of one (expert, D tile) run side by
+    side in a thread block cluster and share w's tile by multicast."""
     dx: GmmPlan
     dw: GmmPlan
+    tma: bool
+    resident: bool
+
+
+class GmmBwdTile(NamedTuple):
+    """A launch of the TMA backward (csrc: ``T_*``, ``*_STAGES`` and
+    ``TmaLayout``): a ring of ``stages`` stages of ``stage_bytes``, an
+    output buffer and a resident tile, all 128-byte swizzled from a
+    1024-byte boundary, and a full and an empty mbarrier per stage plus
+    the resident tile's two; 12 warps (two consumer warpgroups of 64 rows,
+    one producer), 128 x 256 outputs an item, the ring 64 deep."""
+    stages: int
+    stage_bytes: int
+    out_bytes: int
+    resident_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return (self.stages * self.stage_bytes + self.out_bytes
+                + self.resident_bytes + 8 * (2 * self.stages + 2) + 1024)
+
+
+# dx: dy [128][64] + w [256][64] a stage; dw streamed: x [64][128] + dy
+# [64][256] a stage and a [128][256] output buffer; dw with dy resident:
+# x a stage, the buffer and dy's [128][256]
+GMM_BWD_TMA = {"dx": GmmBwdTile(4, 49152, 0, 0),
+               "dw": GmmBwdTile(3, 49152, 65536, 0),
+               "dw_resident": GmmBwdTile(6, 16384, 65536, 65536)}
+RESIDENT_ROWS = 128     # R up to this keeps dy's tile resident (64 KB)
+
+
+MAX_CLUSTER = 4     # w's tile in quarters: at most four blocks share it
+
+
+def _plan_backward(E: int, R: int, D: int, F: int, sm_count: int,
+                   tma: bool) -> GmmBackwardPlan:
+    spec = GMM_TILES[1]
+
+    def walk(M, N, chunk, cluster):
+        n_tiles, m_tiles = max(1, -(-N // spec.cols)), max(1, -(-M // spec.rows))
+        items = E * n_tiles * m_tiles
+        chunk, cluster = chunk(m_tiles), cluster(m_tiles)
+        return GmmPlan(1, n_tiles, m_tiles, items,
+                       cluster * max(1, min(items // chunk,
+                                             sm_count // cluster)),
+                       chunk, cluster)
+    resident = tma and R <= RESIDENT_ROWS
+    # dx: R's 2 to 4 row tiles in a cluster (measured 10% faster at
+    # mixtral's shape; clusters of dw's D tiles, or of dx's D tiles
+    # sharing dy, measured no faster or slower)
+    cl = lambda m: m if tma and 2 <= m <= min(MAX_CLUSTER, sm_count) else 1
+    dx = walk(R, D, cl, cl)
+    dw = walk(D, F, lambda m: m if resident else 1, lambda m: 1)
+    return GmmBackwardPlan(dx, dw, tma, resident)
 
 
 @functools.lru_cache(maxsize=512, typed=True)  # a launch pays no planning
 def plan_gmm_backward(E: int, R: int, D: int, F: int,
                       sm_count: int) -> GmmBackwardPlan:
     """The bf16 backward's plan, from shapes only: each launch walks 128 x
-    256 output tiles (the forward's wgmma tile, at any M) with a
-    persistent grid of one block per SM, never more than the items.
-    Takes plain ints, never a tensor (deepseek's train row, E 64, R 128, D
-    2048, F 1408, on 132 SMs: dx 64 x 8 items of 22 ring steps, dw 64 x 6
-    x 16 items of 2)."""
+    256 output tiles with a persistent grid of one block per SM, never
+    more than the items (dw with dy resident: than the units).  The TMA
+    kernels wherever every row of x, w and dy is 16-byte aligned (D and F
+    multiples of 8: TMA's row strides), the cp.async kernel elsewhere;
+    dy resident in dw where R <= 128.  Takes plain ints, never a tensor
+    (deepseek's train row, E 64, R 128, D 2048, F 1408, on 132 SMs: dx 64
+    x 8 items of 22 ring steps; dw 64 x 6 units of 16 items of 2;
+    mixtral-8x22b's, E 8, R 320, D 6144, F 16384: dx in clusters of R's 3
+    row tiles, dw 24,576 items of 5)."""
     for name, v in (("E", E), ("R", R), ("D", D), ("F", F),
                     ("sm_count", sm_count)):
         if not isinstance(v, int) or isinstance(v, bool):
             raise TypeError(f"plan_gmm_backward: {name} must be an int, "
                             f"not {type(v).__name__}")
-    spec = GMM_TILES[1]
-
-    def walk(M, N):
-        n_tiles, m_tiles = max(1, -(-N // spec.cols)), max(1, -(-M // spec.rows))
-        items = E * n_tiles * m_tiles
-        return GmmPlan(1, n_tiles, m_tiles, items,
-                       max(1, min(items, sm_count)))
-    return GmmBackwardPlan(walk(R, D), walk(D, F))
+    return _plan_backward(E, R, D, F, sm_count, D % 8 == 0 and F % 8 == 0)
 
 
 def moe_gmm_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -278,16 +351,23 @@ def _moe_gmm_bwd_fake(x, w, dy):
     return torch.empty_like(x), torch.empty_like(w)
 
 
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 17
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 23
                  + [ctypes.c_void_p])
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its base is not on a 16-byte boundary
+    (a view at an odd offset): TMA reads from aligned bases only."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                      plan: Optional[GmmBackwardPlan] = None,
                      fault: int = 0):
     """One run of the backward (launches dx and dw) on CUDA tensors, by
-    ``plan`` (bf16: ``plan_gmm_backward`` unless given).  A ``fault`` only
-    plants a fault for the checks."""
+    ``plan`` (bf16: ``plan_gmm_backward`` unless given; ``_plan_backward``
+    with ``tma=False`` takes the cp.async kernel at any shape).  A
+    ``fault`` only plants a fault for the checks."""
     _build.require(x.dim() == 3 and w.dim() == 3 and dy.dim() == 3
                    and x.shape[0] == w.shape[0] == dy.shape[0]
                    and x.shape[2] == w.shape[1] and dy.shape[1] == x.shape[1]
@@ -308,14 +388,18 @@ def _launch_backward(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         return dx.zero_(), dw.zero_()
     if plan is None:
         plan = plan_gmm_backward(E, R, D, F, _build.sm_count(x.device))
+    if plan.tma and x.dtype == torch.bfloat16:
+        x, w, dy = _aligned(x), _aligned(w), _aligned(dy)
     fn = _build.entry("moe_gmm_backward_launch", _BWD_ARGTYPES)
     _build.check(fn(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                     dw.data_ptr(), E, R, D, F, int(_rows_aligned(x)),
                     int(_rows_aligned(w)), int(_rows_aligned(dy)),
-                    _build.DTYPE_CODES[x.dtype], plan.dx.items,
-                    plan.dx.f_tiles, plan.dx.r_tiles, plan.dx.grid,
-                    plan.dw.items, plan.dw.f_tiles, plan.dw.r_tiles,
-                    plan.dw.grid, fault, _build.stream_handle(x)),
+                    _build.DTYPE_CODES[x.dtype], int(plan.tma),
+                    int(plan.resident), plan.dx.items, plan.dx.f_tiles,
+                    plan.dx.r_tiles, plan.dx.grid, plan.dx.chunk,
+                    plan.dx.cluster, plan.dw.items, plan.dw.f_tiles,
+                    plan.dw.r_tiles, plan.dw.grid, plan.dw.chunk,
+                    plan.dw.cluster, fault, _build.stream_handle(x)),
                  "moe_gmm_backward")
     return dx, dw
 

@@ -1031,10 +1031,13 @@ def test_smoke_train_step_on_card_matches_cpu(cuda, arch):
 # ------------------------------------------------ the moe family's train --
 # (E, R, D, F): deepseek-v2-lite-16b's train row (batch 8 x seq 128: four
 # groups of C = 32), both expert products; mixtral-8x22b's row (E 8, C
-# 320); a 256-token group's R = 32; ragged ones
+# 320); a 256-token group's R = 32; ragged ones; aligned ones with dw
+# streamed over two M tiles of dx (R = 200) and with dy resident over
+# ragged D and F tiles
 GMM_BWD_CASES = [(64, 128, 2048, 1408), (64, 128, 1408, 2048),
                  (8, 320, 6144, 16384), (64, 32, 2048, 1408), (3, 37, 200, 72),
-                 (3, 5, 131, 67), (2, 150, 96, 300)]
+                 (3, 5, 131, 67), (2, 150, 96, 300), (2, 200, 256, 512),
+                 (2, 64, 136, 264)]
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -1056,6 +1059,61 @@ def test_moe_gmm_backward_matches_plain(cuda, dt, E, R, D, F):
     _close(dw, wdw, TOL[dt])
     dx2, dw2 = K.moe_gmm_backward(x, w, dy)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("E,R,D,F", GMM_BWD_CASES)
+def test_moe_gmm_backward_cp_async_path_matches_plain(cuda, E, R, D, F):
+    """The cp.async kernel, which bf16 rows that are not 16-byte aligned
+    take, forced at every case (where the plan takes the TMA kernels as
+    well): within the limit and bit-equal on a second run."""
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+    rn = _randn(cuda, 21)
+    dt = torch.bfloat16
+    x, w, dy = (rn(E, R, D) * D ** -0.5).to(dt), rn(E, D, F, dt=dt), \
+        rn(E, R, F, dt=dt)
+    plan = MG._plan_backward(E, R, D, F, _build.sm_count(cuda), False)
+    assert not plan.tma and not plan.resident
+    assert MG.plan_gmm_backward(E, R, D, F, _build.sm_count(cuda)).tma == \
+        (D % 8 == 0 and F % 8 == 0)
+    got = MG._launch_backward(x, w, dy, plan)
+    for a, b in zip(got, K.moe_gmm_backward_plain(x, w, dy)):
+        _close(a, b, TOL[dt])
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, MG._launch_backward(x, w, dy, plan)))
+
+
+def test_moe_gmm_backward_takes_views_at_odd_offsets(cuda):
+    """Contiguous views whose bases are not 16-byte aligned (the TMA
+    kernels read aligned bases only, so the wrapper copies them) give the
+    plain backward."""
+    rn = _randn(cuda, 24)
+    E, R, D, F = 2, 64, 256, 264
+    dt = torch.bfloat16
+    flat = rn(E * R * D + 1, dt=dt) * D ** -0.5
+    x = flat[1:].view(E, R, D)
+    w, dy = rn(E, D, F, dt=dt), rn(E * R * F + 3, dt=dt)[3:].view(E, R, F)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16 and x.is_contiguous()
+    for a, b in zip(K.moe_gmm_backward(x, w, dy),
+                    K.moe_gmm_backward_plain(x, w, dy)):
+        _close(a, b, TOL[dt])
+
+
+def test_moe_gmm_backward_tolerance_rejects_a_stale_resident_tile(cuda):
+    """At deepseek's train row, where dw keeps dy's [128 x 256] tile
+    resident for each unit of D tiles: a block's later units keeping its
+    first unit's tile fails the check that dw passes; dx is untouched."""
+    MG = importlib.import_module("repro_torch.kernels.moe_gmm")
+    rn = _randn(cuda, 22)
+    dt = torch.bfloat16
+    x, w, dy = (rn(64, 128, 2048) * 2048 ** -0.5).to(dt), \
+        rn(64, 2048, 1408, dt=dt), rn(64, 128, 1408, dt=dt)
+    assert MG.plan_gmm_backward(64, 128, 2048, 1408,
+                                _build.sm_count(cuda)).resident
+    wdx, wdw = K.moe_gmm_backward_plain(x, w, dy)
+    dx, dw = MG._launch_backward(x, w, dy, fault=MG.FAULT_STALE_RESIDENT)
+    assert _agree(dx, wdx, TOL[dt]) and not _agree(dw, wdw, TOL[dt])
+    dx, dw = MG._launch_backward(x, w, dy)
+    assert _agree(dx, wdx, TOL[dt]) and _agree(dw, wdw, TOL[dt])
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])

@@ -314,3 +314,42 @@ def test_engine_matches_jax_engine(setup):
         {k: jeng.stats[k] for k in stats}
     assert eng.stats["spec_blocks"] == 0 and eng.stats["prefill_dispatches"] \
         == len(prompts)
+
+
+
+@pytest.mark.parametrize("S", [1, 2])
+def test_short_prompt_conv_tail_raises_in_both(S):
+    """A fault of the reference that the port keeps (ROADMAP Queue 3):
+    ``mamba2_forward`` keeps ``xs_raw[:, -(K - 1):]`` as the conv tail for
+    decode (``repro/models/ssm.py:83-84``, ``repro_torch/models/ssm.py:84``),
+    which holds S rows, not K - 1 = 3, for a prompt of 1 or 2 tokens.
+    Scattering it into the slot caches raises for 2 tokens in both
+    packages alike; 1 token's row broadcasts over the 3 slots in both, so
+    both serve the same (wrongly conditioned) tokens."""
+    jcfg = jax_smoke_shrink(jax_get_config("zamba2-1.2b"), dtype="float32")
+    cfg = smoke_shrink(get_config("zamba2-1.2b"), dtype="float32")
+    assert cfg.ssm.conv_width - 1 == 3
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    block_k, n_slots, cache_len = 4, 2, 32
+    rules = rules_for("serve", make_host_mesh(model=1).axis_names)
+    channel = JaxLiveChannel(
+        jax.jit(JST.make_prefill_step(jcfg, rules, cache_len)),
+        jax.jit(JST.make_fused_decode_step(jcfg, rules, k=block_k, eos_id=2),
+                donate_argnums=(3,)))
+    jeng = JaxEngine(jp, channel=channel, **jax_stream_kwargs(
+        jcfg, n_slots=n_slots, cache_len=cache_len, block_k=block_k,
+        eos_id=2, pipeline_depth=4))
+    eng = serve.build_engine(cfg, n_slots=n_slots, cache_len=cache_len,
+                             block_k=block_k, params=tp, device="cpu")
+    for e in (jeng, eng):
+        e.submit([5, 6][:S], 4)
+    if S == 1:
+        assert eng.run() == jeng.run()
+        return
+    with pytest.raises(ValueError, match=r"\(2, 2, 1, 2, 16\).*"
+                                         r"\(2, 2, 1, 3, 16\)"):
+        jeng.run()
+    with pytest.raises(RuntimeError, match=r"shape mismatch.*\[2, 2, 1, 2, "
+                                           r"16\].*\[2, 2, 1, 3, 16\]"):
+        eng.run()
