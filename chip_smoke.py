@@ -70,7 +70,13 @@ Phases, each of which raises (exit code != 0) when it fails:
            launch dw without R's last 8-row group, and with a block's
            later units keeping its first unit's resident dy tile), the
            scans' two runs bit-equal, each scan backward's device time by
-           launch; kernel and library times are medians of MEDIAN_OF;
+           launch; the decode kernel's int8-cache form at qwen2.5-3b's,
+           starcoder2-7b's, zamba2-1.2b's and phi-3-vision's decode
+           shapes (int8 caches [4,1024,Hkv,hd], fp32 scales) in bf16 and
+           fp32 q, over drawn and full lengths and the ring, with its
+           planted fault (the V scales ignored), its bound in bytes and
+           SDPA over bf16 caches of the same shape beside it; kernel and
+           library times are medians of MEDIAN_OF;
   train    training through the backward kernels: (a) qwen2.5-3b cut to 2
            layers at full width, one fp32 train step on the card against
            the CPU (loss, grad norm, every master leaf); (c) the same
@@ -133,6 +139,20 @@ Phases, each of which raises (exit code != 0) when it fails:
            billed to a wifi emulator (identical tokens, host syncs and
            launches; the two billing logs equal), and one decode block
            profiled under the graph beside live;
+  int8     int8 serving through the API: (a) qwen2.5-3b at full width
+           and depth quantized on the card (``serving.quant``), bytes and
+           time; (b) served with ``kv_quant`` through the Engine (4 slots,
+           cache 1024, block_k 8, 8 prompts, 32 new tokens), speculation
+           on and off: identical streams, the int8 decode form launched L
+           block_k a block and the bf16 form and the plain version never,
+           peak memory beside phase serve's bf16 server; (c) full width,
+           2 layers, card against CPU: fp32 with int8 caches (1e-3) and
+           bf16 with int8 weights and caches (2e-2 of the largest logit);
+           (d) the int8 step recorded, signed, verified and replayed at
+           REPLAY_LAYERS: live, eager and graph tokens identical, a bf16
+           tree refused, the decode block under the graph beside phase
+           replay's bf16 block; (e) starcoder2-7b at full width, 4 layers,
+           int8 caches (G = 9, the window form) through the Engine;
   registry record -> publish -> fetch -> verify -> replay of qwen2.5-3b at
            full width and phase replay's depth: phase replay's recordings (recorded here when
            that phase did not run) published through a cloud
@@ -202,7 +222,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            written to BENCH_replay.json.
 
 The line before the last is a JSON summary of the kernels (the backward
-kernels with their launches in phase train); the last line
+kernels with their launches in phase train, the decode kernel's int8 form
+with its launches in phase int8); the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/repro_torch`` beside it, the script exits non-zero
 before printing either.
@@ -227,8 +248,8 @@ from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "train", "parity", "serve", "prefill",
-          "profile", "replay", "registry", "fleet", "session", "families",
-          "native")
+          "profile", "replay", "int8", "registry", "fleet", "session",
+          "families", "native")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -432,11 +453,13 @@ def phase_kernels(state):
     rows = state["kernel_rows"] = {}
 
     def record(kernel, case, main, err, args_list, run, plain, library,
-               nbytes, ops, dname, ms=None, library_minus=None):
+               nbytes, ops, dname, ms=None, library_minus=None,
+               no_library="no single PyTorch call computes this"):
         """... ``library_minus``: a call whose time the library's
-        includes and the kernel's does not (a backward's forward).  The
-        kernel and the library: medians of MEDIAN_OF measurements (the
-        scans' ``ms``, from ``_scan_times``, too)."""
+        includes and the kernel's does not (a backward's forward);
+        ``no_library``: why there is no library time.  The kernel and the
+        library: medians of MEDIAN_OF measurements (the scans' ``ms``,
+        from ``_scan_times``, too)."""
         ms = device_ms(run, args_list, repeats=MEDIAN_OF) if ms is None \
             else ms
         plain_ms = device_ms(plain, args_list)
@@ -445,8 +468,8 @@ def phase_kernels(state):
         if library_minus is not None:
             lib_ms -= device_ms(library_minus, args_list, repeats=MEDIAN_OF)
         b_ms, b_by = bound(nbytes, ops, dname)
-        lib_txt = "none (no single PyTorch call computes this)" \
-            if lib_ms is None else f"{lib_ms:.4f} ms"
+        lib_txt = f"none ({no_library})" if lib_ms is None \
+            else f"{lib_ms:.4f} ms"
         log(f"kernels: {kernel:16s} {case:38s} err {err:.3g}  kernel "
             f"{ms:.4f} ms  plain {plain_ms:.4f} ms  library {lib_txt}  "
             f"bound {b_ms:.4f} ms ({b_by}); kernel and library medians of "
@@ -481,6 +504,7 @@ def phase_kernels(state):
     _scan_backward_kernels(randn, record)
 
     _attention_rows(randn, record, tols, state)
+    _int8_decode_rows(randn, record, tols)
 
     # the other head dims and group sizes the kernels take (smoke widths)
     for (Bx, Sq, Sk, Hx, Hk, hdx, causal, win) in (
@@ -731,6 +755,113 @@ def _attention_rows(randn, record, tols, state):
             if r.role == "families" and dname == "bfloat16":
                 family[r.key] = row
             del args_list, q, kc, vc, ln, want
+
+
+# the decode kernel's int8-cache form: qwen2.5-3b's row (the main one),
+# starcoder2-7b's group of 9, zamba2-1.2b's shared attention (hd 64, G 1)
+# and phi-3-vision's hd 96
+INT8_DECODE_ROWS = (
+    DecodeRow("qwen2.5-3b int8", 4, 16, 2, 1024, 128, role="main"),
+    DecodeRow("starcoder2-7b int8", 4, 36, 4, 1024, 128),
+    DecodeRow("zamba2 shared attention int8", 4, 32, 32, 1024, 64),
+    DecodeRow("phi-3 decode int8", 4, 32, 32, 1024, 96))
+
+
+def _int8_decode_rows(randn, record, tols):
+    """The int8-cache form at INT8_DECODE_ROWS in bf16 and fp32 q, against
+    its plain version over lengths drawn from 1 to W (seed 0: they cut a
+    32-row tile), over lengths that reach the end, and over the ring
+    (positions past W, the lengths clamped by ``layers.decode_attention``);
+    its planted fault (the V scales ignored) must fail.  Timed beside its
+    plain version and its bound in bytes (int8 K/V rows, fp32 scales, q
+    and out); no PyTorch call reads int8 caches, so the library column is
+    none, and SDPA's time over bf16 caches of the same shape stands beside
+    it for context."""
+    import importlib
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.models import layers as Lyr
+    DA = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device("cuda")
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    W0, B0 = RANDOM_LENGTHS
+    lens0 = torch.randint(1, W0 + 1, (B0,), generator=torch.Generator()
+                          .manual_seed(0), dtype=torch.int32)
+    run = lambda q, kq, vq, ln, ks, vs: K.decode_attention_int8(
+        q, kq, vq, ln, ks, vs)
+    plain = lambda q, kq, vq, ln, ks, vs: K.decode_attention_plain(
+        q, kq, vq, ln, k_scale=ks, v_scale=vs)
+    for r in INT8_DECODE_ROWS:
+        assert (r.W, r.B) == RANDOM_LENGTHS, r
+        n_valid = int(lens0.sum())
+        lens = lens0.to(dev)
+        valid = torch.arange(r.W, device=dev)[None] < lens[:, None]
+
+        def sdpa(q, kc, vc, ln, m=valid[:, None, None, :], r=r):
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                attn_mask=m, enable_gqa=r.H != r.Hkv)
+        cache_bytes = r.B * r.W * r.Hkv * (2 * r.hd + 8)
+        for dname, dt in dts.items():
+            esz = torch.finfo(dt).bits // 8
+            nbytes = 2 * r.B * r.H * r.hd * esz + \
+                n_valid * r.Hkv * (2 * r.hd + 2 * 4) + 4 * r.B
+
+            def make(r=r, dt=dt, lens=lens):
+                kq, ks = Lyr.kv_quantize(randn(r.B, r.W, r.Hkv, r.hd,
+                                               dt=torch.float32))
+                vq, vs = Lyr.kv_quantize(randn(r.B, r.W, r.Hkv, r.hd,
+                                               dt=torch.float32))
+                return (randn(r.B, r.H, r.hd, dt=dt), kq, vq, lens.clone(),
+                        ks, vs)
+            args_list = cold_copies(make, cache_bytes)
+            q, kq, vq, ln, ks, vs = args_list[0]
+            case = (f"{r.label}: q {list(q.shape)} int8 caches "
+                    f"{list(kq.shape)} G={r.H // r.Hkv} lengths "
+                    f"{lens.tolist()} {dname}")
+            want = plain(q, kq, vq, ln, ks, vs)
+            err = _check(f"decode {case}", run(q, kq, vq, ln, ks, vs), want,
+                         tols[dname])
+            full = torch.full_like(ln, r.W)
+            _check(f"decode {case}, lengths {r.W}",
+                   run(q, kq, vq, full, ks, vs),
+                   plain(q, kq, vq, full, ks, vs), tols[dname])
+            pos = torch.tensor([r.W + 37, 2 * r.W + 5, r.W - 1, 100],
+                               dtype=torch.int32, device=dev)[:r.B]
+            _check(f"decode {case}, the ring at positions {pos.tolist()}",
+                   Lyr.decode_attention(q[:, None], kq, vq, pos, window=r.W,
+                                        k_scale=ks, v_scale=vs)[:, 0],
+                   K.decode_attention_plain(q, kq, vq, pos + 1, window=r.W,
+                                            k_scale=ks, v_scale=vs),
+                   tols[dname])
+            _reject(f"decode {case}, the V scales ignored",
+                    DA._launch(q, kq, vq, ln, r.hd ** -0.5, k_scale=ks,
+                               v_scale=vs, fault=DA.FAULT_IGNORE_V_SCALE),
+                    want, tols[dname])
+            row = record("decode_attention_int8", case,
+                         r.role == "main" and dname == "bfloat16", err,
+                         args_list, run, plain, None, nbytes,
+                         4 * r.hd * r.H * n_valid, dname,
+                         no_library="no single PyTorch call reads int8 "
+                                    "caches")
+            del args_list, q, kq, vq, ln, ks, vs, want
+
+            def make16(r=r, dt=dt, lens=lens):
+                return (randn(r.B, r.H, r.hd, dt=dt),
+                        randn(r.B, r.W, r.Hkv, r.hd, dt=torch.bfloat16),
+                        randn(r.B, r.W, r.Hkv, r.hd, dt=torch.bfloat16),
+                        lens.clone())
+            args16 = cold_copies(make16, 2 * r.B * r.W * r.Hkv * r.hd * 2)
+            if dt == torch.float32:   # SDPA takes one dtype
+                args16 = [(q.bfloat16(), kc, vc, ln)
+                          for q, kc, vc, ln in args16]
+            row["sdpa_bf16_ms"] = device_ms(sdpa, args16, repeats=MEDIAN_OF)
+            log(f"kernels: decode_attention_int8 {r.label} {dname}: SDPA over "
+                f"bf16 caches of the same shape {row['sdpa_bf16_ms']:.4f} ms "
+                f"(for context; median of {MEDIAN_OF}) beside the int8 "
+                f"kernel's {row['ms']:.4f} ms")
+            del args16
 
 
 def _rmsnorm_kernels(randn, record, tols):
@@ -1793,9 +1924,11 @@ def phase_parity(state):
     _parity(cfg, toks, lens, cache_len=512)
 
 
-def _serve(cfg, params, prompts, max_new, block_k, speculate=True):
+def _serve(cfg, params, prompts, max_new, block_k, speculate=True,
+           int8=False):
     """One engine run; returns (outputs, launches, seconds, tokens,
-    stats) after checking every token and every stream's end."""
+    stats) after checking every token and every stream's end; ``int8``
+    counts the int8 forms' launches too."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.launch.serve import build_engine
@@ -1811,7 +1944,7 @@ def _serve(cfg, params, prompts, max_new, block_k, speculate=True):
     outs = eng.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches = K.launch_counts(K.KERNELS + (K.INT8_KERNELS if int8 else ()))
     st = dict(eng.stats)
     ntok = sum(len(v) for v in outs.values())
     log(f"serve {cfg.name}[{'spec' if eng.speculate else 'sync'}]: {ntok} "
@@ -1857,6 +1990,7 @@ def phase_serve(state):
     params = _init_params(cfg)
     prompts = _prompts(cfg, 8, 0)
     runs = {}
+    base = _serving_base()
     for speculate in (True, False):
         outs, launches, dt, ntok, st = _serve(cfg, params, prompts, max_new,
                                               block_k, speculate)
@@ -1871,6 +2005,7 @@ def phase_serve(state):
         "serve: speculative and synchronous token streams differ"
     assert runs[True][2]["host_syncs"] < runs[False][2]["host_syncs"]
     log("serve: speculative and synchronous token streams are identical")
+    state["serve_memory"] = _serving_memory("serve", cfg, params, base)
     state["launches"] = dict(runs[True][1])
     state["params"] = {cfg.name: params}
     _serve_starcoder2(block_k, max_new)
@@ -1905,6 +2040,39 @@ def phase_serve(state):
         log(f"serve {cfg.name}: launches equal {want}")
 
     _serve_deepseek(state, block_k, max_new)
+
+
+def _param_bytes(params):
+    """Bytes of a ParamTree's (or a tree's) tensors: int8 values and fp32
+    scales where it is quantized."""
+    import torch
+    from repro_torch.models import layers as Lyr
+    tree = Lyr.to_tree(params) if isinstance(params, torch.nn.Module) \
+        else params
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree))
+
+
+def _serving_base():
+    """Device bytes allocated before a serve, the peak reset."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _serving_memory(label, cfg, params, base):
+    """(resident param GB, GB the serves allocated above what was resident
+    before them at their peak), logged."""
+    import torch
+    torch.cuda.synchronize()
+    resident = _param_bytes(params) / 1e9
+    working = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"{label} {cfg.name}: params resident {resident:.3f} GB; peak "
+        f"device memory above what was resident before the serves "
+        f"{working:.3f} GB (caches, activations, dequantized blocks); "
+        f"the server's own {resident + working:.3f} GB")
+    return resident, working
 
 
 def _serve_starcoder2(block_k, max_new):
@@ -1995,14 +2163,17 @@ def _custom_kernel_ms(prof):
     """[(wrapper, device ms, CUDA kernels)] for each custom kernel: its
     device intervals, by its source's stem in the CUDA kernel's name
     (csrc/moe_gmm.cu: moe_gmm_mma_kernel, csrc/mlstm_scan.cu:
-    mlstm_scan_chunk_kernel and mlstm_scan_out_kernel, ...)."""
+    mlstm_scan_chunk_kernel and mlstm_scan_out_kernel, ...); the decode
+    kernel's int8 form by its int8 cache type (``signed char``) in it."""
     from torch.autograd import DeviceType
     from repro_torch import kernels as K
     out = []
-    for k in K.KERNELS:
+    for k in K.KERNELS + K.INT8_KERNELS:
         stem = Path(sys.modules[k.__module__].SOURCE).stem
+        int8 = k in K.INT8_KERNELS
         ts = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == DeviceType.CUDA and stem in e.name]
+              if e.device_type == DeviceType.CUDA and stem in e.name
+              and ("signed char" in e.name) == int8]
         out.append((k.__name__, sum(ts) / 1e3, len(ts)))
     return out
 
@@ -2029,7 +2200,7 @@ def _timed(label, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    launches = K.launch_counts()
+    launches = K.launch_counts(K.KERNELS + K.INT8_KERNELS)
     busy, n_kern = _device_busy(prof)
     wall = min(walls)
     log(f"{label}: {wall:.2f} ms wall (best of "
@@ -2238,9 +2409,10 @@ def _replay_tampers(blob, key):
         f"torch.export.load reached {loads[0]} times")
 
 
-def _replay_serve(label, eng, prompts, max_new, rp=None):
-    """Serve ``prompts`` on ``eng``: (outputs, stats, wrapper launches,
-    graph replays) after checking every stream's end."""
+def _replay_serve(label, eng, prompts, max_new, rp=None, kernels=None):
+    """Serve ``prompts`` on ``eng``: (outputs, stats, wrapper launches of
+    ``kernels`` (``K.KERNELS`` unless given), graph replays) after
+    checking every stream's end."""
     import torch
     from repro_torch import kernels as K
     for p in prompts:
@@ -2253,7 +2425,7 @@ def _replay_serve(label, eng, prompts, max_new, rp=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     replays = (rp.stats["graph_replays"] if rp is not None else 0) - replays0
-    st, launches = dict(eng.stats), K.launch_counts()
+    st, launches = dict(eng.stats), K.launch_counts(kernels or K.KERNELS)
     ntok = sum(len(v) for v in outs.values())
     log(f"replay: serve {label} [{eng.channel.kind}]: {ntok} tokens in "
         f"{dt:.3f} s ({ntok / dt:.1f} tok/s); stats {st}; wrapper launches "
@@ -2445,6 +2617,7 @@ def phase_replay(state):
     eng = Engine(tree, channel=channel, **stream_kwargs(
         cfg, **dict(kw, speculate=False)))
     g_wall, g_busy = _profile(cfg, params, eng=eng, label=" graph replay")
+    state["replay_block"] = g_wall, g_busy
     log(f"replay: decode block wall {live_wall:.2f} -> {g_wall:.2f} ms, "
         f"device busy {live_busy:.2f} -> {g_busy:.2f} ms, idle share "
         f"{1 - live_busy / live_wall:.3f} -> {1 - g_busy / g_wall:.3f} "
@@ -2453,6 +2626,300 @@ def phase_replay(state):
     log(f"replay: replayer stats {rp.stats}; peak memory of the phase "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; all figures "
         f"of this phase on {_card(state)}")
+
+
+INT8_PARITY_LAYERS = 2
+
+
+def _int8_parity(label, cfg, cpu_params, toks, rel_tol):
+    """The card's int8 prefill (per-request step), one decode step and one
+    fused block of 8 against the port's CPU path on the same params, both
+    decoding from the CPU's first tokens (in bf16 the two prefills' argmax
+    may differ among near-equal logits): logits within ``rel_tol`` of the
+    CPU's largest |logit| (fp32: atol = rtol = ``rel_tol`` as phase
+    parity), int8 cache values at most one step apart, and in fp32 the
+    block's tokens equal."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.serving.cache import cache_leaves
+    from repro_torch.training import steps as ST
+
+    gpu_params = copy.deepcopy(cpu_params).to("cuda")
+    fused = ST.make_fused_decode_step(cfg, k=8)
+    res, first = {}, None
+    for dev, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+        t = torch.as_tensor(toks, device=dev)
+        out, caches = ST.make_prefill_step(cfg, 128)(params, {"tokens": t})
+        prefilled = [c.to("cpu", copy=True) for c in cache_leaves(caches)]
+        if first is None:
+            first = out["next_tokens"].cpu()
+        same_first = torch.equal(out["next_tokens"].cpu(), first)
+        nxt = first.to(dev)
+        pos = torch.full((t.shape[0],), t.shape[1], dtype=torch.int32,
+                         device=dev)
+        step, _ = M.decode_step(params, cfg, nxt, pos.clone(),
+                                copy.deepcopy(caches))
+        blk, caches = fused(params, nxt, pos, caches)
+        res[dev] = dict(prefill=out["last_logits"].float().cpu(),
+                        step=step.float().cpu(), tokens=blk["tokens"].cpu(),
+                        prefilled=prefilled,
+                        caches=[c.cpu() for c in cache_leaves(caches)])
+    del gpu_params
+    g, c = res["cuda"], res["cpu"]
+    fp32 = cfg.dtype == "float32"
+    for name in ("prefill", "step"):
+        err = (g[name] - c[name]).abs().max().item()
+        scale = c[name].abs().max().item()
+        ok = torch.allclose(g[name], c[name], atol=rel_tol, rtol=rel_tol) \
+            if fp32 else err <= rel_tol * scale
+        assert ok, f"int8 parity {label}: {name} logits differ by {err} " \
+            f"(largest |logit| {scale})"
+        log(f"int8 parity {label}: {name} logits {tuple(g[name].shape)} max "
+            f"|err| {err:.3g} (largest |logit| {scale:.3g})")
+    # the prefill's caches (in bf16 the blocks' tokens may part, and then
+    # their cache rows), and in fp32 the block's caches too: at most one
+    # step apart in fp32 (bf16 K/V differ by a few ulps between cuBLAS and
+    # the CPU's products, an ulp being about one int8 step near a row's
+    # largest value, so bf16 is logged only)
+    for name in ("prefilled", "caches") if fp32 else ("prefilled",):
+        n_int8 = n_diff = worst = 0
+        for a, b in zip(g[name], c[name]):
+            if a.dtype == torch.int8:
+                d = (a.int() - b.int()).abs()
+                n_int8 += d.numel()
+                n_diff += int((d > 0).sum())
+                worst = max(worst, int(d.max()))
+        assert n_int8 and (worst <= 1 or not fp32), \
+            (name, n_int8, n_diff, worst)
+        which = "prefill's" if name == "prefilled" else "fused block's"
+        log(f"int8 parity {label}: {n_diff} of {n_int8} int8 values of the "
+            f"{which} caches differ between card and CPU, by at most {worst}")
+    same = int((g["tokens"] == c["tokens"]).all(-1).sum())
+    if fp32:
+        assert same_first and torch.equal(g["tokens"], c["tokens"]), \
+            (same_first, g["tokens"].tolist(), c["tokens"].tolist())
+    log(f"int8 parity {label}: the card's prefill chose the CPU's first "
+        f"tokens: {same_first}; fused-block tokens equal on {same} of "
+        f"{g['tokens'].shape[0]} rows: {g['tokens'].tolist()}")
+
+
+def phase_int8(state):
+    """Int8 serving on the card, through the API (no command-line switch):
+    (a) qwen2.5-3b at full width and depth quantized by ``quantize_params``
+    on the card; (b) that tree served with ``kv_quant`` through the Engine
+    (4 slots, cache 1024, block_k 8, 8 prompts, 32 new tokens),
+    speculation on and off, with identical streams, launches equal to the
+    formulas (the int8 decode form L * block_k a block, the bf16 form and
+    the CPU's plain version never) and peak memory beside phase serve's
+    bf16 server; (c) the card against the CPU at full width and 2 layers,
+    fp32 with int8 caches and bf16 with int8 weights and caches; (d) the
+    int8 step recorded, signed, verified and replayed at
+    ``REPLAY_LAYERS`` layers, live, eagerly and under the decode block's
+    CUDA graph with identical tokens, a bf16 tree refused, the block's
+    wall and busy ms under the graph beside phase replay's bf16 block;
+    (e) starcoder2-7b at full width and 4 layers with int8 caches (G = 9,
+    the window form) through the Engine."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.api.workload import recording_name
+    from repro_torch.configs import get_config
+    from repro_torch.core.channel import LiveChannel, ReplayChannel
+    from repro_torch.core.replay import ReplayArgumentError, Replayer
+    from repro_torch.launch.record import record_kinds
+    from repro_torch.launch.serve import stream_kwargs
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.serving import quant as Q
+    from repro_torch.serving.engine import Engine
+    from repro_torch.training import steps as ST
+    DA = sys.modules["repro_torch.kernels.decode_attention"]
+    counted = K.KERNELS + K.INT8_KERNELS
+    block_k, max_new = 8, 32
+
+    # (a) quantize on the card
+    cfg = get_config("qwen2.5-3b")
+    L = cfg.num_layers
+    params = state.get("params", {}).get(cfg.name)
+    if params is None:
+        params = _init_params(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pq = Q.quantize_params(params)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    n_q = sum(t.dtype == torch.int8 for t in pq.parameters())
+    log(f"int8 (a): {cfg.name} quantized on the card in {t_q:.3f} s: "
+        f"{n_q} int8 leaves; params {_param_bytes(params) / 1e9:.3f} GB in "
+        f"bf16 -> {_param_bytes(pq) / 1e9:.3f} GB int8 + scales and the "
+        f"leaves left bf16, on {_card(state)}")
+
+    # (b) served with int8 caches; the CPU's plain version never runs
+    cfgq = dataclasses.replace(cfg, kv_quant=True)
+    prompts = _prompts(cfg, 8, 0)
+    plain_calls = [0]
+    real_plain = DA.decode_attention_plain
+
+    def counted_plain(q, *a, **kw):
+        plain_calls[0] += q.device.type != "cpu"
+        return real_plain(q, *a, **kw)
+    DA.decode_attention_plain = counted_plain
+    runs = {}
+    try:
+        base = _serving_base()
+        for speculate in (True, False):
+            outs, launches, dt, ntok, st = _serve(cfgq, pq, prompts, max_new,
+                                                  block_k, speculate,
+                                                  int8=True)
+            pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+            want = dict.fromkeys(launches, 0)
+            want.update(flash_attention=L * pd,
+                        decode_attention_int8=L * block_k * bd,
+                        rmsnorm=(2 * L + 1) * (pd + block_k * bd))
+            assert launches == want, (launches, want)
+            runs[speculate] = (outs, launches, st, ntok / dt)
+        memory = _serving_memory("int8 (b)", cfgq, pq, base)
+    finally:
+        DA.decode_attention_plain = real_plain
+    assert plain_calls[0] == 0, plain_calls
+    assert runs[True][0] == runs[False][0], \
+        "int8: speculative and synchronous token streams differ"
+    assert runs[True][2]["host_syncs"] < runs[False][2]["host_syncs"]
+    state["int8_launches"] = dict(runs[True][1])
+    bf16 = state.get("serve_memory")
+    log(f"int8 (b): speculative and synchronous streams identical; launches "
+        f"equal the formulas ({runs[True][1]}); the plain version ran on "
+        f"the card {plain_calls[0]} times; {runs[True][3]:.1f} tok/s "
+        f"(spec); server memory {sum(memory):.3f} GB int8"
+        + (f" against {sum(bf16):.3f} GB for phase serve's bf16 server "
+           f"({bf16[0]:.3f} GB params + {bf16[1]:.3f} GB)" if bf16 else ""))
+    del pq
+    torch.cuda.empty_cache()
+
+    t_part = time.perf_counter()
+    log(f"int8 (a), (b): {t_part - t0:.1f} s")
+
+    # (c) the card against the CPU at full width and 2 layers
+    rng = np.random.default_rng(7)
+    small = dataclasses.replace(cfgq, num_layers=INT8_PARITY_LAYERS)
+    toks = rng.integers(3, cfg.vocab_size, (2, 37)).astype("int32")
+    f32 = dataclasses.replace(small, dtype="float32")
+    _int8_parity("fp32, int8 caches", f32,
+                 M.init_params(f32, seed=0, device="cpu"), toks, 1e-3)
+    _int8_parity("bf16, int8 weights and caches", small,
+                 Q.quantize_params(M.init_params(small, seed=0,
+                                                 device="cpu")),
+                 toks, K.TOLERANCE[torch.bfloat16])
+
+    log(f"int8 (c): {time.perf_counter() - t_part:.1f} s")
+    t_part = time.perf_counter()
+
+    # (d) record -> sign -> verify -> replay at REPLAY_LAYERS layers
+    rcfg, rparams = _replay_model(state)
+    rcfg = dataclasses.replace(rcfg, kv_quant=True)
+    RL, seq = rcfg.num_layers, 128
+    rq = Q.quantize_params(rparams)
+    kw = dict(n_slots=4, cache_len=1024, block_k=block_k, eos_id=2,
+              speculate=True, pipeline_depth=4, device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        recs = record_kinds(rcfg, out=d, key=REPLAY_KEY, cache_len=1024,
+                            block_k=block_k, batch=4, seq=seq, params=rq,
+                            device="cuda")
+        t_rec = time.perf_counter() - t0
+        inputs = recs["decode"][1].manifest["inputs"]
+        dtypes = sorted({i["dtype"] for i in inputs})
+        t0 = time.perf_counter()
+        rp = Replayer(key=REPLAY_KEY, device="cuda")
+        pre = rp.load(os.path.join(d, recording_name(rcfg.name, "prefill")))
+        dec = rp.load(os.path.join(d, recording_name(rcfg.name, "decode")))
+        t_load = time.perf_counter() - t0
+    log(f"int8 (d): {rcfg.name} at {RL} layers: both kinds recorded and "
+        f"signed in {t_rec:.2f} s (decode record_wall_s "
+        f"{recs['decode'][1].manifest['record_wall_s']:.2f}), verified and "
+        f"loaded in {t_load:.2f} s; the decode step takes {len(inputs)} "
+        f"inputs of dtypes {dtypes}")
+    assert "int8" in dtypes, dtypes
+    channel = ReplayChannel(rp, pre, dec)
+    tree = Lyr.to_tree(rq)
+    prompts = _replay_prompts(rcfg, seq)
+    live = Engine(rq, channel=LiveChannel(
+        ST.make_prefill_step(rcfg, 1024),
+        ST.make_fused_decode_step(rcfg, k=block_k)),
+        **stream_kwargs(rcfg, **kw))
+    runs = {"live": _replay_serve("int8 live", live, prompts, max_new,
+                                  kernels=counted)}
+    runs["eager"] = _replay_serve("int8 replay eager", Engine(
+        tree, channel=channel, **stream_kwargs(rcfg, **kw)), prompts,
+        max_new, rp, kernels=counted)
+    rp.warm(dec)
+    zeros = torch.zeros(4, dtype=torch.int32, device="cuda")
+    rp.execute(dec, tree, zeros, zeros.clone(),
+               M.init_cache(rcfg, 4, 1024, device="cuda"))
+    per_replay = rp.captured_launches(dec)
+    assert per_replay == {"decode_attention_int8": RL * block_k,
+                          "rmsnorm": (2 * RL + 1) * block_k}, per_replay
+    runs["graph"] = _replay_serve("int8 replay graph", Engine(
+        tree, channel=channel, **stream_kwargs(rcfg, **kw)), prompts,
+        max_new, rp, kernels=counted)
+    for label in ("eager", "graph"):
+        assert runs[label][0] == runs["live"][0], \
+            f"int8: {label} replay tokens differ from live"
+    for label, (outs, st, launches, replays) in runs.items():
+        pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+        if label == "graph":
+            assert replays == bd, (replays, bd)
+            for k, n in per_replay.items():
+                launches[k] += n * replays
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attention=RL * pd,
+                    decode_attention_int8=RL * block_k * bd,
+                    rmsnorm=(2 * RL + 1) * (pd + block_k * bd))
+        assert launches == want, (label, launches, want)
+    try:
+        rp.execute(dec, Lyr.to_tree(rparams), zeros, zeros.clone(),
+                   M.init_cache(rcfg, 4, 1024, device="cuda"))
+    except ReplayArgumentError as e:
+        log(f"int8 (d): a bf16 tree refused by the int8 recording: "
+            f"{str(e)[:160]}")
+    else:
+        raise AssertionError("int8: the int8 recording took a bf16 tree")
+    log("int8 (d): live, eager replay and graph replay give identical "
+        "tokens; launches equal the formulas (one graph replay launches "
+        f"{per_replay})")
+    eng = Engine(tree, channel=channel, **stream_kwargs(
+        rcfg, **dict(kw, speculate=False)))
+    g_wall, g_busy = _profile(rcfg, rq, eng=eng, label=" int8 graph replay")
+    bf16 = state.get("replay_block")
+    log(f"int8 (d): int8 decode block under the graph {g_wall:.2f} ms wall, "
+        f"{g_busy:.2f} ms device busy"
+        + (f"; phase replay's bf16 block {bf16[0]:.2f} ms wall, "
+           f"{bf16[1]:.2f} ms busy" if bf16 else "")
+        + f" (8 steps, 4 slots, {RL} layers, on {_card(state)})")
+    del rq, tree, live, eng, channel, rp
+    torch.cuda.empty_cache()
+    log(f"int8 (d): {time.perf_counter() - t_part:.1f} s")
+
+    # (e) starcoder2-7b with int8 caches: G = 9, the window form
+    scfg = dataclasses.replace(get_config("starcoder2-7b"), num_layers=4,
+                               kv_quant=True)
+    SL = scfg.num_layers
+    sparams = _init_params(scfg)
+    outs, launches, dt, ntok, st = _serve(scfg, sparams, _prompts(scfg, 8, 3),
+                                          max_new, block_k, int8=True)
+    pd, bd = st["prefill_dispatches"], st["blocks_dispatched"]
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=SL * pd,
+                decode_attention_int8=SL * block_k * bd,
+                rmsnorm=(2 * SL + 1) * (pd + block_k * bd))
+    assert launches == want, (launches, want)
+    assert {(q, k) for q, k in K.decode_attention_int8.by_shape} == \
+        {((4, 36, 128), (4, 1024, 4, 128))}, K.decode_attention_int8.by_shape
+    log(f"int8 (e): {scfg.name} at {SL} layers, G = 9, window "
+        f"{scfg.sliding_window}, int8 caches: launches equal {want}")
+    del sparams
+    torch.cuda.empty_cache()
 
 
 REGISTRY_BENCH_KEY = b"registry-bench-key"
@@ -4271,6 +4738,18 @@ def main(argv=None) -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "case": row["case"]})
+        # the decode kernel's int8-cache form, with its launches in phase
+        # int8's qwen2.5-3b serve
+        for k in K.INT8_KERNELS if "int8" in phases else ():
+            mod = sys.modules[k.__module__]
+            row = state["kernel_rows"][k.__name__]
+            summary.append({
+                "name": k.__name__, "route": "cuda",
+                "source": mod.INT8_SOURCE, "replaces": mod.REPLACES,
+                "launches": state["int8_launches"][k.__name__],
+                **{key: row[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "case", "sdpa_bf16_ms")}})
         # the backward kernels at the train step's shapes, with their
         # launches in phase train
         for k in K.BACKWARD_KERNELS if "train" in phases else ():

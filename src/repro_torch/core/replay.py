@@ -154,11 +154,12 @@ class _Variant:
         n = len(pytree.tree_leaves(args[0])) if args else 0
         static = leaves[:n] + [torch.zeros_like(t) for t in leaves[n:]]
         s_args, s_kwargs = pytree.tree_unflatten(static, self.in_spec)
-        before = _kernels.launch_counts()
+        counted = _kernels.KERNELS + _kernels.INT8_KERNELS
+        before = _kernels.launch_counts(counted)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             outs = self.program(*s_args, **s_kwargs)
-        after = _kernels.launch_counts()
+        after = _kernels.launch_counts(counted)
         ids = {id(t): i for i, t in enumerate(static)}
         self.static_out = pytree.tree_leaves(outs)
         self.alias = [ids.get(id(o)) for o in self.static_out]

@@ -10,6 +10,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 // dtype codes shared with repro_torch/kernels/_build.py (DTYPE_CODES)
 enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
@@ -35,6 +36,9 @@ __device__ __forceinline__ void store_vec(T* p, const Vec<T, N>& v) {
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

@@ -11,10 +11,13 @@ as well.  ``rmsnorm``, ``flash_attention``, the two chunk scans and
 (``rmsnorm_backward``, ``flash_attention_backward``: two launches a run;
 ``mamba_chunk_scan_backward``: three; ``mlstm_chunk_scan_backward``:
 five; ``moe_gmm_backward``: two, dx then dw; each run counted once).
+``decode_attention_int8`` is the decode kernel's int8-cache form, a
+custom op of its own whose launches are counted apart (``INT8_KERNELS``).
 """
 import torch
 
 from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_int8,
                                                   decode_attention_plain)
 from repro_torch.kernels.flash_attention import (
     flash_attention, flash_attention_backward, flash_attention_backward_plain,
@@ -35,6 +38,8 @@ from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_backward,
 
 KERNELS = (rmsnorm, flash_attention, decode_attention, mamba_chunk_scan,
            mlstm_chunk_scan, moe_gmm)
+# the other forms of a kernel of KERNELS (int8 caches), counted apart
+INT8_KERNELS = (decode_attention_int8,)
 # the gradients of the kernels a train step runs (dense: the first two;
 # hybrid: the first three; ssm: rmsnorm's and the mLSTM scan's; moe: the
 # first two and moe_gmm's)
@@ -51,9 +56,9 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def reset_launches() -> None:
-    for k in KERNELS + BACKWARD_KERNELS:
+    for k in KERNELS + INT8_KERNELS + BACKWARD_KERNELS:
         k.launches = 0
-    for k in (flash_attention, decode_attention):
+    for k in (flash_attention, decode_attention, decode_attention_int8):
         k.by_shape.clear()
 
 
@@ -65,13 +70,13 @@ def launch_counts(kernels=KERNELS) -> dict:
 
 __all__ = ["rmsnorm", "rmsnorm_plain", "flash_attention",
            "flash_attention_plain", "decode_attention",
-           "decode_attention_plain", "mamba_chunk_scan",
-           "mamba_chunk_scan_plain", "mlstm_chunk_scan",
+           "decode_attention_plain", "decode_attention_int8",
+           "mamba_chunk_scan", "mamba_chunk_scan_plain", "mlstm_chunk_scan",
            "mlstm_chunk_scan_plain", "moe_gmm", "moe_gmm_plain",
            "rmsnorm_backward", "rmsnorm_backward_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
            "mamba_chunk_scan_backward", "mamba_chunk_scan_backward_plain",
            "mlstm_chunk_scan_backward", "mlstm_chunk_scan_backward_plain",
            "moe_gmm_backward", "moe_gmm_backward_plain",
-           "KERNELS", "BACKWARD_KERNELS", "TOLERANCE", "reset_launches",
-           "launch_counts"]
+           "KERNELS", "INT8_KERNELS", "BACKWARD_KERNELS", "TOLERANCE",
+           "reset_launches", "launch_counts"]

@@ -9,7 +9,7 @@ a KV group served together, fp32 softmax.  It is the dense form of
 
 What bounds it on the H100: bytes, reached only with enough loads in
 flight.  Each valid K/V row is read once and used for ~4·G flops per
-element.  The kernel (``csrc/decode_attention.cu``) splits the cache into
+element.  The kernel (``csrc/decode_attention.cuh``) splits the cache into
 ``plan_splits(...)`` chunks, one block per (chunk, kv head, b): 128 blocks
 at serving batch 4 (16 splits of 64 slots at W = 1024; one block per
 (b, kv head) would give 8).  The plan is a function of shapes only and never
@@ -23,8 +23,17 @@ bits do not depend on timing.  It needs fp32 scratch (``torch.empty``,
 per call) and a per-device counter buffer allocated and zeroed once (the
 merging block resets its counter), so a CUDA graph can capture a call.
 
-The plain version also covers the forms the kernel does not take yet: the
-sliding-window ring cache and int8 caches with per-(token, head) scales.
+The int8-cache form (``decode_attention_int8``, its own custom op, launch
+counter and ``by_shape``) is the same kernel over int8 caches with one
+fp32 scale per (slot, kv head) for K and for V, as the reference computes
+with ``k_scale`` / ``v_scale``: it stages 16 int8 values a lane, reads a
+tile's scales beside its rows, and weighs each row's scores by its K
+scale and its V row by ``p * v_scale``; the softmax sum takes no scale,
+so the partials merge as the bf16 form's do.  Both forms share
+``plan_splits`` and the arrival counters (the two never run at once on a
+stream), and both capture under a CUDA graph.  The plain version also
+covers the sliding-window ring, which the model runs as the dense form
+over the ring's first ``min(pos + 1, W)`` slots.
 """
 from __future__ import annotations
 
@@ -38,9 +47,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import HEAD_DIMS, masked_softmax
 
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
+# the int8-cache form's entry point; both instantiate the kernel of
+# csrc/decode_attention.cuh
+INT8_SOURCE = "src/repro_torch/csrc/decode_attention_int8.cu"
 REPLACES = "src/repro/kernels/decode_attention.py:60"
 GROUP_SIZES = (1, 2, 4, 6, 8, 9, 16)   # instantiated in the .cu's switch
 FAULT_DROP_LAST_HEAD = 1   # csrc: kDropLastHead, for the checks only
+FAULT_IGNORE_V_SCALE = 2   # csrc: kIgnoreVScale (int8 form), the same
 SPLIT_GRANULE = 32      # the kernel's tile of cache rows
 MAX_SPLITS = 32
 MAX_CHUNK = 128         # slots one block walks, where MAX_SPLITS allows
@@ -91,9 +104,13 @@ def merge_partials(m: torch.Tensor, l: torch.Tensor,
 
 
 def decode_attention_split(q, k_cache, v_cache, lengths, plan: SplitPlan, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, k_scale=None,
+                           v_scale=None) -> torch.Tensor:
     """The kernel's algorithm in plain PyTorch (fp32): each split's partial
-    (m, l, acc) over its chunk of valid slots, then ``merge_partials``."""
+    (m, l, acc) over its chunk of valid slots, then ``merge_partials``.
+    With ``k_scale``/``v_scale`` (int8 caches) each slot's scores take its
+    K scale and its V row is weighed by ``p * v_scale``, while ``l`` sums
+    ``p`` alone, as the kernel's int8 form does."""
     B, H, hd = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -106,12 +123,16 @@ def decode_attention_split(q, k_cache, v_cache, lengths, plan: SplitPlan, *,
         valid = slots[None] < lengths.long()[:, None]             # [B, n]
         sc = torch.einsum("bhgd,bkhd->bhgk", qg,
                           k_cache[:, lo:hi].float()) * scale
+        if k_scale is not None:
+            sc = sc * k_scale[:, lo:hi, :, 0].transpose(1, 2)[:, :, None]
         sc = sc.masked_fill(~valid[:, None, None], float("-inf"))
         m = sc.amax(-1) if hi > lo else sc.new_full((B, Hkv, G),
                                                     float("-inf"))
         p = torch.exp(sc - torch.where(torch.isinf(m), 0.0, m)[..., None])
         ms.append(m)
         ls.append(p.sum(-1))
+        if v_scale is not None:
+            p = p * v_scale[:, lo:hi, :, 0].transpose(1, 2)[:, :, None]
         accs.append(torch.einsum("bhgk,bkhd->bhgd", p,
                                  v_cache[:, lo:hi].float()))
     out = merge_partials(torch.stack(ms), torch.stack(ls), torch.stack(accs))
@@ -126,7 +147,8 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
     Position ``lengths - 1`` is the current token.  With ``window`` the
     cache is the ring ``slot = p % W``; with ``k_scale``/``v_scale``
     ([B,W,Hkv,1]) it holds int8 values.  Probabilities are cast to v's
-    dtype before the PV product, as the reference does."""
+    dtype before the PV product, as the reference does, except on the
+    int8 path, where they are weighed by ``v_scale`` in fp32."""
     B, H, hd = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
     G = H // Hkv
@@ -173,6 +195,7 @@ def _decode_fake(q, k_cache, v_cache, lengths, scale):
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_INT8_ARGTYPES = [ctypes.c_void_p] * 2 + _ARGTYPES
 
 
 def _counters(device: torch.device, n: int) -> torch.Tensor:
@@ -193,20 +216,30 @@ _COUNTERS: dict = {}
 _OUTGROWN: list = []
 
 
-def _launch(q, k_cache, v_cache, lengths, scale, plan=None, fault: int = 0):
+def _launch(q, k_cache, v_cache, lengths, scale, plan=None, fault: int = 0,
+            k_scale=None, v_scale=None):
     """One launch of the kernel on CUDA tensors, split by ``plan``
     (``plan_splits`` unless given: a plan that does not cover W only
-    plants a fault for the checks, as ``fault`` does)."""
+    plants a fault for the checks, as ``fault`` does); with ``k_scale``
+    and ``v_scale`` the int8-cache form."""
     B, H, hd = q.shape
     W, Hkv = k_cache.shape[1], k_cache.shape[2]
-    _build.require(q.dtype in _build.DTYPE_CODES and k_cache.dtype == q.dtype
-                   and v_cache.dtype == q.dtype,
+    int8 = k_scale is not None
+    cache_dt = torch.int8 if int8 else q.dtype
+    _build.require(q.dtype in _build.DTYPE_CODES
+                   and k_cache.dtype == cache_dt
+                   and v_cache.dtype == cache_dt,
                    f"decode_attention: dtypes {q.dtype}/{k_cache.dtype}/"
                    f"{v_cache.dtype}")
     _build.require(lengths.dtype == torch.int32 and lengths.shape == (B,),
                    "decode_attention: lengths must be int32 [B]")
+    scales = (k_scale, v_scale) if int8 else ()
+    _build.require(all(s is not None and s.dtype == torch.float32
+                       and s.shape == (B, W, Hkv, 1) for s in scales),
+                   f"decode_attention: the int8 form's scales must be fp32 "
+                   f"[B, W, Hkv, 1] = {[B, W, Hkv, 1]}")
     _build.require(all(t.is_contiguous() and t.device == q.device
-                       for t in (q, k_cache, v_cache, lengths)),
+                       for t in (q, k_cache, v_cache, lengths) + scales),
                    "decode_attention: inputs must be contiguous on one device")
     _build.require(hd in HEAD_DIMS and H % Hkv == 0
                    and H // Hkv in GROUP_SIZES,
@@ -222,14 +255,19 @@ def _launch(q, k_cache, v_cache, lengths, scale, plan=None, fault: int = 0):
         plan = plan_splits(B, Hkv, W, _build.sm_count(q.device))
     scratch = torch.empty(B * Hkv * plan.splits * H // Hkv * (hd + 2),
                           dtype=torch.float32, device=q.device)
-    fn = _build.entry("decode_attention_launch", _ARGTYPES)
-    _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                    lengths.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+    if int8:
+        fn = _build.entry("decode_attention_int8_launch", _INT8_ARGTYPES)
+        ptrs = (q, k_cache, v_cache, k_scale, v_scale)
+    else:
+        fn = _build.entry("decode_attention_launch", _ARGTYPES)
+        ptrs = (q, k_cache, v_cache)
+    _build.check(fn(*(t.data_ptr() for t in ptrs), lengths.data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(),
                     _counters(q.device, B * Hkv).data_ptr(), B, H, Hkv, W,
                     hd, plan.splits, plan.chunk, scale,
                     _build.DTYPE_CODES[q.dtype], fault,
                     _build.stream_handle(q)),
-                 "decode_attention")
+                 "decode_attention_int8" if int8 else "decode_attention")
     return out
 
 
@@ -254,3 +292,49 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 
 decode_attention.launches = 0    # kernel launches (CUDA path only)
 decode_attention.by_shape = Counter()   # ... by (q.shape, k_cache.shape)
+
+
+@torch.library.custom_op("repro_torch::decode_attention_int8",
+                         mutates_args=())
+def _decode_int8_op(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, lengths: torch.Tensor,
+                    k_scale: torch.Tensor, v_scale: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    raise NotImplementedError(
+        f"decode_attention_int8: no implementation on {q.device}")
+
+
+@_decode_int8_op.register_kernel("cpu")
+def _decode_int8_cpu(q, k_cache, v_cache, lengths, k_scale, v_scale, scale):
+    return decode_attention_plain(q, k_cache, v_cache, lengths, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
+
+
+@_decode_int8_op.register_fake
+def _decode_int8_fake(q, k_cache, v_cache, lengths, k_scale, v_scale, scale):
+    return torch.empty_like(q)
+
+
+@_decode_int8_op.register_kernel("cuda")
+def _decode_int8_cuda(q, k_cache, v_cache, lengths, k_scale, v_scale, scale):
+    out = _launch(q, k_cache, v_cache, lengths, scale, k_scale=k_scale,
+                  v_scale=v_scale)
+    if q.numel():
+        decode_attention_int8.launches += 1
+        decode_attention_int8.by_shape[(tuple(q.shape),
+                                        tuple(k_cache.shape))] += 1
+    return out
+
+
+def decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, *,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """q [B,H,hd] fp32 or bf16; caches int8 [B,W,Hkv,hd]; scales fp32
+    [B,W,Hkv,1]; lengths [B] int32 -> [B,H,hd] in q's dtype.  CUDA tensors
+    launch the kernel's int8 form, CPU tensors take the plain version."""
+    hd = q.shape[-1]
+    return _decode_int8_op(q, k_cache, v_cache, lengths, k_scale, v_scale,
+                           float(hd ** -0.5 if scale is None else scale))
+
+
+decode_attention_int8.launches = 0    # kernel launches (CUDA path only)
+decode_attention_int8.by_shape = Counter()   # ... by (q.shape, k_cache.shape)

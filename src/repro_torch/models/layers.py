@@ -162,8 +162,8 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0,
                      k_scale=None, v_scale=None):
     """q [B,1,H,hd]; caches [B,W,Hkv,hd]; pos [B] current absolute position
     (valid slots are ``<= pos``).  The dense form and the sliding-window
-    ring run the decode kernel; the int8 form has no kernel yet and runs
-    only on CPU.
+    ring run the decode kernel; with ``k_scale``/``v_scale`` ([B,W,Hkv,1])
+    the caches hold int8 values and the kernel's int8 form runs.
 
     The ring (``slot = p % W``, W <= window) holds the last W positions,
     and once the ring has wrapped every slot is one of them.  Attention
@@ -171,23 +171,19 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=0,
     form over its first ``min(pos + 1, W)`` slots."""
     B, _, H, hd = q.shape
     W = k_cache.shape[1]
-    if k_scale is not None:
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "decode_attention: the int8-cache form has no CUDA kernel "
-                "yet (ROADMAP Queue 1, item 12)")
-        o = K.decode_attention_plain(q[:, 0], k_cache, v_cache,
-                                     (pos + 1).to(torch.int32), window=window,
-                                     k_scale=k_scale, v_scale=v_scale)
-        return o.reshape(B, 1, H, hd)
     if window and W > window:
         raise ValueError(f"decode_attention: a ring of {W} slots exceeds the "
                          f"window of {window}")
     lengths = pos + 1
     if window:
         lengths = torch.clamp_max(lengths, W)
-    o = K.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                           lengths.to(torch.int32))
+    lengths = lengths.to(torch.int32)
+    if k_scale is not None:
+        o = K.decode_attention_int8(q[:, 0].contiguous(), k_cache, v_cache,
+                                    lengths, k_scale, v_scale)
+    else:
+        o = K.decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                               lengths)
     return o.reshape(B, 1, H, hd)
 
 

@@ -17,9 +17,11 @@ The audio family runs its encoder over precomputed frames ``[B, enc_S,
 D]`` (the conv frontend is a stub in the reference too) and caches each
 decoder block's cross-attention K/V (``xk``, ``xv``) at prefill; the vlm
 family puts ``image_embeds @ img_proj`` before the text, so its decode
-positions count the image prefix.  Int8 serving weights (the reference's
-``_maybe_dequant``) wait for ``serving/quant.py`` (ROADMAP Queue 1,
-item 12).
+positions count the image prefix.  Int8 serving weights
+(``serving/quant.py``: ``{"q", "s"}`` leaves) are dequantized by
+``_maybe_dequant`` one block at a time inside the loop over blocks, and
+the top-level leaves (embed, head, zamba2's shared block) once a call,
+as the reference does.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Any, Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
@@ -37,6 +40,20 @@ from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as XL
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamSpec
+from repro_torch.serving import quant as Q
+
+
+def _maybe_dequant(p):
+    """Dequantize int8 serving weights ({'q','s'} leaves) -- inside the
+    loop over blocks, so only one layer's weights are bf16 at a time
+    (``serving/quant.py``); a tree without them is returned as it is."""
+    return Q.dequantize(p) if Q.has_quantized(p) else p
+
+
+def _dequant_top(params):
+    """The top-level leaves dequantized, the stages left as they are."""
+    return {k: params[k] if k == "stages" else _maybe_dequant(params[k])
+            for k in params.keys()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,6 +149,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
                                      device))
 
 
+def schema_map(fn, schema):
+    """``fn`` of every ParamSpec of a model schema, in its structure."""
+    return pytree.tree_map(fn, schema,
+                           is_leaf=lambda x: isinstance(x, ParamSpec))
+
+
+def abstract_params(cfg: ModelConfig):
+    """The params' shapes and dtypes as meta tensors, in the port's
+    structure (the reference's ``jax.ShapeDtypeStruct`` tree): no memory
+    is allocated."""
+    return schema_map(lambda sp: torch.empty(
+        sp.shape, dtype=L.torch_dtype(sp.dtype or cfg.dtype), device="meta"),
+        model_schema(cfg))
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical axis names of every param, in the port's structure (a
+    per-block stage carries no ``stack`` axis)."""
+    return schema_map(lambda sp: sp.axes, model_schema(cfg))
+
+
 # -------------------------------------------------------------- forward ----
 def _tree_stack(trees: list):
     """Stack a list of like cache trees leaf by leaf on a new axis 0."""
@@ -166,6 +204,7 @@ def _cross_decode(p, h, cache, cfg):
 def _block_forward(kind, p, h, cfg, shared=None, enc_out=None):
     """Full-sequence forward for one block -> (h, aux_loss, cache_out).
     A ``dec`` block cross-attends to ``enc_out``."""
+    p = _maybe_dequant(p)
     if kind == "zamba_group":
         states = []
         for pm in p["mambas"]:
@@ -267,6 +306,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     (``REMAT``) checkpoints each block as the reference's ``jax.checkpoint``
     of its scan body does (``_remat_block``)."""
     block_forward = _remat_block(remat)
+    params = _dequant_top(params)
     h = F.embedding(batch["tokens"], params["embed"])
     n_img = 0
     if cfg.family == "vlm" and "image_embeds" in batch:
@@ -412,6 +452,7 @@ def _assign(dst, src) -> None:
 def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
     """Single-token decode for one block.  h [B,1,D]; ``cache`` is the
     block's cache, updated in place."""
+    p = _maybe_dequant(p)
     if kind == "zamba_group":
         for i, pm in enumerate(p["mambas"]):
             ci = _index(cache["mamba"], i)
@@ -457,6 +498,7 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
 def decode_step(params, cfg: ModelConfig, tokens, pos, caches):
     """tokens [B], pos [B] -> (logits [B,V], caches).  The caches are
     updated in place and returned."""
+    params = _dequant_top(params)
     h = F.embedding(tokens[:, None], params["embed"])
     if cfg.family == "audio":
         h = h + params["dec_pos"][pos.long()][:, None].to(h.dtype)
@@ -533,5 +575,5 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int):
 
 
 __all__ = ["ModelConfig", "StageDef", "build_stages", "model_schema",
-           "init_params", "forward", "decode_step", "init_cache",
+           "init_params", "abstract_params", "param_axes", "forward", "decode_step", "init_cache",
            "cache_axes", "prefill", "assemble_caches"]

@@ -148,17 +148,11 @@ def make_fused_decode_step(cfg: ModelConfig, k: int, eos_id: int = 2):
     return fused
 
 
-def _schema_map(fn, schema):
-    """``fn`` of every ParamSpec of a model schema, in its structure."""
-    return pytree.tree_map(fn, schema,
-                           is_leaf=lambda x: isinstance(x, L.ParamSpec))
-
-
 def abstract_train_state(cfg: ModelConfig):
     """The train state's shapes and dtypes, as meta tensors (the
     reference's ``jax.ShapeDtypeStruct`` tree): no memory is allocated."""
     schema = M.model_schema(cfg)
-    f32 = lambda: _schema_map(lambda sp: torch.empty(
+    f32 = lambda: M.schema_map(lambda sp: torch.empty(
         sp.shape, dtype=torch.float32, device="meta"), schema)
     return {"step": torch.empty((), dtype=torch.int32, device="meta"),
             "master": f32(), "m": f32(), "v": f32()}
@@ -168,5 +162,5 @@ def train_state_axes(cfg: ModelConfig):
     """The logical axis names of every state leaf (the reference's
     ``param_axes`` per tree); a per-block stage carries no ``stack``
     axis."""
-    axes = _schema_map(lambda sp: sp.axes, M.model_schema(cfg))
+    axes = M.param_axes(cfg)
     return {"step": (), "master": axes, "m": axes, "v": axes}

@@ -130,18 +130,101 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         K.rmsnorm(rn(65)[1:].view(8, 8), rn(8))
     with pytest.raises(ValueError, match="wider"):
         K.rmsnorm(rn(1, 8192 + 8), rn(8192 + 8))
-    # the int8-cache form has no kernel; the sliding-window ring runs the
-    # dense kernel; a group of 7, which no config has, is refused (groups
-    # of 6 and 9, mixtral's and starcoder2-7b's, are instantiated)
+    # the int8-cache form launches its kernel, which agrees with its plain
+    # version; the sliding-window ring runs the dense kernel; a group of
+    # 7, which no config has, is refused (groups of 6 and 9, mixtral's and
+    # starcoder2-7b's, are instantiated)
     q, kc = rn(2, 1, 4, 16), rn(2, 8, 2, 16)
     pos = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
-    scale = torch.ones(2, 8, 2, 1, device=cuda)
-    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
-        L.decode_attention(q, kc, kc, pos, k_scale=scale, v_scale=scale)
+    kq, ks = L.kv_quantize(kc)
+    K.reset_launches()
+    _close(L.decode_attention(q, kq, kq, pos, k_scale=ks, v_scale=ks)[:, 0],
+           K.decode_attention_plain(q[:, 0], kq, kq, pos + 1, k_scale=ks,
+                                    v_scale=ks), TOL[torch.float32])
+    assert K.decode_attention_int8.launches == 1
+    assert K.decode_attention.launches == 0
+    with pytest.raises(ValueError, match="scales"):
+        K.decode_attention_int8(q[:, 0], kq, kq, pos + 1, ks[:, :4], ks)
     L.decode_attention(q, kc, kc, pos, window=8)
     lens = torch.tensor([3, 5], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="H=14"):
         K.decode_attention(rn(2, 14, 16), kc, kc, lens)
+
+
+def _int8_cache_inputs(rn, B, H, Hkv, W, hd, dt):
+    kq, ks = L.kv_quantize(rn(B, W, Hkv, hd))
+    vq, vs = L.kv_quantize(rn(B, W, Hkv, hd))
+    return rn(B, H, hd, dt=dt), kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", FA.HEAD_DIMS)
+@pytest.mark.parametrize("G", DA.GROUP_SIZES)
+def test_int8_decode_kernel_matches_plain(cuda, dt, hd, G):
+    """The int8-cache form at every head dim and group size, fp32 and bf16
+    q, over lengths that cut a 32-row tile and that reach the end, and
+    over a ring (its lengths clamped to W); the planted fault (V scales
+    ignored) fails the check."""
+    rn = _randn(cuda, hd + G)
+    B, Hkv, W = 3, 2, 160
+    q, kq, vq, ks, vs = _int8_cache_inputs(rn, B, G * Hkv, Hkv, W, hd, dt)
+    K.reset_launches()
+    for lens in ([160, 45, 1], [33, 160, 97]):
+        ln = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        want = K.decode_attention_plain(q, kq, vq, ln, k_scale=ks, v_scale=vs)
+        _close(K.decode_attention_int8(q, kq, vq, ln, ks, vs), want, TOL[dt])
+        assert not _agree(DA._launch(q, kq, vq, ln, hd ** -0.5, k_scale=ks,
+                                     v_scale=vs,
+                                     fault=DA.FAULT_IGNORE_V_SCALE),
+                          want, TOL[dt])
+    # the ring: positions past W wrap, the layer clamps the lengths to W
+    pos = torch.tensor([W + 37, W - 1, 20], dtype=torch.int32, device=cuda)
+    got = L.decode_attention(q[:, None], kq, vq, pos, window=W, k_scale=ks,
+                             v_scale=vs)[:, 0]
+    want = K.decode_attention_plain(q, kq, vq, pos + 1, window=W,
+                                    k_scale=ks, v_scale=vs)
+    _close(got, want, TOL[dt])
+    torch.cuda.synchronize()
+    assert K.decode_attention_int8.launches == 3
+    assert K.decode_attention_int8.by_shape == {(q.shape, kq.shape): 3}
+    assert K.decode_attention.launches == 0
+
+
+def test_int8_decode_kernel_under_a_cuda_graph(cuda):
+    """The int8 form captures under a CUDA graph (scratch per call, the
+    shared arrival counters) and replays with new inputs copied in, at
+    qwen2.5-3b's decode shape, beside a bf16 call on the same stream."""
+    rn = _randn(cuda, 3)
+    B, H, Hkv, W, hd = 4, 16, 2, 1024, 128
+    q, kq, vq, ks, vs = _int8_cache_inputs(rn, B, H, Hkv, W, hd,
+                                           torch.bfloat16)
+    kc, vc = rn(B, W, Hkv, hd, dt=torch.bfloat16), \
+        rn(B, W, Hkv, hd, dt=torch.bfloat16)
+    ln = torch.tensor([1024, 700, 33, 5], dtype=torch.int32, device=cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        K.decode_attention_int8(q, kq, vq, ln, ks, vs)
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = K.decode_attention_int8(q, kq, vq, ln, ks, vs)
+        out16 = K.decode_attention(q, kc, vc, ln)
+    for seed in (4, 5):
+        rn2 = _randn(cuda, seed)
+        q2, kq2, vq2, ks2, vs2 = _int8_cache_inputs(rn2, B, H, Hkv, W, hd,
+                                                    torch.bfloat16)
+        for dst, src in ((q, q2), (kq, kq2), (vq, vq2), (ks, ks2),
+                         (vs, vs2)):
+            dst.copy_(src)
+        ln.copy_(torch.tensor([seed * 100, 1024, 64, 31], dtype=torch.int32))
+        g.replay()
+        torch.cuda.synchronize()
+        _close(out, K.decode_attention_plain(q, kq, vq, ln, k_scale=ks,
+                                             v_scale=vs),
+               TOL[torch.bfloat16])
+        _close(out16, K.decode_attention_plain(q, kc, vc, ln),
+               TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("arch", ["cody-mnist", "qwen2.5-3b",
