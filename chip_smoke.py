@@ -101,6 +101,30 @@ Phases, each of which raises (exit code != 0) when it fails:
            layers for 3 steps at batch 8, seq 128 (13 + 13 rmsnorm, 4 + 4
            flash at hd 192 / hd_v 128 and 9 + 9 moe_gmm a step), ms per
            step, tokens/s, peak memory and one more step profiled;
+  mesh     sharding on a DeviceMesh of the one card: (a)
+           ``make_host_mesh(model=1)``, a world of one over NCCL (gloo for
+           CPU tensors), its descriptor; (b) qwen2.5-3b at full width and
+           2 layers, bf16 with fp32 masters, batch 8, seq 128: 2 train
+           steps on the state placed by ``reshard_state`` under
+           ``rules_for("train")`` (DTensors) and the same 2 on plain
+           tensors, loss, grad norm and every master equal to the bit,
+           the launches of rmsnorm, flash and their backwards equal and
+           the plain versions called 0 times, then a steady step of each
+           timed (wall, device busy, idle share); (c) qwen2.5-3b,
+           deepseek-v2-lite-16b (2 layers), zamba2-1.2b and xlstm-350m
+           (one group each) at full width from seed 0, DTensor params
+           under ``rules_for("serve")``: a prefill and one fused decode
+           block with the plain path's greedy tokens and launches equal
+           to ``_serve_launches`` in both; (d) ``compressed_psum`` over
+           NCCL against gloo's on the CPU (1e-6); (e) (b)'s state saved
+           by ``CheckpointStore``, restored onto the mesh and stepped,
+           equal to the bit to (b)'s next step; (f) a ``Workload`` given
+           the mesh records a manifest naming it under the keys of one
+           given none; (g) each of the 12 custom ops on DTensors at
+           main-path shapes launches its kernel once, its plain version
+           never, with the plain-tensor result to the bit; (h) the device
+           time of ``masked_write`` (a cache split over batch or slots)
+           against ``index_put_`` for one K or V slot write;
   parity   qwen2.5-3b (2 layers), zamba2-1.2b (2 groups, 12 Mamba2
            layers), xlstm-350m (1 group, 6 layers) and deepseek-v2-lite-16b
            (one MLA dense layer and one MLA MoE layer) at full width in
@@ -167,8 +191,8 @@ Phases, each of which raises (exit code != 0) when it fails:
            perturbed ones rejected; the three scenarios of
            ``BENCH_registry.json`` (cold record on miss, warm hit, delta
            re-record) on cody-mnist at its published config over wifi and
-           cellular, with its three acceptance flags; and both ported
-           examples (``repro_torch.examples``) run on the card;
+           cellular, with its three acceptance flags; and the three
+           ported examples (``repro_torch.examples``) run on the card;
   fleet    fleet-scale replay serving: a 2-replica qwen2.5-3b fleet at
            full width and phase replay's depth booted from a file-backed registry (phase
            replay's recordings, recorded here when it did not run)
@@ -247,9 +271,9 @@ from pathlib import Path
 from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("gpu", "build", "kernels", "train", "parity", "serve", "prefill",
-          "profile", "replay", "int8", "registry", "fleet", "session",
-          "families", "native")
+PHASES = ("gpu", "build", "kernels", "train", "mesh", "parity", "serve",
+          "prefill", "profile", "replay", "int8", "registry", "fleet",
+          "session", "families", "native")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -2326,8 +2350,10 @@ REPLAY_KEY = b"chip-smoke-signing-key"
 # qwen2.5-3b's depth in phases replay, registry and fleet: exporting,
 # recording and loading its programs take host time in proportion to the
 # depth (36 layers: 75 s to record the decode block and 45-57 s for each
-# of its four loads, a third of the script)
-REPLAY_LAYERS = 4
+# of its four loads, a third of the script; at 4 layers phases replay and
+# int8 still spent ~115 s recording, with the script at 1,125 s of its
+# 1,200)
+REPLAY_LAYERS = 2
 
 
 def _replay_model(state):
@@ -3060,7 +3086,7 @@ def phase_registry(state):
     signed swap refused with 0 loads; attested quotes verified offline,
     a perturbed one rejected; ``BENCH_registry.json``'s three scenarios
     on cody-mnist (published config) over wifi and cellular with their
-    flags; both ported examples run on the card."""
+    flags; the three ported examples run on the card."""
     import tempfile
     import torch
     from repro_torch.api import Workspace
@@ -3250,7 +3276,8 @@ def phase_registry(state):
         log(f"registry: {profile.name} flags {flags}")
         assert all(flags.values()), (profile.name, flags, rows)
 
-    _run_examples(("quickstart", "secure_inference"))
+    _run_examples(("quickstart", "secure_inference",
+                   "serve_continuous_batching"))
     log(f"registry: all figures of this phase on {_card(state)}")
 
 
@@ -4689,6 +4716,428 @@ def phase_train(state):
     for arch in TRAIN_RECURRENT:
         _train_recurrent(state, arch)
     _train_moe(state)
+
+
+# ------------------------------------------------------------------- mesh --
+MESH_TRAIN = dict(num_layers=2, batch=8, seq=128, steps=2)
+# phase mesh's serving models at full width: the dense and moe ones at 2
+# layers, the hybrid and ssm ones at one group (zamba2: 6 Mamba2 layers and
+# the shared block; xlstm: 5 mLSTM blocks and the sLSTM one)
+MESH_SERVE = {"qwen2.5-3b": 2, "deepseek-v2-lite-16b": 2, "zamba2-1.2b": 6,
+              "xlstm-350m": 6}
+MESH_SERVE_SHAPES = dict(batch=4, seq=16, cache_len=64, block_k=8)
+# the plain versions of every custom op, each counted while phase mesh
+# runs: on the card none may run
+PLAIN_FNS = {"rmsnorm": ("rmsnorm_plain", "rmsnorm_backward_plain"),
+             "flash_attention": ("flash_attention_plain",
+                                 "flash_attention_backward_plain"),
+             "decode_attention": ("decode_attention_plain",),
+             "moe_gmm": ("moe_gmm_plain", "moe_gmm_backward_plain"),
+             "mamba_scan": ("mamba_chunk_scan_plain",
+                            "mamba_chunk_scan_backward_plain"),
+             "mlstm": ("mlstm_chunk_scan_plain",
+                       "mlstm_chunk_scan_backward_plain")}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """{plain function: calls} of the kernel modules' plain versions while
+    the block runs (each wrapped in a counter, restored after)."""
+    calls = {}
+    saved = []
+    for mod_name, names in PLAIN_FNS.items():
+        mod = sys.modules[f"repro_torch.kernels.{mod_name}"]
+        for name in names:
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _counts():
+    """The launches of the forward and backward wrappers."""
+    from repro_torch import kernels as K
+    return {**K.launch_counts(), **K.launch_counts(K.BACKWARD_KERNELS)}
+
+
+def _mesh_train(mesh, cfg, card):
+    """(b) and (e): ``cfg`` in its dtype with fp32 masters, MESH_TRAIN's
+    steps on the state placed by ``reshard_state`` under the train rules
+    and the same steps on plain tensors: loss, grad norm and every master
+    equal to the bit, the launches equal and the plain versions never run
+    on the card; the state saved with ``CheckpointStore``, restored onto
+    the mesh (``restore_on_mesh``) and stepped once more, equal to the
+    sharded state's next step to the bit; then each run's steady step
+    timed (wall, device busy, idle share) on ``card`` -> {run: (wall ms,
+    busy ms)}."""
+    import tempfile
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch import kernels as K
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.runtime import checkpoint as CK
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.sharding import rules_for
+    from repro_torch.training import steps as ST
+    from repro_torch.training.optimizer import AdamWConfig, init_opt_state
+
+    device = "cuda"
+    B, S, n = (MESH_TRAIN[k] for k in ("batch", "seq", "steps"))
+    data = SyntheticLM(cfg.vocab_size, B, S)
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in
+                data.next_batch().items()} for _ in range(n + 3)]
+    opt = AdamWConfig(warmup_steps=1, decay_steps=10)
+    rules = rules_for("train", tuple(mesh.mesh_dim_names))
+    plain = init_opt_state(M.init_params(cfg, 0, device=device))
+    sharded = reshard_state(pytree.tree_map(torch.clone, plain),
+                            ST.train_state_axes(cfg), mesh)
+    runs = {}
+    with plain_calls() as calls:
+        for label, state, step in (
+                ("sharded", sharded, ST.make_train_step(
+                    cfg, opt, remat="none", rules=rules)),
+                ("plain", plain, ST.make_train_step(cfg, opt,
+                                                    remat="none"))):
+            K.reset_launches()
+            calls.clear()
+            metrics = []
+            t0 = time.perf_counter()
+            for b in batches[:n]:
+                state, m = step(state, b)
+                metrics.append({k: float(v) for k, v in m.items()})
+            runs[label] = dict(state=state, step=step, metrics=metrics,
+                               launches=_counts(),
+                               plain_calls=dict(calls),
+                               s=time.perf_counter() - t0)
+    sh, pl = runs["sharded"], runs["plain"]
+    masters = [(a.full_tensor(), b) for a, b in zip(
+        pytree.tree_leaves(sh["state"]["master"]),
+        pytree.tree_leaves(pl["state"]["master"]))]
+    equal = sum(torch.equal(a, b) for a, b in masters)
+    log(f"mesh: (b) {cfg.name} {cfg.num_layers} layers, {cfg.dtype} with "
+        f"fp32 masters, batch {B} seq {S}, {n} steps: sharded "
+        f"{sh['metrics']} vs plain {pl['metrics']}; {equal} of "
+        f"{len(masters)} masters equal to the bit; launches sharded "
+        f"{ {k: v for k, v in sh['launches'].items() if v} } plain "
+        f"{ {k: v for k, v in pl['launches'].items() if v} }; plain "
+        f"versions called {sh['plain_calls']}; {sh['s']:.2f} s sharded, "
+        f"{pl['s']:.2f} s plain (first steps)")
+    assert sh["metrics"] == pl["metrics"], (sh["metrics"], pl["metrics"])
+    assert equal == len(masters), f"{len(masters) - equal} masters differ"
+    assert sh["launches"] == pl["launches"], (sh["launches"], pl["launches"])
+    assert sh["launches"]["rmsnorm_backward"] > 0 and \
+        sh["launches"]["flash_attention_backward"] > 0, sh["launches"]
+    assert not sh["plain_calls"], sh["plain_calls"]
+
+    # (e) save, restore onto the mesh, one more step against the state's
+    with tempfile.TemporaryDirectory() as d:
+        store = CK.CheckpointStore(d)
+        store.save(CK.to_reference_layout(sh["state"]), n)
+        restored, manifest = CK.restore_on_mesh(store, cfg, mesh)
+    assert manifest["step"] == n
+    r_state, r_m = sh["step"](restored, batches[n])
+    s_state, s_m = sh["step"](sh["state"], batches[n])
+    same = [torch.equal(a.full_tensor(), b.full_tensor()) for a, b in zip(
+        pytree.tree_leaves(r_state["master"]),
+        pytree.tree_leaves(s_state["master"]))]
+    log(f"mesh: (e) checkpoint of step {n} restored onto the mesh, step "
+        f"{n + 1}: loss {float(r_m['loss'])!r} vs {float(s_m['loss'])!r}, "
+        f"grad_norm {float(r_m['grad_norm'])!r} vs "
+        f"{float(s_m['grad_norm'])!r}; {sum(same)} of {len(same)} masters "
+        f"equal to the bit")
+    assert float(r_m["loss"]) == float(s_m["loss"]) and \
+        float(r_m["grad_norm"]) == float(s_m["grad_norm"]) and all(same)
+    del restored, r_state
+    times = {}
+    for label, run, state in (("sharded", sh, s_state),
+                              ("plain", pl, pl["state"])):
+        step, b = run["step"], batches[n + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        busy, n_kern, *_ = _train_profile(step, state, batches[n + 2])
+        log(f"mesh: (b) {label} train step: {wall:.1f} ms wall, device "
+            f"busy {busy:.2f} ms over {n_kern} kernels, idle share "
+            f"{1 - busy / wall:.3f}; on {card}")
+        times[label] = (wall, busy)
+    return times
+
+
+def _serve_launches(cfg, steps):
+    """The forward launches of one prefill and ``steps`` decode steps of
+    phase mesh's serving models: per call ln1 and ln2 a layer and the
+    final norm (MLA adds kv_norm a layer; a Mamba2 or xLSTM block's ln1
+    and its cell's norm, zamba2's shared block two more); the prefill's
+    flash a (shared) attention layer and a scan a Mamba2 / mLSTM layer;
+    a decode step's decode_attention a GQA layer (MLA decodes in plain
+    PyTorch); three moe_gmm a routed layer a call."""
+    from repro_torch.models import model as M
+    L_, calls = cfg.num_layers, 1 + steps
+    out = dict.fromkeys(("rmsnorm", "flash_attention", "decode_attention",
+                         "moe_gmm", "mamba_chunk_scan", "mlstm_chunk_scan"),
+                        0)
+    if cfg.family == "moe":
+        stages = M.build_stages(cfg)
+        routed = sum(st.n for st in stages if st.kind in M.MOE_KINDS)
+        out.update(rmsnorm=(3 * L_ + 1) * calls, flash_attention=L_,
+                   moe_gmm=3 * routed * calls)
+    elif cfg.family == "hybrid":
+        shared = L_ // cfg.shared_every
+        out.update(rmsnorm=(2 * L_ + 2 * shared + 1) * calls,
+                   flash_attention=shared, decode_attention=shared * steps,
+                   mamba_chunk_scan=L_)
+    elif cfg.family == "ssm":
+        out.update(rmsnorm=(2 * L_ + 1) * calls, mlstm_chunk_scan=(
+            L_ - sum(i < L_ for i in cfg.xlstm.slstm_at)))
+    else:
+        out.update(rmsnorm=(2 * L_ + 1) * calls, flash_attention=L_,
+                   decode_attention=L_ * steps)
+    return out
+
+
+def _mesh_serve(mesh, cfg):
+    """(c) ``cfg`` from the weights of seed 0, as DTensors placed under the
+    serve rules and as plain tensors: a prefill and one fused decode block
+    each, identical greedy tokens, launches equal to ``_serve_launches``
+    in both, the plain versions never run on the card."""
+    import numpy as np
+    import torch
+    from torch.utils import _pytree as pytree
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch import kernels as K
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.sharding import rules_for, shardings_for
+    from repro_torch.training import steps as ST
+
+    device = "cuda"
+    B, S, cache, k = (MESH_SERVE_SHAPES[x] for x in ("batch", "seq",
+                                                      "cache_len",
+                                                      "block_k"))
+    rules = rules_for("serve", tuple(mesh.mesh_dim_names))
+    params = L.to_tree(M.init_params(cfg, 0, device=device))
+    placed = pytree.tree_map(
+        lambda t, p: distribute_tensor(t, mesh, list(p)), params,
+        shardings_for(M.param_axes(cfg), params, mesh, rules),
+        is_leaf=lambda x: isinstance(x, torch.Tensor))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        3, cfg.vocab_size, (B, S))).to(device)
+    out = {}
+    with plain_calls() as calls:
+        for label, p, r in (("sharded", placed, rules),
+                            ("plain", params, None)):
+            K.reset_launches()
+            calls.clear()
+            t0 = time.perf_counter()
+            o, caches = ST.make_prefill_step(cfg, cache, rules=r)(
+                p, {"tokens": tokens})
+            f, caches = ST.make_fused_decode_step(cfg, k, rules=r)(
+                p, o["next_tokens"], torch.full((B,), S, dtype=torch.int32,
+                                                device=device), caches)
+            toks = torch.cat([o["next_tokens"][:, None], f["tokens"]], 1)
+            out[label] = (toks.cpu(), _counts(), dict(calls),
+                          time.perf_counter() - t0)
+    (ts, ls, cs, s_s), (tp, lp, _, s_p) = out["sharded"], out["plain"]
+    want = _serve_launches(cfg, k)
+    log(f"mesh: (c) {cfg.name} {cfg.num_layers} layers, serve rules: "
+        f"prefill of {B} x {S} and a fused block of {k}: tokens identical "
+        f"{torch.equal(ts, tp)}; launches {ls}; {s_s:.2f} s sharded, "
+        f"{s_p:.2f} s plain")
+    assert torch.equal(ts, tp), (ts, tp)
+    assert {x: ls[x] for x in want} == want, (ls, want)
+    assert {x: lp[x] for x in want} == want, (lp, want)
+    assert not cs, cs
+
+
+def _mesh_psum(mesh):
+    """(d) ``compressed_psum`` over the mesh's data axis against the same
+    x through a CPU (gloo) mesh of the same world."""
+    import torch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training.grad_compress import compressed_psum
+    x = torch.linspace(-1.0, 1.0, 4096).reshape(64, 64)
+    got = compressed_psum(x.cuda(), mesh, "data").cpu()
+    cpu = make_mesh(tuple(mesh.mesh.shape), mesh.mesh_dim_names, "cpu")
+    want = compressed_psum(x, cpu, "data")
+    err = float((got - want).abs().max())
+    log(f"mesh: (d) compressed_psum over {mesh.device_type} against the "
+        f"CPU's: max |diff| {err:.3g}, against x times the world: "
+        f"{float((got - x * mesh.size()).abs().max()):.3g}")
+    assert err <= 1e-6, err
+
+
+def _mesh_record(mesh):
+    """(f) a ``Workload`` given the mesh records a manifest that names it,
+    under the keys of a ``Workload`` given none."""
+    from repro_torch.api import Workspace
+    from repro_torch.core.recorder import mesh_descriptor
+    ws = Workspace(device="cuda")
+    shapes = dict(cache_len=32, block_k=4, batch=1, seq=8)
+    with_mesh = ws.workload("cody-mnist", mesh=mesh, **shapes)
+    without = ws.workload("cody-mnist", **shapes)
+    rec = with_mesh.record("prefill")
+    want = {"shape": [1] * mesh.ndim, "axes": list(mesh.mesh_dim_names)}
+    log(f"mesh: (f) recorded under the mesh: manifest mesh "
+        f"{rec.manifest['mesh']}; keys {with_mesh.key('prefill')} / "
+        f"{with_mesh.key('decode')}")
+    assert rec.manifest["mesh"] == mesh_descriptor(mesh) == want
+    assert rec.manifest["mesh"] == mesh_descriptor()
+    assert all(with_mesh.key(k) == without.key(k)
+               for k in ("prefill", "decode"))
+    assert with_mesh._key_of(rec) == with_mesh.key("prefill")
+
+
+def _op_args(name, randn, device):
+    """Inputs of the custom op ``name`` at shapes of the main path
+    (bf16 where the models pass bf16; the scans' at ``_scan_inputs``'s
+    full width, one kernel chunk)."""
+    import torch
+    bf = torch.bfloat16
+    ops = torch.ops.repro_torch
+    if name.startswith("rmsnorm"):
+        x, sc = randn(2, 128, 2048, dt=bf), randn(2048) * 0.1 + 1.0
+        return (x, sc, 1e-5) if name == "rmsnorm" else \
+            (x, sc, randn(2, 128, 2048, dt=bf), 1e-5)
+    if name.startswith("flash"):
+        q, k, v = (randn(2, 128, h, 128, dt=bf) for h in (16, 2, 2))
+        if name == "flash_attention":
+            return (q, k, v, True, 0, 128 ** -0.5, 0)
+        out = ops.flash_attention(q, k, v, True, 0, 128 ** -0.5, 0)
+        return (q, k, v, out, randn(*out.shape, dt=bf), True, 0,
+                128 ** -0.5, 0)
+    if name.startswith("decode"):
+        q = randn(4, 16, 128, dt=bf)
+        lengths = torch.tensor([685, 560, 630, 193], dtype=torch.int32,
+                               device=device)
+        if name == "decode_attention":
+            return (q, randn(4, 1024, 2, 128, dt=bf),
+                    randn(4, 1024, 2, 128, dt=bf), lengths, 128 ** -0.5)
+        i8 = lambda: (randn(4, 1024, 2, 128) * 40).round().clamp(
+            -127, 127).to(torch.int8)
+        sc = lambda: randn(4, 1024, 2, 1).abs() / 127
+        return (q, i8(), i8(), lengths, sc(), sc(), 128 ** -0.5)
+    if name.startswith("moe_gmm"):
+        x, w = randn(8, 32, 2048, dt=bf), randn(8, 2048, 1408, dt=bf) * 0.02
+        return (x, w) if name == "moe_gmm" else \
+            (x, w, randn(8, 32, 1408, dt=bf))
+    which = "mamba" if name.startswith("mamba") else "mlstm"
+    args = _scan_inputs(randn, which, 1, 128, 1, bf)
+    if name in ("mamba_chunk_scan", "mlstm_chunk_scan"):
+        return args
+    outs = getattr(ops, name[:-len("_backward")])(*args)
+    if which == "mamba":
+        return args + tuple(randn(*o.shape) for o in outs)
+    return args + (outs[0],) + tuple(randn(*o.shape) for o in outs)
+
+
+def _mesh_ops(mesh):
+    """(g) each of the 12 custom ops called on DTensors on the mesh: its
+    wrapper launches its kernel once (and its plain version never runs)
+    on the card, and the result equals the op on plain tensors to the
+    bit."""
+    import torch
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from repro_torch import kernels as K
+    from repro_torch.kernels import _sharding
+    device = "cuda"
+    g = torch.Generator(device=device).manual_seed(0)
+    randn = lambda *s, dt=torch.float32: torch.randn(
+        *s, generator=g, device=device).to(dt)
+    wrappers = {k.__name__: k for k in
+                K.KERNELS + K.INT8_KERNELS + K.BACKWARD_KERNELS}
+    rows = []
+    for name, _ in _sharding.strategies():
+        op = getattr(torch.ops.repro_torch, name).default
+        args = _op_args(name, randn, device)
+        want = op(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        dargs = [distribute_tensor(a, mesh, [Replicate()] * mesh.ndim)
+                 if isinstance(a, torch.Tensor) else a for a in args]
+        K.reset_launches()
+        with plain_calls() as calls:
+            got = op(*dargs)
+        got = got if isinstance(got, tuple) else (got,)
+        same = all(torch.equal(a.full_tensor(), b)
+                   for a, b in zip(got, want))
+        rows.append((name, wrappers[name].launches, dict(calls), same))
+    log(f"mesh: (g) the custom ops on DTensors: {rows}")
+    assert all(r[3] for r in rows), rows
+    assert all(r[1] == 1 and not r[2] for r in rows), rows
+
+
+def _mesh_slots(card):
+    """(h) what a cache split over batch or slots pays a decode step:
+    ``masked_write`` (a select over every slot) against ``index_put_``
+    of one slot a row, on a bf16 cache at the decode kernel's row (batch
+    4, 1,024 slots, 2 KV heads of 128), the same result -> the two
+    device times (ms)."""
+    import torch
+    from repro_torch.models.layers import masked_write
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cache = torch.randn(4, 1024, 2, 128, generator=g, device="cuda").to(
+        torch.bfloat16)
+    val = torch.randn(4, 2, 128, generator=g, device="cuda").to(cache.dtype)
+    slot = torch.tensor([685, 560, 630, 193], device="cuda")
+    bidx = torch.arange(4, device="cuda")
+    a, b = cache.clone(), cache.clone()
+    masked_write(a, slot, val)
+    b.index_put_((bidx, slot), val)
+    assert torch.equal(a, b)
+    ms = {"masked": device_ms(masked_write, [(a, slot, val)] * 8,
+                              repeats=MEDIAN_OF) / 8,
+          "index_put": device_ms(lambda c, s, v: c.index_put_((bidx, s), v),
+                                 [(b, slot, val)] * 8, repeats=MEDIAN_OF) / 8}
+    log(f"mesh: (h) one K or V slot write a layer, cache "
+        f"{tuple(cache.shape)} bf16: masked_write {ms['masked']!r} ms, "
+        f"index_put_ {ms['index_put']!r} ms; on {card}")
+    return ms
+
+
+def mesh_checks(card):
+    """Phase mesh's checks on the card named ``card`` (its name and power
+    limit): (a) ``make_host_mesh(model=1)`` over a world of one, then
+    (b)-(h) -> (b)'s step times and (h)'s write times."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.recorder import mesh_descriptor
+    from repro_torch.launch.mesh import make_host_mesh
+
+    started = not dist.is_initialized()
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(model=1, device="cuda")
+    log(f"mesh: (a) make_host_mesh(model=1) on cuda: "
+        f"{mesh_descriptor(mesh)} over {dist.get_backend()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        train_cfg = dc.replace(get_config(TRAIN_ARCH),
+                               num_layers=MESH_TRAIN["num_layers"])
+        times = _mesh_train(mesh, train_cfg, card)
+        for a, n in MESH_SERVE.items():
+            _mesh_serve(mesh, dc.replace(get_config(a), num_layers=n))
+        _mesh_psum(mesh)
+        _mesh_record(mesh)
+        _mesh_ops(mesh)
+        times["slot_write"] = _mesh_slots(card)
+    finally:
+        if started:     # later phases run with no process group, as before
+            dist.destroy_process_group()
+    return times
+
+
+def phase_mesh(state):
+    state["mesh_times"] = mesh_checks(_card(state))
 
 
 def main(argv=None) -> int:

@@ -10,11 +10,16 @@ exposes every lifecycle stage as a method: ``compile`` / ``record``
 replay).  The step-building and static-meta helpers the launchers share
 live here as module functions.
 
-The port runs on one device, so its mesh is the reference's host mesh on
-one device (``core.recorder.mesh_descriptor``): every manifest records
-it and every key fingerprints it, which makes ``_key_of`` (the key a
-recording's own manifest implies) agree with ``key`` (the key a workload
-derives from its shapes) for the port's recordings.  A recording's
+A workload's mesh is the ``DeviceMesh`` it is given, or none, which is
+described as the reference's host mesh on one device
+(``core.recorder.mesh_descriptor``, [1, 1], as a 1 x 1 mesh is too):
+every manifest records it and every key fingerprints it, which makes
+``_key_of`` (the key a recording's own manifest implies) agree with
+``key`` (the key a workload derives from its shapes) for the port's
+recordings.  With a mesh the steps take the reference's serve rules
+(``sharding.rules_for("serve", ...)``), which place nothing on plain
+tensors and constrain DTensor params on that mesh; without one no
+process group is started and the steps take no rules.  A recording's
 static meta names the backend that exported it (``recorded_static``), so
 the port's keys never equal the reference's XLA ones.  Entry points run
 on the workspace's device (``Workspace(device=...)``, CUDA unless the
@@ -40,6 +45,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.registry import key_arch, key_for
 from repro_torch.serving.engine import Engine, cache_batch_axes_for
+from repro_torch.sharding import rules_for
 from repro_torch.training import steps as ST
 
 KINDS = ("prefill", "decode")
@@ -61,7 +67,7 @@ def static_meta_for(kind: str, *, cache_len: int, block_k: int, batch: int,
 
 def build_step(cfg, kind: str, *, cache_len: int, block_k: int = 8,
                batch: int = 1, seq: int = 32, eos_id: int = 2, params=None,
-               device="cuda"):
+               device="cuda", rules=None):
     """(step, example inputs, donated argnums) for one kind.  The step
     takes the params as its first input, as the nested dicts/lists of
     tensors ``layers.to_tree`` gives; the example inputs are real tensors
@@ -76,11 +82,12 @@ def build_step(cfg, kind: str, *, cache_len: int, block_k: int = 8,
     else:
         tree = params
     if kind == "prefill":
-        fn = ST.make_prefill_step(cfg, cache_len)
+        fn = ST.make_prefill_step(cfg, cache_len, rules=rules)
         tokens = torch.zeros((batch, seq), dtype=torch.int32, device=device)
         return fn, (tree, {"tokens": tokens}), ()
     if kind == "decode":
-        fn = ST.make_fused_decode_step(cfg, k=block_k, eos_id=eos_id)
+        fn = ST.make_fused_decode_step(cfg, k=block_k, eos_id=eos_id,
+                                       rules=rules)
         caches = M.init_cache(cfg, batch, cache_len, device=device)
         zeros = torch.zeros((batch,), dtype=torch.int32, device=device)
         return fn, (tree, zeros, zeros.clone(), caches), (3,)
@@ -144,7 +151,7 @@ class Workload:
 
     def __init__(self, workspace, cfg, *, cache_len: int = 128,
                  block_k: int = 8, batch: int = 4, prefill_batch: int = 1,
-                 seq: int = 32, eos_id: int = 2):
+                 seq: int = 32, eos_id: int = 2, mesh=None):
         self.ws = workspace
         self.cfg = cfg
         self.device = workspace.device
@@ -154,7 +161,10 @@ class Workload:
         self.prefill_batch = prefill_batch
         self.seq = seq
         self.eos_id = eos_id
-        self.mesh = mesh_descriptor()
+        self.device_mesh = mesh
+        self.rules = None if mesh is None else \
+            rules_for("serve", tuple(mesh.mesh_dim_names))
+        self.mesh = mesh_descriptor(mesh)
         self.mesh_fp = fingerprint(self.mesh)
         self.config_fp = cfg.fingerprint()
         # the canonical identity, derived once per kind and never re-derived
@@ -189,7 +199,7 @@ class Workload:
         return build_step(self.cfg, kind, cache_len=self.cache_len,
                           block_k=self.block_k, batch=static["batch"],
                           seq=self.seq, eos_id=self.eos_id, params=params,
-                          device=self.device)
+                          device=self.device, rules=self.rules)
 
     def params(self, seed: int = 0):
         """Initialized model params on the workspace's device, memoized
@@ -207,7 +217,7 @@ class Workload:
         several session variants."""
         fn, args, donate = self.step(kind)
         return compile_artifact(self.key(kind), fn, args,
-                                donate_argnums=donate,
+                                donate_argnums=donate, mesh=self.device_mesh,
                                 config_fingerprint=self.config_fp,
                                 static_meta=self.static_meta(kind))
 
@@ -233,7 +243,8 @@ class Workload:
             fn, args, donate = self.step(kind, params)
             rec = record(self.key(kind), fn, args, donate_argnums=donate,
                          config_fingerprint=self.config_fp,
-                         static_meta=self.static_meta(kind), session=session)
+                         static_meta=self.static_meta(kind), session=session,
+                         mesh=self.device_mesh)
         self.sessions.append((kind, session.report()))
         return rec
 
@@ -346,7 +357,8 @@ class Workload:
             fn, args, donate = self.step(kind)
             return record(reg_key, fn, args, donate_argnums=donate,
                           config_fingerprint=self.config_fp,
-                          static_meta=static, session=session)
+                          static_meta=static, session=session,
+                          mesh=self.device_mesh)
         return record_fn
 
     def fetch(self, kind: str = "prefill", *, record_on_miss: bool = False,

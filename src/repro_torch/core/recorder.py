@@ -51,13 +51,18 @@ def topology_fingerprint(device="cuda") -> str:
     return fingerprint(sorted(names), n)
 
 
-def mesh_descriptor() -> dict:
+def mesh_descriptor(mesh=None) -> dict:
     """The mesh a recording was made for, as the reference's manifests
-    describe one.  The port runs on one device, whose mesh is the
-    reference's host mesh on one device (``shape`` [1, 1] over ``data``
-    and ``model``); every manifest records it and every registry key
-    fingerprints it (``repro_torch.api.workload.Workload``)."""
-    return {"shape": [1, 1], "axes": ["data", "model"]}
+    describe one: a ``DeviceMesh``'s shape and axis names.  Without a
+    mesh it is the reference's host mesh on one device (``shape`` [1, 1]
+    over ``data`` and ``model``), which is what a 1 x 1 mesh gives too, so
+    a recording made under one keys as one made without.  Every manifest
+    records it and every registry key fingerprints it
+    (``repro_torch.api.workload.Workload``)."""
+    if mesh is None:
+        return {"shape": [1, 1], "axes": ["data", "model"]}
+    return {"shape": [int(n) for n in mesh.mesh.shape],
+            "axes": list(mesh.mesh_dim_names)}
 
 
 def recorded_static(static_meta: Optional[dict]) -> dict:
@@ -112,11 +117,13 @@ def _out_bytes(ep) -> int:
 
 def compile_artifact(name: str, fn, args: Sequence[Any], *,
                      donate_argnums=(), config_fingerprint: str = "",
-                     static_meta: Optional[dict] = None) -> Recording:
+                     static_meta: Optional[dict] = None,
+                     mesh=None) -> Recording:
     """Export and serialize ``fn`` into a signable Recording.  ``args``
     are real tensors (a pytree) on the recording device; every tensor
     ``fn`` reads must come through them.  A batch's leaves are recorded
-    in JAX's order (``jax_arg_order``)."""
+    in JAX's order (``jax_arg_order``).  ``mesh`` (a ``DeviceMesh``) is
+    the one the manifest names (``mesh_descriptor``)."""
     t0 = time.time()
     args = jax_arg_order(args)
     flat = pytree.tree_leaves(tuple(args))
@@ -147,7 +154,7 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
         "record_wall_s": time.time() - t0,
         "torch_version": torch.__version__,
         "topology": topology_fingerprint(device),
-        "mesh": mesh_descriptor(),
+        "mesh": mesh_descriptor(mesh),
         "config_fingerprint": config_fingerprint,
         "donate": list(donate_argnums),
         "inputs": [{"shape": list(getattr(a, "shape", ())),
@@ -168,7 +175,7 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
 
 def record(name: str, fn, args: Sequence[Any], *, donate_argnums=(),
            config_fingerprint: str = "", static_meta: Optional[dict] = None,
-           session=None) -> Recording:
+           session=None, mesh=None) -> Recording:
     """Record ``fn`` through a ``RecordingSession`` (the CODY two-party
     record phase).  Without ``session`` this is the in-process degenerate
     session — LOCAL co-located device+cloud, all passes on, nothing billed
@@ -182,7 +189,7 @@ def record(name: str, fn, args: Sequence[Any], *, donate_argnums=(),
     sess = session if session is not None else RecordingSession.local()
     return sess.record(name, fn, args, donate_argnums=donate_argnums,
                        config_fingerprint=config_fingerprint,
-                       static_meta=static_meta)
+                       static_meta=static_meta, mesh=mesh)
 
 
 __all__ = ["compile_artifact", "record", "topology_fingerprint",

@@ -181,6 +181,16 @@ def plain_float(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
+def contiguous(out):
+    """A CPU implementation's output(s) laid out as its fake describes
+    them (contiguous), as the kernel writes them: DTensor plans views of
+    an op's output from the fake's strides and applies them to the local
+    result."""
+    if isinstance(out, tuple):
+        return tuple(t.contiguous() for t in out)
+    return out.contiguous()
+
+
 def require(cond: bool, what: str) -> None:
     """Raise on an input a kernel does not take."""
     if not cond:

@@ -44,6 +44,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated, splits_evenly
 from repro_torch.kernels.flash_attention import HEAD_DIMS, masked_softmax
 
 SOURCE = "src/repro_torch/csrc/decode_attention.cu"
@@ -338,3 +340,30 @@ def decode_attention_int8(q, k_cache, v_cache, lengths, k_scale, v_scale, *,
 
 decode_attention_int8.launches = 0    # kernel launches (CUDA path only)
 decode_attention_int8.by_shape = Counter()   # ... by (q.shape, k_cache.shape)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(q, k_cache, v_cache, lengths, scale):
+    """Batch split; heads under flash attention's rule (q's H and the
+    caches' Hkv split evenly alike).  The cache's slot dim stays whole: a
+    kernel over a slot shard would normalise its softmax over that shard
+    alone, so DTensor gathers a slot-split cache first."""
+    S, R, _ = _sharding_types()
+    rows = [([S(0)], [S(0)] * 4 + [None])]
+    if splits_evenly(q.mesh, q.shape[1], k_cache.shape[2]):
+        rows.append(([S(1)], [S(1), S(2), S(2), R, None]))
+    return rows + [replicated(1, (q, k_cache, v_cache, lengths, scale))]
+
+
+def _int8_sharding(q, k_cache, v_cache, lengths, k_scale, v_scale, scale):
+    """The dense form's rows, the scales split as their caches."""
+    S, R, _ = _sharding_types()
+    rows = [([S(0)], [S(0)] * 6 + [None])]
+    if splits_evenly(q.mesh, q.shape[1], k_cache.shape[2]):
+        rows.append(([S(1)], [S(1), S(2), S(2), R, S(2), S(2), None]))
+    return rows + [replicated(1, (q, k_cache, v_cache, lengths, k_scale,
+                                  v_scale, scale))]
+
+
+SHARDING = (("decode_attention", _sharding),
+            ("decode_attention_int8", _int8_sharding))

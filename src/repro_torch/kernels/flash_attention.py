@@ -59,6 +59,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated, splits_evenly
 from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/flash_attention.cu"
@@ -317,8 +319,9 @@ def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_op.register_kernel("cpu")
 def _flash_cpu(q, k, v, causal, window, scale, q_offset):
-    return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                 scale=scale, q_offset=q_offset)
+    return _build.contiguous(flash_attention_plain(
+        q, k, v, causal=causal, window=window, scale=scale,
+        q_offset=q_offset))
 
 
 @_flash_op.register_fake
@@ -398,9 +401,9 @@ def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_bwd_op.register_kernel("cpu")
 def _flash_bwd_cpu(q, k, v, out, dout, causal, window, scale, q_offset):
-    return flash_attention_backward_plain(q, k, v, out, dout, causal=causal,
-                                          window=window, scale=scale,
-                                          q_offset=q_offset)
+    return _build.contiguous(flash_attention_backward_plain(
+        q, k, v, out, dout, causal=causal, window=window, scale=scale,
+        q_offset=q_offset))
 
 
 @_flash_bwd_op.register_fake
@@ -506,3 +509,33 @@ def _backward(ctx, dout):
 
 torch.library.register_autograd("repro_torch::flash_attention", _backward,
                                 setup_context=_setup_context)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(q, k, v, causal, window, scale, q_offset):
+    """Batch split; heads split only when every head split DTensor could
+    make divides both q's H and k/v's Hkv (``splits_evenly``), so that
+    local q head i reads local kv head i // G.  A head split of q over
+    whole K/V would read kv head i // G of the full K/V, wrong on every
+    rank but the first.  The sequence is never split."""
+    S, R, _ = _sharding_types()
+    rest = [None] * 4
+    rows = [([S(0)], [S(0)] * 3 + rest)]
+    if splits_evenly(q.mesh, q.shape[2], k.shape[2]):
+        rows.append(([S(2)], [S(2)] * 3 + rest))
+    return rows + [replicated(1, (q, k, v, causal, window, scale, q_offset))]
+
+
+def _backward_sharding(q, k, v, out, dout, causal, window, scale, q_offset):
+    """The forward's rows: dq, dk, dv split as q, k, v."""
+    S, R, _ = _sharding_types()
+    rest = [None] * 4
+    rows = [([S(0)] * 3, [S(0)] * 5 + rest)]
+    if splits_evenly(q.mesh, q.shape[2], k.shape[2]):
+        rows.append(([S(2)] * 3, [S(2)] * 5 + rest))
+    return rows + [replicated(3, (q, k, v, out, dout, causal, window, scale,
+                                  q_offset))]
+
+
+SHARDING = (("flash_attention", _sharding),
+            ("flash_attention_backward", _backward_sharding))

@@ -47,6 +47,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated
 from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/mamba_scan.cu"
@@ -557,7 +559,8 @@ def _scan_bwd_op(xbar: torch.Tensor, B_c: torch.Tensor, C_c: torch.Tensor,
 
 @_scan_bwd_op.register_kernel("cpu")
 def _scan_bwd_cpu(xbar, B_c, C_c, cum, dy, dstate):
-    return mamba_chunk_scan_backward_plain(xbar, B_c, C_c, cum, dy, dstate)
+    return _build.contiguous(
+        mamba_chunk_scan_backward_plain(xbar, B_c, C_c, cum, dy, dstate))
 
 
 @_scan_bwd_op.register_fake
@@ -662,3 +665,27 @@ def _backward(ctx, dy, dstate):
 
 torch.library.register_autograd("repro_torch::mamba_chunk_scan", _backward,
                                 setup_context=_setup_context)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(xbar, B_c, C_c, cum):
+    """Batch split, or heads split (B and C, shared by every head, whole).
+    The chunk and row dims are never split: the state is carried across
+    them."""
+    S, R, _ = _sharding_types()
+    return [([S(0), S(0)], [S(0)] * 4),
+            ([S(3), S(1)], [S(3), R, R, S(3)]),
+            replicated(2, (xbar, B_c, C_c, cum))]
+
+
+def _backward_sharding(xbar, B_c, C_c, cum, dy, dstate):
+    """The forward's rows; under a head split each rank's dB and dC sum
+    its own heads, partial sums over the split."""
+    S, R, P = _sharding_types()
+    return [([S(0)] * 4, [S(0)] * 6),
+            ([S(3), P, P, S(3)], [S(3), R, R, S(3), S(3), S(1)]),
+            replicated(4, (xbar, B_c, C_c, cum, dy, dstate))]
+
+
+SHARDING = (("mamba_chunk_scan", _sharding),
+            ("mamba_chunk_scan_backward", _backward_sharding))

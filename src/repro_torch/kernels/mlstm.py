@@ -47,6 +47,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated
 from repro_torch.kernels._build import plain_float
 from repro_torch.kernels.mamba_scan import (FAULT_ONE_PART,
                                             FAULT_WRONG_COTANGENT,
@@ -476,7 +478,8 @@ def _scan_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_scan_bwd_op.register_kernel("cpu")
 def _scan_bwd_cpu(q, k, v, cumf, li, y, dy, dC, dn):
-    return mlstm_chunk_scan_backward_plain(q, k, v, cumf, li, y, dy, dC, dn)
+    return _build.contiguous(
+        mlstm_chunk_scan_backward_plain(q, k, v, cumf, li, y, dy, dC, dn))
 
 
 @_scan_bwd_op.register_fake
@@ -585,3 +588,23 @@ def _backward(ctx, dy, dC, dn):
 
 torch.library.register_autograd("repro_torch::mlstm_chunk_scan", _backward,
                                 setup_context=_setup_context)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(q, k, v, cumf, li):
+    """Batch or heads split; the chunk and row dims are never split (the
+    (C, n) state is carried across them)."""
+    S, R, _ = _sharding_types()
+    return [([S(0)] * 3, [S(0)] * 5), ([S(3), S(1), S(1)], [S(3)] * 5),
+            replicated(3, (q, k, v, cumf, li))]
+
+
+def _backward_sharding(q, k, v, cumf, li, y, dy, dC, dn):
+    """The forward's rows for the five gradients."""
+    S, R, _ = _sharding_types()
+    return [([S(0)] * 5, [S(0)] * 9), ([S(3)] * 5, [S(3)] * 7 + [S(1)] * 2),
+            replicated(5, (q, k, v, cumf, li, y, dy, dC, dn))]
+
+
+SHARDING = (("mlstm_chunk_scan", _sharding),
+            ("mlstm_chunk_scan_backward", _backward_sharding))

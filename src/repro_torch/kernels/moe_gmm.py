@@ -40,6 +40,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated
 from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/moe_gmm.cu"
@@ -432,3 +434,28 @@ def _backward(ctx, dy):
 
 torch.library.register_autograd("repro_torch::moe_gmm", _backward,
                                 setup_context=_setup_context)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(x, w):
+    """x [E,R,D] @ w [E,D,F]: experts split (each rank its own experts),
+    rows split on x and the output, F split on w and the output, or D
+    split on x and w, whose local products are partial sums of the
+    output."""
+    S, R, P = _sharding_types()
+    return [([S(0)], [S(0), S(0)]), ([S(1)], [S(1), R]),
+            ([S(2)], [R, S(2)]), ([P], [S(2), S(1)]), replicated(1, (x, w))]
+
+
+def _backward_sharding(x, w, dy):
+    """The forward's rows for (dx, dw): experts split; rows split (dx
+    split on rows, dw = xᵀ dy a partial sum); F split (dx = dy wᵀ a
+    partial sum, dw split on F); D split (dx split on D, dw on D)."""
+    S, R, P = _sharding_types()
+    return [([S(0), S(0)], [S(0), S(0), S(0)]),
+            ([S(1), P], [S(1), R, S(1)]),
+            ([P, S(2)], [R, S(2), S(2)]),
+            ([S(2), S(1)], [S(2), S(1), R]), replicated(2, (x, w, dy))]
+
+
+SHARDING = (("moe_gmm", _sharding), ("moe_gmm_backward", _backward_sharding))

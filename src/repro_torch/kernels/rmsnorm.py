@@ -39,6 +39,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._sharding import placement_types as _sharding_types
+from repro_torch.kernels._sharding import replicated
 from repro_torch.kernels._build import plain_float
 
 SOURCE = "src/repro_torch/csrc/rmsnorm.cu"
@@ -358,3 +360,23 @@ def _backward(ctx, g):
 
 torch.library.register_autograd("repro_torch::rmsnorm", _backward,
                                 setup_context=_setup_context)
+
+
+# ------------------------------------------------------------- sharding --
+def _sharding(x, scale, eps):
+    """Rows (any leading dim of x) split, scale whole: every rank
+    normalises its own rows.  D is never split."""
+    S, R, _ = _sharding_types()
+    return [([S(d)], [S(d), R, None]) for d in range(x.ndim - 1)] \
+        + [replicated(1, (x, scale, eps))]
+
+
+def _backward_sharding(x, scale, g, eps):
+    """Rows split as in the forward: dx keeps them, and each rank's
+    dscale sums its own rows, a partial sum over the split."""
+    S, R, P = _sharding_types()
+    return [([S(d), P], [S(d), R, S(d), None]) for d in range(x.ndim - 1)] \
+        + [replicated(2, (x, scale, g, eps))]
+
+
+SHARDING = (("rmsnorm", _sharding), ("rmsnorm_backward", _backward_sharding))

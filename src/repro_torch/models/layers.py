@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import masked_softmax
+from repro_torch.sharding import constrain, is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,10 +151,18 @@ def rope(x, pos, theta):
 
 
 # ------------------------------------------------------------ attention ----
-def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0):
+def chunked_attention(q, k, v, *, causal=True, window=0, q_offset=0,
+                      rules=None):
     """q [B,Sq,H,hd]; k,v [B,Sk,Hkv,hd]; q at q_offset+i, k at j.  The
     reference scans query chunks in pure JAX; here the flash kernel does
-    the whole thing (plain version on CPU)."""
+    the whole thing (plain version on CPU).  The reference repeats K/V to
+    H heads before it constrains them; the kernel takes GQA as it is, so
+    K/V are constrained by their own ``kv_heads`` (the kernel's sharding
+    strategy splits heads only where both split alike)."""
+    if rules is not None:
+        q = constrain(q, ("batch", None, "heads", "head_dim"), rules)
+        k, v = (constrain(t, ("batch", None, "kv_heads", "head_dim"), rules)
+                for t in (k, v))
     return K.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                              causal=causal, window=window, q_offset=q_offset)
 
@@ -214,7 +223,7 @@ def gqa_qkv(p, x, cfg, pos):
     return q, k, v
 
 
-def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None):
+def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None, rules=None):
     """Full-sequence (prefill) GQA self-attention, or cross-attention over
     the given ``cross_kv = (k, v)`` -> (out, (k, v)).  Under ``cross_kv``
     the query takes ``bq`` but no rope, K and V are used as they are
@@ -230,7 +239,8 @@ def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None):
         causal = False
     else:
         q, k, v = gqa_qkv(p, x, cfg, pos)
-    o = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window)
+    o = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window,
+                          rules=rules)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
 
 
@@ -239,6 +249,44 @@ def kv_quantize(t):
     f = t.float()
     s = f.abs().amax(-1, keepdim=True).clamp_min(1e-6) / 127.0
     return torch.round(f / s).clamp(-127, 127).to(torch.int8), s
+
+
+def write_slots(cache, bidx, slot, val) -> None:
+    """cache[bidx[b], slot[b]] = val[b] for every row b (bidx: the rows in
+    order), IN PLACE.  A DTensor cache whose batch and slot dims every
+    rank holds whole (always on one card) takes ``index_put_`` into its
+    local shard, ``val`` placed as the cache's other dims are; one split
+    over batch or slots takes ``masked_write``, which DTensor runs under
+    any split."""
+    if not is_dtensor(cache):
+        cache.index_put_((bidx, slot), val)
+        return
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = cache.device_mesh
+    split = [isinstance(p, Shard) and mesh.size(i) > 1
+             for i, p in enumerate(cache.placements)]
+    if any(s and p.dim < 2 for s, p in zip(split, cache.placements)):
+        masked_write(cache, slot, val)
+        return
+    want = [Shard(p.dim - 1) if s else Replicate()
+            for s, p in zip(split, cache.placements)]
+    if not is_dtensor(val):
+        val = DTensor.from_local(val, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    if is_dtensor(slot):
+        slot = slot.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+    cache.to_local().index_put_(
+        (bidx, slot), val.redistribute(mesh, want).to_local().to(cache.dtype))
+
+
+def masked_write(cache, slot, val) -> None:
+    """cache[b, slot[b]] = val[b] for every row b, IN PLACE, as one
+    elementwise select over the whole cache (reads and writes every slot:
+    what a cache split over batch or slots pays a decode step)."""
+    hit = torch.arange(cache.shape[1], device=slot.device)[None] \
+        == slot[:, None]
+    hit = hit.reshape(hit.shape + (1,) * (cache.ndim - 2))
+    cache.copy_(torch.where(hit, val[:, None].to(cache.dtype), cache))
 
 
 def gqa_decode(p, x, cfg, cache, pos):
@@ -255,13 +303,13 @@ def gqa_decode(p, x, cfg, cache, pos):
         kq, ks = kv_quantize(k[:, 0])
         vq, vs = kv_quantize(v[:, 0])
         for name, val in (("k", kq), ("k_s", ks), ("v", vq), ("v_s", vs)):
-            cache[name].index_put_((bidx, slot), val)
+            write_slots(cache[name], bidx, slot, val)
         o = decode_attention(q, cache["k"], cache["v"], pos,
                              window=cfg.sliding_window,
                              k_scale=cache["k_s"], v_scale=cache["v_s"])
     else:
-        cache["k"].index_put_((bidx, slot), k[:, 0])
-        cache["v"].index_put_((bidx, slot), v[:, 0])
+        write_slots(cache["k"], bidx, slot, k[:, 0])
+        write_slots(cache["v"], bidx, slot, v[:, 0])
         o = decode_attention(q, cache["k"], cache["v"], pos,
                              window=cfg.sliding_window)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
@@ -304,7 +352,7 @@ def _mla_q(p, x, cfg, pos):
     return q_nope, rope(q_rope, pos, cfg.rope_theta)
 
 
-def mla_attention(p, x, cfg):
+def mla_attention(p, x, cfg, rules=None):
     """Prefill: decompress the latent to per-head K/V and run the flash
     kernel at hd = nope + rope, hd_v = v_head_dim -> (out, (c_kv, k_rope))."""
     B, S, _ = x.shape
@@ -315,7 +363,8 @@ def mla_attention(p, x, cfg):
     v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
     H = cfg.num_heads
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, -1)], -1)
-    o = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True)
+    o = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True,
+                          rules=rules)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (c_kv, k_rope)
 
 
@@ -325,12 +374,11 @@ def mla_decode(p, x, cfg, cache_c, cache_kr, pos):
     any Pallas kernel).  The new latent row is written into ``cache_c`` and
     ``cache_kr`` IN PLACE -> (out [B,1,D], cache_c, cache_kr)."""
     m = cfg.mla
-    B = x.shape[0]
     q_nope, q_rope = _mla_q(p, x, cfg, pos[:, None])
     c_kv, k_rope = _mla_latent(p, x, cfg, pos[:, None])
-    bidx = torch.arange(B, device=x.device)
-    cache_c.index_put_((bidx, pos.long()), c_kv[:, 0])
-    cache_kr.index_put_((bidx, pos.long()), k_rope[:, 0])
+    bidx = torch.arange(x.shape[0], device=x.device)
+    write_slots(cache_c, bidx, pos.long(), c_kv[:, 0])
+    write_slots(cache_kr, bidx, pos.long(), k_rope[:, 0])
     # absorb W_uk into q: q_lat [B,H,R]
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], p["w_uk"])
     s = torch.einsum("bhr,bsr->bhs", q_lat.float(), cache_c.float())
@@ -363,14 +411,16 @@ def mlp_schema(cfg, d_ff=None):
     return s
 
 
-def apply_mlp(p, x, cfg):
+def apply_mlp(p, x, cfg, rules=None):
+    cst = (lambda t: constrain(t, ("batch", None, "ffn"), rules)) \
+        if (rules is not None and x.ndim == 3) else (lambda t: t)
     if "w3" in p:
-        h = F.silu(x @ p["w1"]) * (x @ p["w3"])
+        h = cst(F.silu(x @ p["w1"])) * cst(x @ p["w3"])
     else:
         h = x @ p["w1"]
         if "b1" in p:
             h = h + p["b1"]
-        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+        h = cst(F.gelu(h, approximate="tanh"))   # jax.nn.gelu's default
     y = h @ p["w2"]
     if "b2" in p:
         y = y + p["b2"]

@@ -34,6 +34,7 @@ from torch.utils import _pytree as pytree
 from torch.utils import checkpoint as ckpt
 
 from repro_torch import resolve_device
+from repro_torch import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
@@ -178,14 +179,25 @@ def _tree_stack(trees: list):
     return torch.stack(trees)
 
 
-def _cross_attention(p, h, enc_out, cfg):
+def _whole_seq(h, rules):
+    """The residual stream as a block works on it.  Under the train rules
+    it is split on ``seq`` between blocks (the reference's Megatron-style
+    constraint at each block's end); inside a block the reference's
+    constraints split heads and ffn instead, and the sequence is whole:
+    gathered on entry (and its gradient split again on the way back), so
+    that DTensor can flatten batch and sequence into a product's rows."""
+    return SH.constrain(h, ("batch", None, None), rules)
+
+
+def _cross_attention(p, h, enc_out, cfg, rules=None):
     """A ``dec`` block's cross-attention over the encoder's output ->
     (out, (xk, xv)).  The reference projects the encoder's K/V with no
     bk/bv (ROADMAP Queue 3)."""
     hx = L.apply_norm(p["lnx"], h, cfg.norm)
     xk = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wk"])
     xv = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wv"])
-    return L.gqa_attention(p["xattn"], hx, cfg, cross_kv=(xk, xv))
+    return L.gqa_attention(p["xattn"], hx, cfg, cross_kv=(xk, xv),
+                           rules=rules)
 
 
 def _cross_decode(p, h, cache, cfg):
@@ -201,22 +213,29 @@ def _cross_decode(p, h, cache, cfg):
     return torch.einsum("bshk,hkd->bsd", o, p["xattn"]["wo"])
 
 
-def _block_forward(kind, p, h, cfg, shared=None, enc_out=None):
+def _block_forward(kind, p, h, cfg, shared=None, enc_out=None, rules=None):
     """Full-sequence forward for one block -> (h, aux_loss, cache_out).
-    A ``dec`` block cross-attends to ``enc_out``."""
+    A ``dec`` block cross-attends to ``enc_out``.  Under ``rules`` the
+    residual stream leaves the block as ("batch", "seq", None)."""
+    h, aux, cache_out = _block_body(kind, p, h, cfg, shared, enc_out, rules)
+    return SH.constrain(h, ("batch", "seq", None), rules), aux, cache_out
+
+
+def _block_body(kind, p, h, cfg, shared, enc_out, rules):
     p = _maybe_dequant(p)
+    h = _whole_seq(h, rules)
     if kind == "zamba_group":
         states = []
         for pm in p["mambas"]:
             hn = L.apply_norm(pm["ln1"], h, cfg.norm)
-            y, st = SSM.mamba2_forward(pm["mamba"], hn, cfg)
+            y, st = SSM.mamba2_forward(pm["mamba"], hn, cfg, rules)
             states.append(st)
             h = h + y
         hn = L.apply_norm(shared["ln1"], h, cfg.norm)
-        a, (k, v) = L.gqa_attention(shared["attn"], hn, cfg)
+        a, (k, v) = L.gqa_attention(shared["attn"], hn, cfg, rules=rules)
         h = h + a
         hn = L.apply_norm(shared["ln2"], h, cfg.norm)
-        h = h + L.apply_mlp(shared["mlp"], hn, cfg)
+        h = h + L.apply_mlp(shared["mlp"], hn, cfg, rules)
         return h, 0.0, {"mamba": _tree_stack(states),
                         "attn": {"k": k, "v": v}}
     if kind == "xlstm_group":
@@ -224,36 +243,36 @@ def _block_forward(kind, p, h, cfg, shared=None, enc_out=None):
         for idx in XLSTM_ORDER:
             if idx is None:
                 hn = L.apply_norm(p["s"]["ln1"], h, cfg.norm)
-                y, s_state = XL.slstm_forward(p["s"]["cell"], hn, cfg)
+                y, s_state = XL.slstm_forward(p["s"]["cell"], hn, cfg, rules)
             else:
                 pm = p["m"][idx]
                 hn = L.apply_norm(pm["ln1"], h, cfg.norm)
-                y, (C, n) = XL.mlstm_forward(pm["cell"], hn, cfg)
+                y, (C, n) = XL.mlstm_forward(pm["cell"], hn, cfg, rules)
                 m_states.append({"C": C, "n": n})
             h = h + y
         return h, 0.0, {"m": _tree_stack(m_states),
                         "s": dict(zip(("h", "c", "n", "m"), s_state))}
     hn = L.apply_norm(p["ln1"], h, cfg.norm)
     if kind in MLA_KINDS:
-        a, (c_kv, k_rope) = L.mla_attention(p["attn"], hn, cfg)
+        a, (c_kv, k_rope) = L.mla_attention(p["attn"], hn, cfg, rules)
         cache_out = {"c": c_kv, "kr": k_rope}
     else:
         a, (k, v) = L.gqa_attention(p["attn"], hn, cfg,
-                                    causal=kind != "enc")
+                                    causal=kind != "enc", rules=rules)
         cache_out = {"k": k, "v": v}
     if cfg.parallel_block:
-        return h + a + L.apply_mlp(p["mlp"], hn, cfg), 0.0, cache_out
+        return h + a + L.apply_mlp(p["mlp"], hn, cfg, rules), 0.0, cache_out
     h = h + a
     if kind == "dec":
-        a, (xk, xv) = _cross_attention(p, h, enc_out, cfg)
+        a, (xk, xv) = _cross_attention(p, h, enc_out, cfg, rules)
         h = h + a
         cache_out.update(xk=xk, xv=xv)
     hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
     aux = 0.0
     if kind in MOE_KINDS:
-        m, aux = MOE.apply_moe(p["moe"], hn2, cfg)
+        m, aux = MOE.apply_moe(p["moe"], hn2, cfg, rules=rules)
     else:
-        m = L.apply_mlp(p["mlp"], hn2, cfg)
+        m = L.apply_mlp(p["mlp"], hn2, cfg, rules)
     return h + m, aux, cache_out
 
 
@@ -294,8 +313,16 @@ def _remat_block(remat: str):
     return block
 
 
+def _lookup_table(embed, rules):
+    """The embedding table as the lookup reads it: under ``rules`` whole
+    over the vocab (gathered from its ``vocab`` split), since DTensor's
+    vocab-parallel lookup leaves a masked partial sum that it cannot
+    reduce once the tokens are split on ``batch`` too."""
+    return SH.constrain(embed, (None, "fsdp"), rules)
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
-            collect_cache: bool = False, remat: str = "none"):
+            collect_cache: bool = False, remat: str = "none", rules=None):
     """Full-sequence forward -> (logits [B,S,V], aux_loss[, kv_stacks]).
 
     batch: tokens [B,S]; audio adds frames [B,enc_S,D]; vlm adds image
@@ -304,10 +331,13 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
     recurrent states (with a leading layer axis when the stage has
     several blocks) are returned for ``assemble_caches``.  ``remat``
     (``REMAT``) checkpoints each block as the reference's ``jax.checkpoint``
-    of its scan body does (``_remat_block``)."""
+    of its scan body does (``_remat_block``).  ``rules`` (``sharding.py``)
+    constrains the activations at the reference's sites; on plain tensors
+    it changes nothing."""
     block_forward = _remat_block(remat)
     params = _dequant_top(params)
-    h = F.embedding(batch["tokens"], params["embed"])
+    h = F.embedding(batch["tokens"], _lookup_table(params["embed"], rules))
+    h = SH.constrain(h, ("batch", "seq", None), rules)
     n_img = 0
     if cfg.family == "vlm" and "image_embeds" in batch:
         img = batch["image_embeds"].to(h.dtype) @ params["img_proj"]
@@ -326,17 +356,19 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, Any],
             enc_out, h = h, h_dec
         outs = []
         for p in blocks:
-            h, aux, out = block_forward(st.kind, p, h, cfg, shared, enc_out)
+            h, aux, out = block_forward(st.kind, p, h, cfg, shared, enc_out,
+                                        rules)
             aux_total = aux_total + aux
             if collect_cache:
                 outs.append(out)
         if collect_cache:
             kv_stacks.append(outs[0] if len(outs) == 1 else _tree_stack(outs))
-    h = L.apply_norm(params["final_norm"], h, cfg.norm)
+    h = L.apply_norm(params["final_norm"], _whole_seq(h, rules), cfg.norm)
     if n_img:
         h = h[:, n_img:]
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = torch.einsum("bsd,dv->bsv", h, head) * cfg.logit_scale
+    logits = SH.constrain(logits, ("batch", "seq", "vocab"), rules)
     if collect_cache:
         return logits, aux_total, kv_stacks
     return logits, aux_total
@@ -449,7 +481,7 @@ def _assign(dst, src) -> None:
         dst.copy_(src)
 
 
-def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
+def _block_decode(kind, p, h, cache, pos, cfg, shared=None, rules=None):
     """Single-token decode for one block.  h [B,1,D]; ``cache`` is the
     block's cache, updated in place."""
     p = _maybe_dequant(p)
@@ -464,7 +496,7 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
         a, _ = L.gqa_decode(shared["attn"], hn, cfg, cache["attn"], pos)
         h = h + a
         hn = L.apply_norm(shared["ln2"], h, cfg.norm)
-        return h + L.apply_mlp(shared["mlp"], hn, cfg)
+        return h + L.apply_mlp(shared["mlp"], hn, cfg, rules)
     if kind == "xlstm_group":
         for idx in XLSTM_ORDER:
             if idx is None:
@@ -485,21 +517,21 @@ def _block_decode(kind, p, h, cache, pos, cfg, shared=None):
     else:
         a, _ = L.gqa_decode(p["attn"], hn, cfg, cache, pos)
     if cfg.parallel_block:
-        return h + a + L.apply_mlp(p["mlp"], hn, cfg)
+        return h + a + L.apply_mlp(p["mlp"], hn, cfg, rules)
     h = h + a
     if kind == "dec":
         h = h + _cross_decode(p, h, cache, cfg)
     hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
     if kind in MOE_KINDS:
         return h + MOE.apply_moe(p["moe"], hn2, cfg)[0]
-    return h + L.apply_mlp(p["mlp"], hn2, cfg)
+    return h + L.apply_mlp(p["mlp"], hn2, cfg, rules)
 
 
-def decode_step(params, cfg: ModelConfig, tokens, pos, caches):
+def decode_step(params, cfg: ModelConfig, tokens, pos, caches, rules=None):
     """tokens [B], pos [B] -> (logits [B,V], caches).  The caches are
-    updated in place and returned."""
+    updated in place and returned; ``rules`` as in ``forward``."""
     params = _dequant_top(params)
-    h = F.embedding(tokens[:, None], params["embed"])
+    h = F.embedding(tokens[:, None], _lookup_table(params["embed"], rules))
     if cfg.family == "audio":
         h = h + params["dec_pos"][pos.long()][:, None].to(h.dtype)
     shared = params["shared"] if "shared" in params else None
@@ -508,11 +540,11 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, caches):
             continue
         for i, p in enumerate(blocks):
             layer = cache if st.n == 1 else _index(cache, i)
-            h = _block_decode(st.kind, p, h, layer, pos, cfg, shared)
+            h = _block_decode(st.kind, p, h, layer, pos, cfg, shared, rules)
     h = L.apply_norm(params["final_norm"], h, cfg.norm)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     logits = (h[:, 0] @ head) * cfg.logit_scale
-    return logits, caches
+    return SH.constrain(logits, ("batch", "vocab"), rules), caches
 
 
 def _pad_kv(kv, cache_len, window):
@@ -525,7 +557,7 @@ def _pad_kv(kv, cache_len, window):
     if W < S:   # F.pad would crop; the reference's jnp.pad raises
         raise ValueError(f"a cache of {W} slots is shorter than the {S} "
                          f"positions it must hold")
-    return F.pad(kv, (0, 0, 0, 0, 0, W - S))
+    return SH.pad(kv, (0, 0, 0, 0, 0, W - S))
 
 
 def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
@@ -553,7 +585,8 @@ def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
         elif st.kind == "xlstm_group":
             caches.append(kvs)
         elif st.kind in MLA_KINDS:   # [.., S, R] -> [.., W, R]
-            caches.append({name: F.pad(t, (0, 0, 0, cache_len - t.shape[-2]))
+            caches.append({name: SH.pad(t, (0, 0, 0,
+                                            cache_len - t.shape[-2]))
                            for name, t in kvs.items()})
         elif st.kind == "dec":
             caches.append(dict(kv_assemble(kvs["k"], kvs["v"]),
@@ -563,10 +596,11 @@ def assemble_caches(cfg: ModelConfig, kv_stacks, cache_len: int,
     return caches
 
 
-def prefill(params, cfg: ModelConfig, batch, cache_len: int):
+def prefill(params, cfg: ModelConfig, batch, cache_len: int, rules=None):
     """Full-sequence forward + populated decode caches ->
     (logits [B,S,V], caches)."""
-    logits, _aux, kv_stacks = forward(params, cfg, batch, collect_cache=True)
+    logits, _aux, kv_stacks = forward(params, cfg, batch, collect_cache=True,
+                                      rules=rules)
     S = batch["tokens"].shape[1]
     if cfg.family == "vlm" and "image_embeds" in batch:
         S += batch["image_embeds"].shape[1]   # the image prefix is cached

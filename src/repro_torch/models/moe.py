@@ -21,14 +21,14 @@ import torch.nn.functional as F
 
 from repro_torch import kernels as K
 from repro_torch.models.layers import ParamSpec
+from repro_torch.sharding import constrain, replicate
 
 
 def moe_schema(cfg):
     D = cfg.d_model
     m = cfg.moe
     E, F_ = m.num_experts, m.expert_d_ff
-    # the reference's axis labels for its expert-sharded layout; one card
-    # shards nothing, so only their count matters here
+    # the reference's axis labels for its expert-sharded layout
     s = {
         "router": ParamSpec((D, E), ("norm", "experts"), D ** -0.5, "float32"),
         "w1": ParamSpec((E, D, F_), ("experts", "expert_embed", None),
@@ -64,8 +64,12 @@ def route(p, xt, cfg):
     return gates, top_g, top_i
 
 
-def apply_moe(p, x, cfg, *, group_size: int = 0):
-    """x [B,S,D] -> (y [B,S,D], aux)."""
+def apply_moe(p, x, cfg, *, group_size: int = 0, rules=None):
+    """x [B,S,D] -> (y [B,S,D], aux).  Under ``rules`` the expert
+    products are pinned as the reference pins them: experts split (EP,
+    16 experts or more: tokens all-to-all to their experts), or the
+    dispatched rows split as the token groups are (``batch``) with the
+    expert FFN split over ``expert_ffn`` (per-expert TP)."""
     B, S, D = x.shape
     m = cfg.moe
     E, K_ = m.num_experts, m.top_k
@@ -88,14 +92,25 @@ def apply_moe(p, x, cfg, *, group_size: int = 0):
     dispatch = torch.einsum("ngke,ngkec->ngec", keep, slot)     # [n,g,E,C]
     combine = torch.einsum("ngke,ngk,ngkec->ngec", keep, top_g, slot)
 
+    if p["w1"].shape[0] >= 16:  # EP: experts split, groups whole
+        xe_ax = h_ax = ("experts", None, None)
+    else:            # per-expert TP: groups stay dp-split, expert ffn tp
+        xe_ax, h_ax = (None, "batch", None), (None, "batch", "expert_ffn")
+    cst = lambda t, ax: constrain(t, ax, rules)
     xe = torch.einsum("ngec,ngd->encd", dispatch.to(x.dtype), xt)
-    xe = xe.reshape(E, n * C, D)
-    h = F.silu(K.moe_gmm(xe, p["w1"])) * K.moe_gmm(xe, p["w3"])
-    ye = K.moe_gmm(h, p["w2"]).reshape(E, n, C, D)
+    xe = cst(xe.reshape(E, n * C, D), xe_ax)
+    h = cst(F.silu(K.moe_gmm(xe, p["w1"])) * K.moe_gmm(xe, p["w3"]), h_ax)
+    ye = cst(K.moe_gmm(h, p["w2"]), xe_ax).reshape(E, n, C, D)
+    # the combine sums over experts and slots: whole expert outputs (an
+    # all-gather under EP), since DTensor flattens a split expert dim into
+    # the product's inner dim only where it leads (the decode step, which
+    # passes no rules, too)
+    ye = replicate(ye)
     y = torch.einsum("encd,ngec->ngd", ye, combine.to(x.dtype))
 
     if "shared_w1" in p:
         hs = F.silu(xt @ p["shared_w1"]) * (xt @ p["shared_w3"])
+        hs = cst(hs, (None, None, "ffn"))
         y = y + hs @ p["shared_w2"]
 
     return y.reshape(B, S, D), _load_balance_loss(gates, top_i, E)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels as K
+from repro_torch import sharding as SH
 from repro_torch.models.layers import ParamSpec, apply_norm, norm_schema
 
 
@@ -58,28 +59,31 @@ def mamba2_schema(cfg):
 def _causal_conv(x, w, b):
     """Depthwise causal conv along S.  x [B,S,C]; w [K,C]."""
     Kw = w.shape[0]
-    pad = F.pad(x, (0, 0, Kw - 1, 0))
+    pad = SH.pad(x, (0, 0, Kw - 1, 0))
     out = sum(pad[:, i:i + x.shape[1], :] * w[i] for i in range(Kw))
     return F.silu(out + b)
 
 
-def _proj_all(p, x):
+def _proj_all(p, x, rules=None):
     """-> z [..,d_in], xs raw [..,d_in], BC raw [..,2N], dt [..,nh]."""
     z = x @ p["w_z"]
     xs = x @ p["w_x"]
     BC = torch.cat([x @ p["w_B"], x @ p["w_C"]], -1)
     dt = x @ p["w_dt"]
+    if rules is not None and x.ndim == 3:
+        z = SH.constrain(z, ("batch", None, "ssm_inner"), rules)
+        xs = SH.constrain(xs, ("batch", None, "ssm_inner"), rules)
     return z, xs, BC, dt
 
 
-def mamba2_forward(p, x, cfg):
+def mamba2_forward(p, x, cfg, rules=None):
     """x [B,S,D] -> (y [B,S,D], final state) via the chunked SSD kernel."""
     B, S, D = x.shape
     d_in, nh, P, N = mamba2_dims(cfg)
     Q = pick_chunk(S, cfg.ssm.chunk)
     nc = S // Q
 
-    z, xs_raw, BC_raw, dt = _proj_all(p, x)
+    z, xs_raw, BC_raw, dt = _proj_all(p, x, rules)
     Kw = cfg.ssm.conv_width
     conv_tail = {"x": xs_raw[:, -(Kw - 1):], "bc": BC_raw[:, -(Kw - 1):]}
     xs = _causal_conv(xs_raw, p["conv_x"], p["bias_x"]).reshape(B, S, nh, P)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from repro_torch import kernels as K
 from repro_torch.models.layers import ParamSpec, apply_norm, norm_schema
 from repro_torch.models.ssm import pick_chunk
+from repro_torch.sharding import constrain
 
 
 def mlstm_dims(cfg):
@@ -57,13 +58,16 @@ def _mlstm_qkvgates(p, x, cfg):
     return z, q, k, v, logf, logi
 
 
-def mlstm_forward(p, x, cfg):
+def mlstm_forward(p, x, cfg, rules=None):
     """Chunkwise mLSTM. x [B,S,D] -> ([B,S,D], (C [B,nh,dh,dh], n [B,nh,dh]))."""
     B, S, D = x.shape
     d_in, nh, dh = mlstm_dims(cfg)
     Q = pick_chunk(S, cfg.xlstm.chunk)
     nc = S // Q
     z, q, k, v, logf, logi = _mlstm_qkvgates(p, x, cfg)
+    if rules is not None:
+        q, k, v = (constrain(t, ("batch", None, None, None), rules)
+                   for t in (q, k, v))
     c = lambda t: t.reshape(B, nc, Q, *t.shape[2:]).contiguous()
     li = torch.clamp_max(c(logi), 8.0)               # bounded exp input gate
     cumf = torch.cumsum(c(logf), dim=2)              # [B,nc,Q,nh]  (<= 0)
@@ -143,18 +147,25 @@ def _slstm_out(p, y):
     return (F.silu(y @ p["ffn_w1"]) * (y @ p["ffn_w3"])) @ p["ffn_w2"]
 
 
-def slstm_forward(p, x, cfg):
-    """x [B,S,D] -> ([B,S,D], final (h, c, n, m)): a loop over time."""
+def slstm_forward(p, x, cfg, rules=None):
+    """x [B,S,D] -> ([B,S,D], final (h, c, n, m)): a loop over time.
+    Under ``rules`` the gates and the state are pinned to batch-only
+    sharding before the loop, as the reference pins them: one gather
+    outside the loop, none per step."""
     B, S, D = x.shape
     nh, dh = cfg.num_heads, D // cfg.num_heads
     xg = (x @ p["w_gates"]).float() + p["b_gates"]
+    xg = constrain(xg, ("batch", None, None), rules)
     carry = tuple(x.new_zeros(B, nh, dh, dtype=torch.float32)
                   for _ in range(4))
     hs = []
     for t in range(S):
         carry = _slstm_cell(p, xg[:, t], carry, cfg)
+        carry = tuple(constrain(t_, ("batch", None, None), rules)
+                      for t_ in carry)
         hs.append(carry[0])
     y = torch.stack(hs, 1).reshape(B, S, D).to(x.dtype)
+    y = constrain(y, ("batch", None, None), rules)
     return _slstm_out(p, y), carry
 
 

@@ -19,9 +19,12 @@ stacks each stage's blocks on a leading axis where the port keeps one
 tensor per block: ``to_reference_layout`` stacks a port tree into the
 reference's layout before a save and ``from_reference_layout`` splits it
 again after a restore, so a checkpoint that either package writes
-restores in the other.  Restoring onto the one device is what the
-reference's ``reshard_state`` does on a mesh of one; the elastic re-mesh
-waits for ``runtime/elastic.py`` (ROADMAP Queue 1, item 15).
+restores in the other.  A state of DTensors is saved whole (every rank
+gathers each leaf; the caller lets one rank write), and
+``restore_on_mesh`` places a restored state on any mesh through
+``runtime.elastic.reshard_state``: chunks hold whole logical arrays, so
+a checkpoint restores onto a mesh of another shape than it was saved
+from.
 """
 from __future__ import annotations
 
@@ -49,8 +52,11 @@ _chunk_bytes = metasync._pack_leaf
 
 
 def _host(x):
-    """A leaf as a host copy that later device work cannot change."""
+    """A leaf as a host copy that later device work cannot change (a
+    DTensor gathered whole first: a collective every rank must join)."""
     if isinstance(x, torch.Tensor):
+        if hasattr(x, "full_tensor"):
+            x = x.full_tensor()
         return x.detach().to("cpu", copy=True)
     return np.array(x, copy=True)
 
@@ -215,4 +221,20 @@ def from_reference_layout(cfg, tree, device="cuda"):
             for k, v in tree.items()}
 
 
-__all__ = ["CheckpointStore", "to_reference_layout", "from_reference_layout"]
+def restore_on_mesh(store: CheckpointStore, cfg, mesh, mode: str = "train",
+                    step: Optional[int] = None):
+    """-> (train state of DTensors on ``mesh``, manifest): the store's
+    checkpoint (written by either package, in the reference's layout)
+    placed by ``runtime.elastic.reshard_state`` under
+    ``rules_for(mode)``."""
+    from repro_torch.runtime.elastic import reshard_state
+    from repro_torch.training.steps import (abstract_train_state,
+                                            train_state_axes)
+    state_np, manifest = store.restore(
+        to_reference_layout(abstract_train_state(cfg), host=False), step)
+    return reshard_state(state_np, train_state_axes(cfg), mesh, mode,
+                         cfg=cfg), manifest
+
+
+__all__ = ["CheckpointStore", "to_reference_layout", "from_reference_layout",
+           "restore_on_mesh"]

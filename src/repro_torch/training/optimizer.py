@@ -1,8 +1,11 @@
 """AdamW with fp32 master weights.
 
 Counterpart of ``repro/training/optimizer.py``: the same schedule, state
-and update, on one device (the reference shards the state with the
-parameters' specs; the port has no mesh yet, ROADMAP Queue 1 item 15).
+and update.  The state may be DTensors sharded as the parameters are
+(``runtime.elastic.reshard_state``): every update runs on the local
+shards, and the grad norm that the clip reads sums the squares of every
+shard of every leaf (DTensor reduces the partial sums), never of this
+rank's shards alone.
 
 The state is ``{"step", "master", "m", "v"}``: an int32 step and three
 fp32 trees shaped like the port's parameter tree (nested dicts and lists
@@ -12,7 +15,10 @@ of tensors, ``layers.to_tree``).  Where the reference returns a new state,
 qwen2.5-3b's 3.09 B parameters the three trees hold 37 GB, and a second
 copy would not fit beside the activations on one 80 GB card.  The grads
 are read, never written.  Unlike the reference's, an update reads its
-grad norm, lr and step to the host once (one sync a step).
+grad norm, lr and step to the host once (one sync a step).  The update is
+four in-place ops per leaf, not ``torch._foreach_*``; on DTensors each op
+runs on the local shard, a grad whose placements differ from its leaf's
+being redistributed to them first (a ``Partial`` one reduced).
 """
 from __future__ import annotations
 
@@ -92,7 +98,10 @@ def adamw_update(cfg: AdamWConfig, state, grads):
     step = state["step"] + 1
     gnorm = global_norm(grads)
     lr_t = lr_at(cfg, step)
-    gn, lr, n = torch.stack([gnorm, lr_t, step.to(torch.float32)]).tolist()
+    scalars = torch.stack([gnorm, lr_t, step.to(torch.float32)])
+    if hasattr(scalars, "full_tensor"):     # a DTensor state
+        scalars = scalars.full_tensor()
+    gn, lr, n = scalars.tolist()
     s = min(1.0, cfg.grad_clip / max(gn, 1e-9))
     bc1, bc2 = 1 - cfg.b1 ** n, 1 - cfg.b2 ** n
     for p, g, m, v in zip(pytree.tree_leaves(state["master"]),

@@ -4,9 +4,20 @@ k-step decode.
 Counterpart of ``repro/training/steps.py``.  The reference jits these; the
 port runs them eagerly, so the fused decode's ``lax.scan`` over k is a
 Python loop here.  Every step keeps its outputs on the device of its
-inputs: nothing is read back to the host inside a step.  The reference's
-``rules`` (sharding) argument waits for ``sharding.py`` (ROADMAP Queue 1,
-item 15) and is dropped.
+inputs: nothing is read back to the host inside a step.
+
+Every factory takes the reference's ``rules`` (``sharding.rules_for``) as
+a keyword.  With ``rules=None``, or on plain tensors, a step runs on
+plain tensors alone.  With rules and params (or a train state, or
+caches) that are DTensors, placed by ``sharding.shardings_for`` /
+``runtime.elastic.reshard_state``, the step runs under their mesh
+(``sharding.set_mesh``):
+the batch, tokens and positions, which every rank holds whole, become
+DTensors split on ``batch``, the model constrains its activations at the
+reference's sites, every custom op runs its kernel on the local shards
+(its registered sharding strategy), and the step returns its metrics,
+tokens and logits as whole plain tensors, while the state and the caches
+stay DTensors.
 
 A train step differentiates the loss with ``torch.autograd`` through the
 custom ops' registered backwards: on the card ``rmsnorm``,
@@ -18,15 +29,36 @@ PyTorch around ``moe_gmm``).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch import sharding as SH
 from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
+
+
+def _mesh_scope(tree, rules):
+    """(mesh, context): the mesh of ``tree``'s DTensors under ``rules``
+    and ``set_mesh`` of it, or (None, a no-op context)."""
+    mesh = SH.mesh_of(tree) if rules is not None else None
+    return mesh, (SH.set_mesh(mesh) if mesh is not None
+                  else contextlib.nullcontext())
+
+
+def _placed(tree, mesh, rules):
+    """The plain tensors of a batch (or tokens, positions) on the mesh."""
+    if mesh is None:
+        return tree
+    return pytree.tree_map(lambda t: SH.to_mesh(t, mesh, rules), tree)
+
+
+def _plain(tree, mesh):
+    return tree if mesh is None else SH.to_plain(tree)
 
 
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
@@ -43,7 +75,7 @@ def cross_entropy(logits, labels, z_loss: float = 1e-4):
 
 
 def make_loss_fn(cfg: ModelConfig, remat: str = "full",
-                 aux_coef: float = 0.01):
+                 aux_coef: float = 0.01, *, rules=None):
     """loss_fn(master, batch) -> (loss, {"ce", "aux"}): the fp32 master
     leaves of more than one dim are cast to ``cfg.dtype`` (norm scales and
     biases stay fp32, as in the reference)."""
@@ -53,7 +85,11 @@ def make_loss_fn(cfg: ModelConfig, remat: str = "full",
         params = pytree.tree_map(
             lambda p: p.to(dt) if p.dtype == torch.float32 and p.ndim > 1
             else p, master_params)
-        logits, aux = M.forward(params, cfg, batch, remat=remat)
+        logits, aux = M.forward(params, cfg, batch, remat=remat, rules=rules)
+        # the gold logit's gather over a vocab split leaves DTensor a
+        # masked partial sum it cannot reduce once the labels are split
+        # on batch too: the CE reads whole rows of the vocab
+        logits = SH.constrain(logits, ("batch", "seq", None), rules)
         ce = cross_entropy(logits, batch["labels"])
         aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
         loss = ce + aux_coef * aux
@@ -63,15 +99,22 @@ def make_loss_fn(cfg: ModelConfig, remat: str = "full",
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
                     remat: str = "full",
-                    grad_transform: Optional[Callable] = None):
+                    grad_transform: Optional[Callable] = None, *,
+                    rules=None):
     """train_step(state, batch) -> (state', metrics): value and grad of
     the loss over ``state["master"]``, the optional ``grad_transform``
     (e.g. int8 error feedback, whose buffer rides in ``state["ef"]``),
     then AdamW, which updates the state's tensors in place
     (``optimizer.py``)."""
-    loss_fn = make_loss_fn(cfg, remat)
+    loss_fn = make_loss_fn(cfg, remat, rules=rules)
 
     def train_step(state, batch):
+        mesh, scope = _mesh_scope(state["master"], rules)
+        with scope:
+            new_state, metrics = _step(state, _placed(batch, mesh, rules))
+        return new_state, _plain(metrics, mesh)
+
+    def _step(state, batch):
         flat, spec = pytree.tree_flatten(state["master"])
         leaves = [p.detach().requires_grad_() for p in flat]
         with torch.enable_grad():
@@ -91,60 +134,82 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig = AdamWConfig(),
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int):
+def make_prefill_step(cfg: ModelConfig, cache_len: int, *, rules=None):
     def prefill_step(params, batch):
-        logits, caches = M.prefill(params, cfg, batch, cache_len)
-        last = logits[:, -1]
-        next_tok = last.argmax(-1).to(torch.int32)
-        return {"next_tokens": next_tok, "last_logits": last}, caches
+        mesh, scope = _mesh_scope(params, rules)
+        with scope:
+            logits, caches = M.prefill(params, cfg,
+                                       _placed(batch, mesh, rules),
+                                       cache_len, rules=rules)
+            last = logits[:, -1]
+            next_tok = last.argmax(-1).to(torch.int32)
+            out = {"next_tokens": next_tok, "last_logits": last}
+        return _plain(out, mesh), caches
     return prefill_step
 
 
-def make_batched_prefill_step(cfg: ModelConfig, cache_len: int):
+def make_batched_prefill_step(cfg: ModelConfig, cache_len: int, *,
+                              rules=None):
     """Grouped-admission prefill (serving): right-padded prompts share ONE
     dispatch; each row's next token is read at its true last position
     (causal attention makes it independent of the padding).  Sound for
     attention families because decode masks cache rows >= pos."""
     def batched_prefill_step(params, tokens, lengths):
-        logits, caches = M.prefill(params, cfg, {"tokens": tokens}, cache_len)
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
-        last = logits[rows, lengths.long() - 1]
-        next_tok = last.argmax(-1).to(torch.int32)
-        return {"next_tokens": next_tok, "last_logits": last}, caches
+        mesh, scope = _mesh_scope(params, rules)
+        with scope:
+            logits, caches = M.prefill(
+                params, cfg, {"tokens": _placed(tokens, mesh, rules)},
+                cache_len, rules=rules)
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+            last = logits[rows, lengths.long() - 1]
+            next_tok = last.argmax(-1).to(torch.int32)
+            out = {"next_tokens": next_tok, "last_logits": last}
+        return _plain(out, mesh), caches
     return batched_prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, sample: str = "greedy"):
+def make_decode_step(cfg: ModelConfig, sample: str = "greedy", *,
+                     rules=None):
     """One decode step -> (next tokens, logits, caches); greedy, as the
     reference (its ``sample`` takes no other value)."""
     if sample != "greedy":
         raise ValueError(f"sample {sample!r}: only 'greedy' is defined")
 
     def decode_step(params, tokens, pos, caches):
-        logits, caches = M.decode_step(params, cfg, tokens, pos, caches)
-        next_tok = logits.argmax(-1).to(torch.int32)
-        return next_tok, logits, caches
+        mesh, scope = _mesh_scope(params, rules)
+        with scope:
+            logits, caches = M.decode_step(
+                params, cfg, *_placed((tokens, pos), mesh, rules), caches,
+                rules=rules)
+            next_tok = logits.argmax(-1).to(torch.int32)
+        return (*_plain((next_tok, logits), mesh), caches)
     return decode_step
 
 
-def make_fused_decode_step(cfg: ModelConfig, k: int, eos_id: int = 2):
+def make_fused_decode_step(cfg: ModelConfig, k: int, eos_id: int = 2, *,
+                           rules=None):
     """Deferral: k decode steps per host dispatch (the paper's batched
     register-access commit).  The EOS 'poll' runs on the device: finished
     rows are frozen (token and position held) and the host receives one
     commit with (tokens [B,k], pos, done)."""
     def fused(params, tokens, pos, caches):
-        done = torch.zeros(tokens.shape, dtype=torch.bool,
-                           device=tokens.device)
-        seq = []
-        for _ in range(k):
-            logits, caches = M.decode_step(params, cfg, tokens, pos, caches)
-            nxt = logits.argmax(-1).to(torch.int32)
-            nxt = torch.where(done, tokens, nxt)       # freeze finished seqs
-            done = done | (nxt == eos_id)
-            pos = torch.where(done, pos, pos + 1)
-            tokens = nxt
-            seq.append(nxt)
-        return {"tokens": torch.stack(seq, 1), "pos": pos, "done": done}, caches
+        mesh, scope = _mesh_scope(params, rules)
+        with scope:
+            tokens, pos = _placed((tokens, pos), mesh, rules)
+            done = torch.zeros(tokens.shape, dtype=torch.bool,
+                               device=tokens.device)
+            seq = []
+            for _ in range(k):
+                logits, caches = M.decode_step(params, cfg, tokens, pos,
+                                               caches, rules=rules)
+                nxt = logits.argmax(-1).to(torch.int32)
+                nxt = torch.where(done, tokens, nxt)   # freeze finished seqs
+                done = done | (nxt == eos_id)
+                pos = torch.where(done, pos, pos + 1)
+                tokens = nxt
+                seq.append(nxt)
+            out = {"tokens": torch.stack(seq, 1), "pos": pos, "done": done}
+        return _plain(out, mesh), caches
     return fused
 
 

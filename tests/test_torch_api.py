@@ -299,11 +299,14 @@ def test_attest_launcher_emits_a_bundle_that_verifies_offline(tmp_path):
     assert attest.main(["--verify", path]) == 0
 
 
-@pytest.mark.parametrize("name", ["quickstart", "secure_inference"])
+@pytest.mark.parametrize("name", ["quickstart", "secure_inference",
+                                  "serve_continuous_batching"])
 def test_ported_examples_run(name, capsys):
     import importlib
     importlib.import_module(f"repro_torch.examples.{name}").main(
         ["--device", "cpu"])
     out = capsys.readouterr().out
-    assert ("served from verified recordings" in out
-            if name == "quickstart" else "inclusion proof ok" in out)
+    assert {"quickstart": "served from verified recordings",
+            "secure_inference": "inclusion proof ok",
+            "serve_continuous_batching":
+            "outputs identical under speculation: True"}[name] in out

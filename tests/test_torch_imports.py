@@ -44,6 +44,9 @@ def test_import_loads_no_jax():
             "repro_torch.obs.schema", "repro_torch.launch.attest",
             "repro_torch.examples.quickstart",
             "repro_torch.examples.secure_inference",
+            "repro_torch.examples.serve_continuous_batching",
+            "repro_torch.sharding", "repro_torch.launch.mesh",
+            "repro_torch.runtime.elastic", "repro_torch.kernels._sharding",
             "repro_torch.fleet", "repro_torch.fleet.traffic",
             "repro_torch.fleet.balancer", "repro_torch.fleet.pool",
             "repro_torch.launch.fleet", "repro_torch.launch.fanout",
@@ -61,6 +64,8 @@ def test_import_loads_no_jax():
             "             or m == 'repro' or m.startswith('repro.')\n"
             "             or m == 'msgpack' or m.startswith('msgpack.'))\n"
             "assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
             "print(len(sys.modules))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
@@ -77,7 +82,9 @@ def test_import_loads_no_jax():
     ("repro_torch.launch.fleet", "repro_torch.launch.fanout",
      "repro_torch.launch.trace"),
     ("repro_torch.launch.train", "repro_torch.training.grad_compress",
-     "repro_torch.runtime.straggler")],
+     "repro_torch.runtime.straggler"),
+    ("repro_torch.sharding", "repro_torch.launch.mesh",
+     "repro_torch.runtime.elastic")],
     ids=lambda m: m[0].removeprefix("repro_torch."))
 def test_recording_session_modules_load_no_jax_or_msgpack(mods):
     """The CODY session's modules alone: metastate sync frames through
@@ -87,6 +94,27 @@ def test_recording_session_modules_load_no_jax_or_msgpack(mods):
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "             ('jax', 'jaxlib', 'msgpack', 'repro'))\n"
             "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("mods", [
+    ("repro_torch",), ("repro_torch.sharding", "repro_torch.launch.mesh",
+                       "repro_torch.runtime.elastic",
+                       "repro_torch.kernels")],
+    ids=["package", "sharding"])
+def test_import_starts_no_process_group(mods):
+    """Importing the port, its sharding modules or its kernels starts no
+    process group (a mesh is made only when asked for), and the kernels
+    do not load ``torch.distributed.tensor`` until a mesh or a placement
+    registers their sharding strategies."""
+    code = (f"import importlib, sys\nfor m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "assert 'torch.distributed.tensor' not in sys.modules\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
