@@ -243,7 +243,22 @@ Phases, each of which raises (exit code != 0) when it fails:
            replayed on the warmed fast path (a CUDA graph), timed
            interleaved, best of 7 x 30 calls; every row must hold
            replay_not_slower_than_native at the bench's 5%.  Nothing is
-           written to BENCH_replay.json.
+           written to BENCH_replay.json;
+  dryrun   the dry run and the cost analysis (``analysis/``): (a)
+           ``python -m repro_torch.launch.dryrun`` in two subprocesses
+           over fake process groups, qwen2.5-3b at full width and
+           ``DRYRUN_LAYERS`` layer(s), train_4k on 2 x 16 x 16 and
+           decode_32k on 16 x 16 (fake CUDA tensors: nothing allocated),
+           each cell's line printed and its status ``ok``; (b) the
+           qwen2.5-3b prefill at full depth, 4 requests of 512 tokens, run
+           for real on the card: ``analysis.cost.trace``'s roofline (the
+           "fused" byte count; the "eager" one beside it) against the
+           step's device busy time, which must be at least 0.95 of the
+           roofline's step time, and its analysed temp + out bytes
+           against ``max_memory_allocated`` less ``memory_allocated``
+           (within 10%); (c) every kernel row of phase kernels in the same
+           call: ``analysis/cost.py``'s formula of its custom op, run on
+           the row's inputs, must give the row's bytes and operations.
 
 The line before the last is a JSON summary of the kernels (the backward
 kernels with their launches in phase train, the decode kernel's int8 form
@@ -273,7 +288,7 @@ from typing import NamedTuple
 ROOT = Path(__file__).resolve().parent
 PHASES = ("gpu", "build", "kernels", "train", "mesh", "parity", "serve",
           "prefill", "profile", "replay", "int8", "registry", "fleet",
-          "session", "families", "native")
+          "session", "families", "native", "dryrun")
 
 # NVIDIA H100 SXM data sheet (dense): HBM bytes/s and peak ops/s by type
 PEAK_BYTES_S = 3.35e12
@@ -500,6 +515,8 @@ def phase_kernels(state):
             f"{MEDIAN_OF}")
         row = dict(case=case, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        state.setdefault("kernel_costs", []).append(_formula_of(
+            kernel, case, run, args_list[0], nbytes, ops, dname))
         if main:
             rows[kernel] = row
         return row
@@ -572,6 +589,25 @@ def phase_kernels(state):
     _scan_kernels(randn, record, _scan_times(randn, state))
     _moe_kernels(randn, record, tols)
     torch.cuda.synchronize()
+
+
+def _formula_of(kernel, case, run, args, nbytes, ops, dname):
+    """What ``analysis/cost.py``'s formula counts for one call of ``run``
+    on a kernel row's inputs (its custom ops' bytes and operations by
+    dtype) beside the row's own ``nbytes`` / ``ops``, for phase dryrun."""
+    import torch
+    from repro_torch.analysis import cost as C
+    want_ops = ops if isinstance(ops, dict) else {dname: ops}
+    try:
+        c = C.analyze(run, args)
+        torch.cuda.synchronize()
+        got = (sum(v["bytes"] for v in c["custom_ops"].values()),
+               c["flops_by_dtype"], sorted(c["custom_ops"]))
+    except Exception as e:   # reported by phase dryrun, not here
+        got = (None, None, f"{type(e).__name__}: {e}")
+    return dict(kernel=kernel, case=case, want_bytes=nbytes,
+                want_ops={k: float(v) for k, v in want_ops.items()},
+                got_bytes=got[0], got_ops=got[1], ops_seen=got[2])
 
 
 class FlashRow(NamedTuple):
@@ -5138,6 +5174,153 @@ def mesh_checks(card):
 
 def phase_mesh(state):
     state["mesh_times"] = mesh_checks(_card(state))
+
+
+# ------------------------------------------------------------- dryrun --
+DRYRUN_CELLS = (("train_4k", "multi"), ("decode_32k", "single"))
+DRYRUN_LAYERS = 1          # the dry run's qwen2.5-3b: full width, 1 layer
+DRYRUN_PREFILL = (4, 512)  # (b): requests x tokens of the real prefill
+
+
+def _dryrun_cells(out_dir):
+    """(a): one ``launch.dryrun`` subprocess a cell, started together."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for shape, mesh in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", "qwen2.5-3b", "--shape", shape, "--mesh", mesh,
+               "--layers", str(DRYRUN_LAYERS), "--out", str(out_dir)]
+        procs.append((shape, mesh, subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _dryrun_prefill(state):
+    """(b): the roofline of a real qwen2.5-3b prefill against its device
+    busy time and its peak memory."""
+    import torch
+    from repro_torch.analysis import cost as C
+    from repro_torch.analysis import roofline as RF
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as ST
+    cfg = get_config("qwen2.5-3b")
+    B, S = DRYRUN_PREFILL
+    params = Lyr.to_tree(M.init_params(cfg, seed=0, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     device="cuda", dtype=torch.int32,
+                                     generator=gen)}
+    fn = ST.make_prefill_step(cfg, cache_len=S)
+    fn(params, batch)                # warm: cuBLAS handles and workspaces
+    torch.cuda.synchronize()
+    tr = C.trace(fn, (params, batch), mode="fused")
+    torch.cuda.synchronize()
+    fused, eager = (tr.costs[m].as_dict() for m in ("fused", "eager"))
+    analysed = tr.peak_bytes - tr.fresh_out_bytes + C.tree_bytes(tr.out)
+    tr = None
+    mf = RF.analytic_model_flops(cfg, "prefill", B, S)
+    roof = RF.from_hlo(fused, mf, 1)
+    roof_eager = RF.from_hlo(eager, mf, 1)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn(params, batch)
+    torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - before
+    del out
+    wall, busy, _ = _timed(f"dryrun: qwen2.5-3b prefill {B} x {S} "
+                           f"({cfg.num_layers} layers)",
+                           lambda: fn(params, batch))
+    share = roof.step_time * 1e3 / busy
+    log(f"dryrun: prefill {B} x {S} roofline (fused bytes): step "
+        f"{roof.step_time * 1e3:.4f} ms = max(compute "
+        f"{roof.t_compute * 1e3:.4f}, memory {roof.t_memory * 1e3:.4f}) ms, "
+        f"{roof.dominant}; flops {fused['flops']:.6g} "
+        f"{ {k: float(v) for k, v in fused['flops_by_dtype'].items()} }, "
+        f"bytes fused {fused['hbm_bytes']:.6g}, eager "
+        f"{eager['hbm_bytes']:.6g} (memory "
+        f"{roof_eager.t_memory * 1e3:.4f} ms); measured device busy "
+        f"{busy:.4f} ms, wall {wall:.4f} ms: roofline / busy {share:.4f} "
+        f"({_card(state)})")
+    log(f"dryrun: prefill {B} x {S} memory: analysed temp + out "
+        f"{analysed} bytes, measured max_memory_allocated - "
+        f"memory_allocated {measured} bytes "
+        f"(ratio {analysed / measured:.4f})")
+    state["dryrun_prefill"] = dict(roofline=roof.as_dict(), busy_ms=busy,
+                                   analysed_bytes=analysed,
+                                   measured_bytes=measured)
+    if busy < 0.95 * roof.step_time * 1e3:
+        raise RuntimeError(f"dryrun: device busy {busy:.4f} ms is below 0.95 "
+                           f"of the roofline's {roof.step_time * 1e3:.4f} ms:"
+                           " a count is too high")
+    if abs(analysed - measured) > 0.10 * measured:
+        raise RuntimeError(f"dryrun: analysed temp + out {analysed} bytes "
+                           f"is more than 10% from the measured {measured}")
+
+
+def _dryrun_formulas(state):
+    """(c): each kernel row's bytes and operations against cost.py's."""
+    rows = state.get("kernel_costs", [])
+    if not rows:
+        log("dryrun: no kernel rows in this call (phase kernels did not "
+            "run): formulas not checked")
+        return
+    bad = []
+    for r in rows:
+        same = r["got_bytes"] == r["want_bytes"] and r["got_ops"] is not \
+            None and set(r["got_ops"]) == set(r["want_ops"]) and all(
+                math.isclose(r["got_ops"][k], v, rel_tol=1e-12)
+                for k, v in r["want_ops"].items())
+        if not same:
+            bad.append(r)
+            log(f"dryrun: formula differs: {r}")
+    log(f"dryrun: cost.py's formulas equal {len(rows) - len(bad)} of "
+        f"{len(rows)} kernel rows' bytes and operations")
+    if bad:
+        raise RuntimeError(f"dryrun: {len(bad)} kernel rows differ from "
+                           f"cost.py's formulas")
+
+
+def phase_dryrun(state):
+    import tempfile
+    out_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    t0 = time.perf_counter()
+    procs = _dryrun_cells(out_dir)
+    try:
+        _dryrun_prefill(state)
+        _dryrun_formulas(state)
+        log(f"dryrun: (b) and (c) in {time.perf_counter() - t0:.1f} s")
+        for shape, mesh, p in procs:
+            stdout, stderr = p.communicate(timeout=600)
+            log(f"dryrun: (a) {shape} on {mesh} ended at "
+                f"{time.perf_counter() - t0:.1f} s")
+            for line in stdout.splitlines():
+                log(f"dryrun: {line}")
+            if p.returncode != 0:
+                raise RuntimeError(f"dryrun: {shape} on {mesh} exited "
+                                   f"{p.returncode}: {stderr[-3000:]}")
+            mesh_name = "2x16x16" if mesh == "multi" else "16x16"
+            rec = json.loads((out_dir / f"qwen2.5-3b_{shape}_{mesh_name}"
+                              ".json").read_text())
+            if rec["status"] != "ok":
+                raise RuntimeError(f"dryrun: {shape} on {mesh_name}: "
+                                   f"{rec.get('error')}")
+            log(f"dryrun: {shape} {mesh_name}: per rank flops "
+                f"{rec['hlo']['flops']:.6g}, HBM bytes "
+                f"{rec['hlo']['hbm_bytes']:.6g}, wire bytes "
+                f"{rec['hlo']['coll_bytes']:.6g}, memory "
+                f"{rec['bytes_per_device']} bytes, trace "
+                f"{rec['t_lower_s']} s; roofline {rec['roofline']}")
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def main(argv=None) -> int:

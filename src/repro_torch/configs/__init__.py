@@ -3,7 +3,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.common import smoke_shrink
+from repro_torch.configs.common import (SHAPES, ShapeCell, cell_applicable,
+                                        input_specs, smoke_shrink)
 
 _MODULES = {
     "command-r-35b": "command_r_35b",
@@ -27,4 +28,5 @@ def get_config(name: str):
     return mod.CONFIG
 
 
-__all__ = ["ARCHS", "get_config", "smoke_shrink"]
+__all__ = ["ARCHS", "get_config", "SHAPES", "ShapeCell", "cell_applicable",
+           "input_specs", "smoke_shrink"]

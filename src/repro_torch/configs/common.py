@@ -1,14 +1,88 @@
-"""Config helpers shared by the port's tests and launchers.
+"""Assigned input shapes, abstract input specs for every (arch x shape)
+cell, and the smoke shrink shared by the port's tests and launchers.
 
-``smoke_shrink`` is a copy of the reference's (``repro.configs.common``);
-the reference's ``input_specs`` builds JAX abstract values and has no
-counterpart here.
+Counterpart of ``repro.configs.common``: ``ShapeCell``, ``SHAPES``,
+``cell_applicable`` and ``smoke_shrink`` are the reference's; its
+``input_specs`` builds ``jax.ShapeDtypeStruct`` stand-ins, the port's
+builds meta tensors (as ``models/model.py:abstract_params`` does), with
+the decode caches from ``init_cache(..., device="meta")``.
+
+Shapes (per assignment; identical across the 10 LM-family archs):
+    train_4k     seq 4,096   global_batch 256   -> train_step
+    prefill_32k  seq 32,768  global_batch 32    -> serve prefill
+    decode_32k   seq 32,768  global_batch 128   -> serve decode (1 tok)
+    long_500k    seq 524,288 global_batch 1     -> serve decode; sub-quadratic
+                                                   archs only
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq: int
+    batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: str) -> Optional[str]:
+    """None if runnable, else a skip reason."""
+    if shape == "long_500k" and not cfg.is_subquadratic():
+        return "pure full-attention arch: 500k context requires sub-quadratic attention"
+    return None
+
+
+def _tok(*shape):
+    return torch.empty(shape, dtype=torch.int32, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: str,
+                batch_override: int = 0, seq_override: int = 0) -> Dict:
+    """Meta-tensor stand-ins for every model input (no allocation)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cell = SHAPES[shape]
+    B = batch_override or cell.batch
+    S = seq_override or cell.seq
+    bf = L.torch_dtype(cfg.dtype)
+
+    if cell.kind in ("train", "prefill"):
+        batch = {"tokens": _tok(B, S), "labels": _tok(B, S)}
+        if cfg.family == "audio":
+            batch["frames"] = torch.empty(
+                (B, cfg.encdec.encoder_seq, cfg.d_model), dtype=bf,
+                device="meta")
+        if cfg.family == "vlm":
+            batch["image_embeds"] = torch.empty(
+                (B, cfg.vlm.num_image_tokens, cfg.d_model), dtype=bf,
+                device="meta")
+        if cell.kind == "prefill":
+            batch.pop("labels")
+        return batch
+
+    # decode: one new token against a cache of length S
+    enc_S = cfg.encdec.encoder_seq if cfg.family == "audio" else 0
+    caches = M.init_cache(cfg, B, S, enc_S=enc_S, device="meta")
+    return {
+        "tokens": _tok(B),
+        "pos": _tok(B),
+        "caches": caches,
+    }
 
 
 def smoke_shrink(cfg: ModelConfig, **over) -> ModelConfig:

@@ -115,6 +115,15 @@ def _out_bytes(ep) -> int:
                if spec.kind == OutputKind.USER_OUTPUT)
 
 
+def _program_cost(ep) -> dict:
+    """{"flops", "bytes accessed", "flops_by_dtype"} of an exported step
+    (``analysis.cost.analyze_exported``, eager byte count)."""
+    from repro_torch.analysis.cost import analyze_exported
+    c = analyze_exported(ep)
+    return {"flops": c["flops"], "bytes accessed": c["hbm_bytes"],
+            "flops_by_dtype": c["flops_by_dtype"]}
+
+
 def compile_artifact(name: str, fn, args: Sequence[Any], *,
                      donate_argnums=(), config_fingerprint: str = "",
                      static_meta: Optional[dict] = None,
@@ -159,7 +168,10 @@ def compile_artifact(name: str, fn, args: Sequence[Any], *,
         "donate": list(donate_argnums),
         "inputs": [{"shape": list(getattr(a, "shape", ())),
                     "dtype": dtype_name(a)} for a in flat],
-        "cost": {},
+        # the program's own cost, counted from the exported graph (the
+        # reference writes XLA's cost analysis here): the keys
+        # roofline.from_recording_manifest reads
+        "cost": _program_cost(ep),
         # temp_bytes stays null: PyTorch runs the program eagerly, so no
         # compiler plans its intermediates the way XLA's memory analysis
         # reports them; what a replay holds at its peak shows only on the

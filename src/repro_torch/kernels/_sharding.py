@@ -75,7 +75,40 @@ def register() -> None:
         register_sharding(getattr(torch.ops.repro_torch, name).default)(fn)
     for name in ATEN_ELEMENTWISE:
         register_sharding(getattr(torch.ops.aten, name).default)(_elementwise)
+    # torch 2.11 has no strategy for these (cumsum's backward flips; a
+    # sliding window's prefill rolls its ring cache)
+    for op, fn in ((torch.ops.aten.flip.default, _flip),
+                   (torch.ops.aten.roll.default, _roll)):
+        if not _has_strategy(op):
+            register_sharding(op)(fn)
     _done = True
+
+
+def _has_strategy(op) -> bool:
+    from torch.distributed.tensor import DTensor
+    prop = DTensor._op_dispatcher.sharding_propagator
+    return any(op in getattr(prop, table, {}) for table in (
+        "op_strategy_funcs", "op_to_rules",
+        "op_single_dim_strategy_funcs"))
+
+
+def _kept_dims(x, moved, *args):
+    """Rows splitting ``x`` and the output alike on any dim not in
+    ``moved`` (the flipped or rolled dims), then the replicate row."""
+    S, _, _ = placement_types()
+    moved = {d % x.ndim for d in moved}
+    return [([S(d)], [S(d)] + [None] * len(args)) for d in range(x.ndim)
+            if d not in moved] + [replicated(1, (x,) + args)]
+
+
+def _flip(x, dims):
+    return _kept_dims(x, dims, dims)
+
+
+def _roll(x, shifts, *dims):
+    """``dims`` as the op was called (absent: the default ``[]``, a roll
+    of the flattened tensor, which no split keeps)."""
+    return _kept_dims(x, (dims and dims[0]) or range(x.ndim), shifts, *dims)
 
 
 def _elementwise(*args):

@@ -22,7 +22,7 @@ from torch import nn
 
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import masked_softmax
-from repro_torch.sharding import constrain, is_dtensor
+from repro_torch.sharding import constrain, grad_like, is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,10 +211,43 @@ def gqa_schema(cfg):
     return s
 
 
+def head_proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)``.  Under DTensor a weight whose
+    heads no mesh dim splits (kv_heads 2 over a model axis of 16, or
+    rules that split no heads) is gathered whole and the product runs on
+    each rank's rows of ``x`` (``_local_proj``): DTensor would split the
+    product's columns (h·k) over such a mesh dim and could not unflatten
+    them into heads."""
+    if is_dtensor(w) and not any(p.is_shard(1) for p in w.placements):
+        return _local_proj("bsd,dhk->bshk", x, w,
+                           tuple(x.shape[:2]) + tuple(w.shape[1:]))
+    return torch.einsum("bsd,dhk->bshk", x, w)
+
+
+def out_proj(o, w):
+    """``einsum("bshk,hkd->bsd", o, w)``; under DTensor with ``w``'s
+    heads split by no mesh dim, on each rank's rows (``head_proj``)."""
+    if is_dtensor(w) and not any(p.is_shard(0) for p in w.placements):
+        return _local_proj("bshk,hkd->bsd", o, w,
+                           tuple(o.shape[:2]) + tuple(w.shape[2:]))
+    return torch.einsum("bshk,hkd->bsd", o, w)
+
+
+def _local_proj(eq, x, w, shape):
+    """``einsum(eq, x, w)`` on local shards: ``x`` keeps its batch and
+    sequence splits (any other split, or a partial sum, is resolved
+    first), ``w`` is whole on every rank, and the output is split as
+    ``x``'s rows (``sharding.rows_local``)."""
+    from repro_torch import sharding as SH
+    xl, pl = SH.rows_local(x)
+    return SH.from_rows(torch.einsum(eq, xl, SH.whole_local(w, pl)),
+                        w.device_mesh, pl, shape)
+
+
 def gqa_qkv(p, x, cfg, pos):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = head_proj(x, p["wq"])
+    k = head_proj(x, p["wk"])
+    v = head_proj(x, p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.rope_theta:
@@ -232,7 +265,7 @@ def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None, rules=None):
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None]
     if cross_kv is not None:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        q = head_proj(x, p["wq"])
         if "bq" in p:
             q = q + p["bq"]
         k, v = cross_kv
@@ -241,7 +274,7 @@ def gqa_attention(p, x, cfg, *, causal=True, cross_kv=None, rules=None):
         q, k, v = gqa_qkv(p, x, cfg, pos)
     o = chunked_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                           rules=rules)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (k, v)
+    return out_proj(o, p["wo"]), (k, v)
 
 
 def kv_quantize(t):
@@ -312,7 +345,7 @@ def gqa_decode(p, x, cfg, cache, pos):
         write_slots(cache["v"], bidx, slot, v[:, 0])
         o = decode_attention(q, cache["k"], cache["v"], pos,
                              window=cfg.sliding_window)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+    return out_proj(o, p["wo"]), cache
 
 
 # ------------------------------------------------------------------ MLA ----
@@ -339,7 +372,7 @@ def mla_schema(cfg):
 def _mla_latent(p, x, cfg, pos):
     """x [B,S,D] -> (normed latent c_kv [B,S,R], roped k_rope [B,S,rope])."""
     R = cfg.mla.kv_lora_rank
-    ckr = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    ckr = grad_like(torch.einsum("bsd,dr->bsr", x, p["w_dkv"]))
     c_kv = apply_norm(p["kv_norm"], ckr[..., :R].contiguous())
     k_rope = rope(ckr[..., R:][:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
     return c_kv, k_rope
@@ -347,7 +380,7 @@ def _mla_latent(p, x, cfg, pos):
 
 def _mla_q(p, x, cfg, pos):
     m = cfg.mla
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    q = head_proj(x, p["wq"])
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, rope(q_rope, pos, cfg.rope_theta)
 
@@ -359,13 +392,13 @@ def mla_attention(p, x, cfg, rules=None):
     pos = torch.arange(S, device=x.device)[None]
     q_nope, q_rope = _mla_q(p, x, cfg, pos)
     c_kv, k_rope = _mla_latent(p, x, cfg, pos)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    k_nope = head_proj(c_kv, p["w_uk"])
+    v = head_proj(c_kv, p["w_uv"])
     H = cfg.num_heads
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, -1)], -1)
     o = chunked_attention(torch.cat([q_nope, q_rope], -1), k, v, causal=True,
                           rules=rules)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), (c_kv, k_rope)
+    return out_proj(o, p["wo"]), (c_kv, k_rope)
 
 
 def mla_decode(p, x, cfg, cache_c, cache_kr, pos):
@@ -418,10 +451,10 @@ def apply_mlp(p, x, cfg, rules=None):
         h = cst(F.silu(x @ p["w1"])) * cst(x @ p["w3"])
     else:
         h = x @ p["w1"]
-        if "b1" in p:
-            h = h + p["b1"]
+        if "b1" in p:       # an fp32 bias keeps a bf16 stream bf16
+            h = h + p["b1"].to(h.dtype)
         h = cst(F.gelu(h, approximate="tanh"))   # jax.nn.gelu's default
     y = h @ p["w2"]
     if "b2" in p:
-        y = y + p["b2"]
+        y = y + p["b2"].to(y.dtype)
     return y

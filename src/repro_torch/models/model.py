@@ -180,22 +180,38 @@ def _tree_stack(trees: list):
 
 
 def _whole_seq(h, rules):
-    """The residual stream as a block works on it.  Under the train rules
-    it is split on ``seq`` between blocks (the reference's Megatron-style
-    constraint at each block's end); inside a block the reference's
+    """A sublayer's input as the sublayer works on it.  Under the train
+    rules the residual stream is split on ``seq`` (the reference's
+    Megatron-style constraint); inside a sublayer the reference's
     constraints split heads and ffn instead, and the sequence is whole:
     gathered on entry (and its gradient split again on the way back), so
     that DTensor can flatten batch and sequence into a product's rows."""
     return SH.constrain(h, ("batch", None, None), rules)
 
 
+def _norm_in(p_norm, h, cfg, rules):
+    """A sublayer's normed input: normed on the residual's split, then
+    whole on ``seq`` (``_whole_seq``)."""
+    return _whole_seq(L.apply_norm(p_norm, h, cfg.norm), rules)
+
+
+def _sub_out(y, rules):
+    """A sublayer's output as the residual takes it: its partial sums over
+    the split heads or ffn reduced onto the ``seq`` split (Megatron's
+    reduce-scatter).  Explicit, so that its gradient comes back whole on
+    ``seq`` (DTensor's backward of a partial-to-split redistribution is a
+    gather): a product whose gradient arrives split on ``seq`` would
+    flatten it into strided shards."""
+    return SH.constrain(y, ("batch", "seq", None), rules)
+
+
 def _cross_attention(p, h, enc_out, cfg, rules=None):
     """A ``dec`` block's cross-attention over the encoder's output ->
     (out, (xk, xv)).  The reference projects the encoder's K/V with no
     bk/bv (ROADMAP Queue 3)."""
-    hx = L.apply_norm(p["lnx"], h, cfg.norm)
-    xk = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wk"])
-    xv = torch.einsum("bsd,dhk->bshk", enc_out, p["xattn"]["wv"])
+    hx = _norm_in(p["lnx"], h, cfg, rules)
+    xk = L.head_proj(enc_out, p["xattn"]["wk"])
+    xv = L.head_proj(enc_out, p["xattn"]["wv"])
     return L.gqa_attention(p["xattn"], hx, cfg, cross_kv=(xk, xv),
                            rules=rules)
 
@@ -205,12 +221,12 @@ def _cross_decode(p, h, cache, cfg):
     frame of its cache; the reference's query takes no bq here, though
     its prefill adds it (ROADMAP Queue 3)."""
     hx = L.apply_norm(p["lnx"], h, cfg.norm)
-    q = torch.einsum("bsd,dhk->bshk", hx, p["xattn"]["wq"])
+    q = L.head_proj(hx, p["xattn"]["wq"])
     xk = cache["xk"]
     pos = torch.full((h.shape[0],), xk.shape[1] - 1, dtype=torch.int32,
                      device=h.device)
     o = L.decode_attention(q, xk, cache["xv"], pos)
-    return torch.einsum("bshk,hkd->bsd", o, p["xattn"]["wo"])
+    return L.out_proj(o, p["xattn"]["wo"])
 
 
 def _block_forward(kind, p, h, cfg, shared=None, enc_out=None, rules=None):
@@ -223,36 +239,40 @@ def _block_forward(kind, p, h, cfg, shared=None, enc_out=None, rules=None):
 
 def _block_body(kind, p, h, cfg, shared, enc_out, rules):
     p = _maybe_dequant(p)
-    h = _whole_seq(h, rules)
     if kind == "zamba_group":
         states = []
         for pm in p["mambas"]:
-            hn = L.apply_norm(pm["ln1"], h, cfg.norm)
-            y, st = SSM.mamba2_forward(pm["mamba"], hn, cfg, rules)
+            y, st = SSM.mamba2_forward(pm["mamba"],
+                                       _norm_in(pm["ln1"], h, cfg, rules),
+                                       cfg, rules)
             states.append(st)
-            h = h + y
-        hn = L.apply_norm(shared["ln1"], h, cfg.norm)
-        a, (k, v) = L.gqa_attention(shared["attn"], hn, cfg, rules=rules)
-        h = h + a
-        hn = L.apply_norm(shared["ln2"], h, cfg.norm)
-        h = h + L.apply_mlp(shared["mlp"], hn, cfg, rules)
+            h = h + _sub_out(y, rules)
+        a, (k, v) = L.gqa_attention(shared["attn"],
+                                    _norm_in(shared["ln1"], h, cfg, rules),
+                                    cfg, rules=rules)
+        h = h + _sub_out(a, rules)
+        h = h + _sub_out(L.apply_mlp(shared["mlp"],
+                                     _norm_in(shared["ln2"], h, cfg, rules),
+                                     cfg, rules), rules)
         return h, 0.0, {"mamba": _tree_stack(states),
                         "attn": {"k": k, "v": v}}
     if kind == "xlstm_group":
         m_states, s_state = [], None
         for idx in XLSTM_ORDER:
             if idx is None:
-                hn = L.apply_norm(p["s"]["ln1"], h, cfg.norm)
-                y, s_state = XL.slstm_forward(p["s"]["cell"], hn, cfg, rules)
+                y, s_state = XL.slstm_forward(
+                    p["s"]["cell"], _norm_in(p["s"]["ln1"], h, cfg, rules),
+                    cfg, rules)
             else:
                 pm = p["m"][idx]
-                hn = L.apply_norm(pm["ln1"], h, cfg.norm)
-                y, (C, n) = XL.mlstm_forward(pm["cell"], hn, cfg, rules)
+                y, (C, n) = XL.mlstm_forward(
+                    pm["cell"], _norm_in(pm["ln1"], h, cfg, rules), cfg,
+                    rules)
                 m_states.append({"C": C, "n": n})
-            h = h + y
+            h = h + _sub_out(y, rules)
         return h, 0.0, {"m": _tree_stack(m_states),
                         "s": dict(zip(("h", "c", "n", "m"), s_state))}
-    hn = L.apply_norm(p["ln1"], h, cfg.norm)
+    hn = _norm_in(p["ln1"], h, cfg, rules)
     if kind in MLA_KINDS:
         a, (c_kv, k_rope) = L.mla_attention(p["attn"], hn, cfg, rules)
         cache_out = {"c": c_kv, "kr": k_rope}
@@ -261,19 +281,21 @@ def _block_body(kind, p, h, cfg, shared, enc_out, rules):
                                     causal=kind != "enc", rules=rules)
         cache_out = {"k": k, "v": v}
     if cfg.parallel_block:
-        return h + a + L.apply_mlp(p["mlp"], hn, cfg, rules), 0.0, cache_out
-    h = h + a
+        return (h + _sub_out(a, rules)
+                + _sub_out(L.apply_mlp(p["mlp"], hn, cfg, rules), rules),
+                0.0, cache_out)
+    h = h + _sub_out(a, rules)
     if kind == "dec":
         a, (xk, xv) = _cross_attention(p, h, enc_out, cfg, rules)
-        h = h + a
+        h = h + _sub_out(a, rules)
         cache_out.update(xk=xk, xv=xv)
-    hn2 = L.apply_norm(p["ln2"], h, cfg.norm)
+    hn2 = _norm_in(p["ln2"], h, cfg, rules)
     aux = 0.0
     if kind in MOE_KINDS:
         m, aux = MOE.apply_moe(p["moe"], hn2, cfg, rules=rules)
     else:
         m = L.apply_mlp(p["mlp"], hn2, cfg, rules)
-    return h + m, aux, cache_out
+    return h + _sub_out(m, rules), aux, cache_out
 
 
 # aten's matrix products: what the reference's "dots" policy saves
@@ -533,7 +555,10 @@ def decode_step(params, cfg: ModelConfig, tokens, pos, caches, rules=None):
     params = _dequant_top(params)
     h = F.embedding(tokens[:, None], _lookup_table(params["embed"], rules))
     if cfg.family == "audio":
-        h = h + params["dec_pos"][pos.long()][:, None].to(h.dtype)
+        # a lookup, as the tokens' (DTensor indexes a split pos no other way
+        # in torch 2.11)
+        h = h + F.embedding(pos.long()[:, None],
+                            params["dec_pos"]).to(h.dtype)
     shared = params["shared"] if "shared" in params else None
     for st, blocks, cache in zip(build_stages(cfg), params["stages"], caches):
         if st.kind == "enc":        # the encoder does not run at decode

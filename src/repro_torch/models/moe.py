@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels as K
 from repro_torch.models.layers import ParamSpec
-from repro_torch.sharding import constrain, replicate
+from repro_torch.sharding import constrain, grad_like, replicate
 
 
 def moe_schema(cfg):
@@ -78,7 +78,8 @@ def apply_moe(p, x, cfg, *, group_size: int = 0, rules=None):
     n = T // g
     if n * g != T:      # the reference asserts the same (moe.py:59)
         raise ValueError(f"tokens {T} not divisible by group {g}")
-    xt = x.reshape(n, g, D)
+    # its gradient folds back into [B, S] as it was split (grad_like)
+    xt = grad_like(x.reshape(n, g, D))
     gates, top_g, top_i = route(p, xt, cfg)
 
     C = _capacity(g, K_, E, m.capacity_factor)
@@ -113,6 +114,10 @@ def apply_moe(p, x, cfg, *, group_size: int = 0, rules=None):
         hs = cst(hs, (None, None, "ffn"))
         y = y + hs @ p["shared_w2"]
 
+    # groups split on ``batch`` alone before they fold back into [B, S]:
+    # a group dim split over model too would not fold into a batch that
+    # the mesh cannot split as far
+    y = cst(y, ("batch", None, None))
     return y.reshape(B, S, D), _load_balance_loss(gates, top_i, E)
 
 

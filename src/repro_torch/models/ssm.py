@@ -71,8 +71,13 @@ def _proj_all(p, x, rules=None):
     BC = torch.cat([x @ p["w_B"], x @ p["w_C"]], -1)
     dt = x @ p["w_dt"]
     if rules is not None and x.ndim == 3:
-        z = SH.constrain(z, ("batch", None, "ssm_inner"), rules)
-        xs = SH.constrain(xs, ("batch", None, "ssm_inner"), rules)
+        # their gradients come back as they were split (grad_like): one
+        # split on seq would not flatten into the products' rows
+        z = SH.grad_like(SH.constrain(z, ("batch", None, "ssm_inner"),
+                                      rules))
+        xs = SH.grad_like(SH.constrain(xs, ("batch", None, "ssm_inner"),
+                                       rules))
+        BC, dt = SH.grad_like(BC), SH.grad_like(dt)
     return z, xs, BC, dt
 
 
@@ -100,6 +105,9 @@ def mamba2_forward(p, x, cfg, rules=None):
     y = y.reshape(B, S, nh, P) + p["D_skip"][:, None] * xs.float()
     y = y.reshape(B, S, d_in).to(x.dtype) * F.silu(z)
     y = apply_norm(p["norm"], y)
+    # whole on seq before the row-parallel product (DTensor would flatten
+    # a seq split of the scan's output into strided shards)
+    y = SH.grad_like(SH.constrain(y, ("batch", None, "ssm_inner"), rules))
     return y @ p["out_proj"], {"ssm": state, "conv": conv_tail}
 
 

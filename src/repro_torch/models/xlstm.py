@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import kernels as K
+from repro_torch import sharding as SH
 from repro_torch.models.layers import ParamSpec, apply_norm, norm_schema
 from repro_torch.models.ssm import pick_chunk
 from repro_torch.sharding import constrain
@@ -46,7 +47,9 @@ def mlstm_schema(cfg):
 
 def _mlstm_qkvgates(p, x, cfg):
     d_in, nh, dh = mlstm_dims(cfg)
-    up = x @ p["w_up"]
+    # its gradient comes back as it was split (a seq split would not
+    # flatten into the product's rows)
+    up = SH.grad_like(x @ p["w_up"])
     z, h_in = up[..., :d_in], up[..., d_in:]
     shp = x.shape[:-1]
     q = (h_in @ p["wq"]).reshape(*shp, nh, dh) * dh ** -0.5
@@ -74,6 +77,7 @@ def mlstm_forward(p, x, cfg, rules=None):
     y, C, n = K.mlstm_chunk_scan(c(q), c(k), c(v), cumf, li)
     y = y.reshape(B, S, d_in).to(x.dtype) * F.silu(z)
     y = apply_norm(p["norm"], y)
+    y = SH.grad_like(constrain(y, ("batch", None, "ssm_inner"), rules))
     return y @ p["w_down"], (C, n)
 
 
@@ -127,6 +131,9 @@ def _slstm_cell(p, xg, carry, cfg):
     B = xg.shape[0]
     h, c, n, m = carry
     rec = torch.einsum("bhd,ghde->bghe", h, p["r_gates"].float())
+    # whole over the gates: DTensor (torch 2.11) splits no split dim into
+    # subdims narrower than the split
+    xg = SH.whole_dims(xg, (1,))
     g = xg.reshape(B, 4, nh, dh).float() + rec
     zt = torch.tanh(g[:, 0])
     it = g[:, 1]                                     # log-space input gate
@@ -142,31 +149,55 @@ def _slstm_cell(p, xg, carry, cfg):
     return h_new, c, n, m_new
 
 
-def _slstm_out(p, y):
+def _slstm_out(p, y, rules=None):
+    """The sLSTM's norm and gated FFN; under ``rules`` its hidden is split
+    on ``ffn`` alone, as ``layers.apply_mlp``'s."""
     y = apply_norm(p["norm"], y)
-    return (F.silu(y @ p["ffn_w1"]) * (y @ p["ffn_w3"])) @ p["ffn_w2"]
+    cst = lambda t: constrain(t, ("batch", None, "ffn"), rules) \
+        if t.ndim == 3 else t
+    return (cst(F.silu(y @ p["ffn_w1"])) * cst(y @ p["ffn_w3"])) \
+        @ p["ffn_w2"]
 
 
 def slstm_forward(p, x, cfg, rules=None):
     """x [B,S,D] -> ([B,S,D], final (h, c, n, m)): a loop over time.
-    Under ``rules`` the gates and the state are pinned to batch-only
-    sharding before the loop, as the reference pins them: one gather
-    outside the loop, none per step."""
+    Under ``rules`` the gates are pinned to batch-only sharding before
+    the loop, as the reference pins them (one gather outside the loop,
+    none per step), and the loop runs on each rank's local rows."""
     B, S, D = x.shape
-    nh, dh = cfg.num_heads, D // cfg.num_heads
     xg = (x @ p["w_gates"]).float() + p["b_gates"]
     xg = constrain(xg, ("batch", None, None), rules)
-    carry = tuple(x.new_zeros(B, nh, dh, dtype=torch.float32)
+    if SH.is_dtensor(xg):
+        # the loop runs on each rank's rows of the batch: its S steps
+        # would each pay DTensor's dispatch on every op
+        xl, pl = SH.rows_local(xg, (0,))
+        hs, carry = _slstm_scan({"r_gates": SH.whole_local(p["r_gates"], pl)},
+                                xl, cfg)
+        mesh = xg.device_mesh
+        hs = SH.from_rows(hs, mesh, pl, (B, S, cfg.num_heads,
+                                         D // cfg.num_heads))
+        carry = tuple(SH.from_rows(t, mesh, pl, (B,) + tuple(t.shape[1:]))
+                      for t in carry)
+    else:
+        hs, carry = _slstm_scan(p, xg, cfg)
+    y = hs.reshape(B, S, D).to(x.dtype)
+    y = constrain(y, ("batch", None, None), rules)
+    return _slstm_out(p, y, rules), carry
+
+
+def _slstm_scan(p, xg, cfg):
+    """The loop over time of xg [B,S,4D] -> (h of every step [B,S,nh,dh],
+    final (h, c, n, m))."""
+    B, S = xg.shape[:2]
+    nh = cfg.num_heads
+    dh = cfg.d_model // nh
+    carry = tuple(xg.new_zeros(B, nh, dh, dtype=torch.float32)
                   for _ in range(4))
     hs = []
     for t in range(S):
         carry = _slstm_cell(p, xg[:, t], carry, cfg)
-        carry = tuple(constrain(t_, ("batch", None, None), rules)
-                      for t_ in carry)
         hs.append(carry[0])
-    y = torch.stack(hs, 1).reshape(B, S, D).to(x.dtype)
-    y = constrain(y, ("batch", None, None), rules)
-    return _slstm_out(p, y), carry
+    return torch.stack(hs, 1), carry
 
 
 def slstm_init_state(cfg, batch, device):

@@ -265,6 +265,74 @@ def pad(x, widths):
                               shape=torch.Size(shape), stride=tuple(stride))
 
 
+def rows_local(x, row_dims=(0, 1)):
+    """(``x``'s local shard, its placements) with ``x``'s splits of
+    ``row_dims`` kept and any other split, or partial sum, resolved
+    first; the shard's gradient comes back at those placements.  With
+    ``whole_local`` and ``from_rows``: a computation run on each rank's
+    rows, outside DTensor's dispatch."""
+    from torch.distributed.tensor import Replicate
+    pl = tuple(p if any(p.is_shard(d) for d in row_dims) else Replicate()
+               for p in x.placements)
+    return x.redistribute(x.device_mesh, pl).to_local(grad_placements=pl), pl
+
+
+def whole_local(w, pl):
+    """``w`` whole on every rank, as a local tensor: its gradient is a
+    partial sum over the mesh dims that split the rows (``pl``, from
+    ``rows_local``) and whole over the others."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = w.device_mesh
+    return w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=[Replicate() if p.is_replicate() else Partial()
+                         for p in pl])
+
+
+def from_rows(y, mesh, pl, shape):
+    """The DTensor of global ``shape`` whose rank-local rows are ``y``."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    return DTensor.from_local(y, mesh, pl, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def whole_dims(x, dims):
+    """A DTensor gathered on every mesh dim that splits one of ``dims``
+    (its other splits kept); anything else as it is."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = {d % x.ndim for d in dims}
+    want = tuple(Replicate() if p.is_shard() and p.dim in dims else p
+                 for p in x.placements)
+    return x if want == tuple(x.placements) else \
+        x.redistribute(x.device_mesh, want)
+
+
+def grad_like(x):
+    """``x`` unchanged, but its gradient redistributed to ``x``'s own
+    placements on the way back (a DTensor; anything else is returned as
+    it is).  A product's backward views its output's gradient: one that
+    arrives split on the sequence would flatten into strided shards."""
+    if not (isinstance(x, torch.Tensor) and is_dtensor(x)):
+        return x
+    return _GradLike.apply(x)
+
+
+class _GradLike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
 def constrain(x, axes: Tuple[Optional[str], ...], rules: Optional[dict]):
     """``with_sharding_constraint`` by logical axes: a DTensor is
     redistributed to the divisibility-checked placements of ``axes`` on its
@@ -287,4 +355,5 @@ def constrain(x, axes: Tuple[Optional[str], ...], rules: Optional[dict]):
 __all__ = ["DATA_AXES", "rules_for", "spec", "mesh_shape_of", "placements",
            "is_axes", "shardings_for", "tree_specs", "tree_shardings",
            "set_mesh", "current_mesh", "is_dtensor", "mesh_of", "to_mesh",
-           "to_plain", "replicate", "pad", "constrain"]
+           "to_plain", "replicate", "pad", "rows_local", "whole_local", "from_rows", "whole_dims",
+           "grad_like", "constrain"]

@@ -61,13 +61,27 @@ def _plain(tree, mesh):
     return tree if mesh is None else SH.to_plain(tree)
 
 
+def _whole_vocab(logits, rules):
+    """Logits [B, V] whole over the vocab on every rank before the argmax
+    (DTensor's argmax over a split vocab fails on a batch it cannot
+    split, as a long context's batch of 1)."""
+    return SH.constrain(logits, ("batch", None), rules)
+
+
 def cross_entropy(logits, labels, z_loss: float = 1e-4):
     """fp32 CE over the vocab + z-loss; labels == -100 are masked."""
     logits = logits.float()
     lse = torch.logsumexp(logits, -1)
     mask = labels >= 0
     lab = torch.where(mask, labels, 0).long()
-    gold = logits.gather(-1, lab[..., None])[..., 0]
+    if SH.is_dtensor(logits):
+        # gather's backward makes a zero tensor of the global shape on
+        # every rank (DTensor: the whole [B, S, V] logits); a select by
+        # a mask keeps each rank at its shard, with the same values
+        vocab = torch.arange(logits.shape[-1], device=lab.device)
+        gold = torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    else:
+        gold = logits.gather(-1, lab[..., None])[..., 0]
     ce = (lse - gold) * mask
     zl = z_loss * lse.square() * mask
     denom = torch.clamp_min(mask.sum(), 1)
@@ -141,7 +155,7 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int, *, rules=None):
             logits, caches = M.prefill(params, cfg,
                                        _placed(batch, mesh, rules),
                                        cache_len, rules=rules)
-            last = logits[:, -1]
+            last = _whole_vocab(logits[:, -1], rules)
             next_tok = last.argmax(-1).to(torch.int32)
             out = {"next_tokens": next_tok, "last_logits": last}
         return _plain(out, mesh), caches
@@ -181,6 +195,7 @@ def make_decode_step(cfg: ModelConfig, sample: str = "greedy", *,
             logits, caches = M.decode_step(
                 params, cfg, *_placed((tokens, pos), mesh, rules), caches,
                 rules=rules)
+            logits = _whole_vocab(logits, rules)
             next_tok = logits.argmax(-1).to(torch.int32)
         return (*_plain((next_tok, logits), mesh), caches)
     return decode_step

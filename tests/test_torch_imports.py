@@ -55,7 +55,9 @@ def test_import_loads_no_jax():
             "repro_torch.data.pipeline", "repro_torch.runtime",
             "repro_torch.runtime.checkpoint",
             "repro_torch.runtime.straggler",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.analysis",
+            "repro_torch.analysis.cost", "repro_torch.analysis.roofline",
+            "repro_torch.launch.dryrun"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -84,7 +86,10 @@ def test_import_loads_no_jax():
     ("repro_torch.launch.train", "repro_torch.training.grad_compress",
      "repro_torch.runtime.straggler"),
     ("repro_torch.sharding", "repro_torch.launch.mesh",
-     "repro_torch.runtime.elastic")],
+     "repro_torch.runtime.elastic"),
+    ("repro_torch.analysis", "repro_torch.analysis.cost",
+     "repro_torch.analysis.roofline"),
+    ("repro_torch.launch.dryrun",)],
     ids=lambda m: m[0].removeprefix("repro_torch."))
 def test_recording_session_modules_load_no_jax_or_msgpack(mods):
     """The CODY session's modules alone: metastate sync frames through
@@ -115,6 +120,28 @@ def test_import_starts_no_process_group(mods):
             "import torch.distributed as dist\n"
             "assert not dist.is_initialized()\n"
             "assert 'torch.distributed.tensor' not in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("mods", [
+    ("repro_torch", "repro_torch.analysis"),
+    ("repro_torch.analysis.cost", "repro_torch.analysis.roofline",
+     "repro_torch.launch.dryrun")], ids=["analysis", "dryrun"])
+def test_import_loads_no_fake_process_group(mods):
+    """The fake process group (``torch.testing._internal.distributed``)
+    loads only when the dry run starts a world, never on import.  (Import
+    of ``torch`` itself loads other parts of ``torch.testing._internal``
+    in recent versions; none of them starts or fakes a world.)"""
+    code = (f"import importlib, sys\nfor m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.startswith(\n"
+            "    'torch.testing._internal.distributed'))\n"
+            "assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)

@@ -193,6 +193,24 @@ def test_every_custom_op_has_a_strategy():
     assert sorted(names) == sorted(ops) and len(names) == 12
 
 
+@pytest.mark.parametrize("dims,kept", [((0,), (1, 2)), ((-1,), (0, 1)),
+                                       ((0, 2), (1,))])
+def test_flip_and_roll_strategies_split_only_the_dims_they_keep(dims,
+                                                                kept):
+    """``aten.flip``'s and ``aten.roll``'s rows (registered where DTensor
+    has none, as in torch 2.11): a split on a flipped or rolled dim would
+    move data within each shard only, so only the kept dims split."""
+    from torch.distributed.tensor import Replicate, Shard
+    x = types.SimpleNamespace(ndim=3, placements=())
+    rows = _sharding._flip(x, list(dims))
+    assert rows[:-1] == [([Shard(d)], [Shard(d), None]) for d in kept]
+    assert rows[-1] == ([Replicate()], [Replicate(), None])
+    rows = _sharding._roll(x, [1] * len(dims), list(dims))
+    assert rows[:-1] == [([Shard(d)], [Shard(d), None, None]) for d in kept]
+    assert rows[-1] == ([Replicate()], [Replicate(), None, None])
+    assert _sharding._roll(x, [1]) == [([Replicate()], [Replicate(), None])]
+
+
 @pytest.mark.parametrize("shape,counts,want", [
     ((2, 2), (4, 2), True),      # split 2 ways: 2 | 4 and 2 | 2
     ((1, 4), (4, 2), True),      # 4 parts exceed Hkv: DTensor drops them
